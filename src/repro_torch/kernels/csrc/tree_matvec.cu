@@ -1,0 +1,240 @@
+// Tree-constraint matvecs of the nvPAX PDHG loop, written for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/tree_matvec/kernel.py:
+//   tree_matvec  (_blocked_prefix + _gather_kernel)   out[j] = csum[end_j] - csum[start_j]
+//   tree_rmatvec (_scatter_diff_kernel + _blocked_prefix)   the adjoint
+//
+// What bounds it on this card: memory traffic and launch latency.  At the
+// paper's fleet (n = 12,288 devices, m = 1,637 tree rows) each call moves
+// about 0.1-0.2 MB, well under a microsecond at 3.35 TB/s, so the three
+// launches of a call cost more than the bytes.
+//
+// Design.  The TPU version carries a prefix sum across a sequential grid.
+// Hopper blocks run in no order, so the scan is written as three passes:
+//   1. scan_tiles: each block scans a tile of kTile positions (kItems per
+//      thread sequentially, then warp shuffles, then the warp totals through
+//      shared memory) and writes the tile's inclusive prefix and its total;
+//   2. scan_totals: one block scans the per-tile totals into per-tile
+//      offsets, looping over them with a carry, so any n is covered;
+//   3. gather_rows (matvec) reads csum at both ends of every row, adding the
+//      tile offset on the fly; add_offsets (rmatvec) adds the tile offset to
+//      every position.
+// The adjoint does no atomics.  Its difference array is never stored: once
+// per topology the host sorts the rows into CSR lists "rows starting at p"
+// and "rows ending at p" (row order kept), and scan_tiles sums each
+// position's lists in that fixed order while loading it.  That is the order
+// a sequential index_add_ adds in, so the difference array is exact and the
+// result is the same from run to run.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kItems = 4;
+constexpr int kTile = kThreads * kItems;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Exclusive scan of one value per thread over the block.  `sums` holds
+// kWarps + 1 entries of shared memory; `total` receives the block's sum.
+template <typename T>
+__device__ T block_exclusive_scan(T v, T* sums, T& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T u = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += u;
+  }
+  T excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = T(0);
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const T w = lane < kWarps ? sums[lane] : T(0);
+    T wi = w;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const T u = __shfl_up_sync(kFull, wi, d);
+      if (lane >= d) wi += u;
+    }
+    T we = __shfl_up_sync(kFull, wi, 1);
+    if (lane == 0) we = T(0);
+    if (lane < kWarps) sums[lane] = we;
+    if (lane == kWarps - 1) sums[kWarps] = wi;
+  }
+  __syncthreads();
+  const T out = excl + sums[warp];
+  total = sums[kWarps];
+  __syncthreads();  // `sums` may be reused by the caller's next scan
+  return out;
+}
+
+// Value at position p for tree_matvec: the device vector itself.
+template <typename T>
+struct DenseLoad {
+  const T* x;
+  __device__ T operator()(int64_t p) const { return x[p]; }
+};
+
+// Value at position p for tree_rmatvec: the difference array entry
+// +sum(y of rows starting at p) - sum(y of rows ending at p), in row order.
+template <typename T>
+struct DiffLoad {
+  const T* y;
+  const int32_t* start_ptr;
+  const int32_t* start_rows;
+  const int32_t* end_ptr;
+  const int32_t* end_rows;
+  __device__ T operator()(int64_t p) const {
+    T acc = T(0);
+    for (int32_t k = start_ptr[p]; k < start_ptr[p + 1]; ++k) acc += y[start_rows[k]];
+    for (int32_t k = end_ptr[p]; k < end_ptr[p + 1]; ++k) acc -= y[end_rows[k]];
+    return acc;
+  }
+};
+
+// Pass 1: tile-local inclusive prefix of positions [0, n) into `local`,
+// the tile's sum into totals[blockIdx.x].
+template <typename T, typename Load>
+__global__ void __launch_bounds__(kThreads)
+    scan_tiles(Load load, int64_t n, T* local, T* totals) {
+  __shared__ T sums[kWarps + 1];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile +
+                       static_cast<int64_t>(threadIdx.x) * kItems;
+  T run[kItems];
+  T acc = T(0);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int64_t p = base + i;
+    if (p < n) acc += load(p);
+    run[i] = acc;
+  }
+  T total;
+  const T off = block_exclusive_scan(acc, sums, total);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int64_t p = base + i;
+    if (p < n) local[p] = off + run[i];
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = total;
+}
+
+// Pass 2: exclusive prefix of the nb tile totals, one block with a carry.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    scan_totals(const T* totals, int64_t nb, T* offsets) {
+  __shared__ T sums[kWarps + 1];
+  T carry = T(0);
+  for (int64_t b0 = 0; b0 < nb; b0 += kThreads) {
+    const int64_t b = b0 + threadIdx.x;
+    const T v = b < nb ? totals[b] : T(0);
+    T total;
+    const T excl = block_exclusive_scan(v, sums, total);
+    if (b < nb) offsets[b] = carry + excl;
+    carry += total;
+  }
+}
+
+// csum[p] = x[0] + ... + x[p-1], from the tile prefix and the tile offset.
+template <typename T>
+__device__ __forceinline__ T prefix_at(const T* local, const T* offsets, int64_t p) {
+  if (p <= 0) return T(0);
+  return local[p - 1] + offsets[(p - 1) / kTile];
+}
+
+// Pass 3 of tree_matvec: out[j] = csum[end_j] - csum[start_j].
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    gather_rows(const T* local, const T* offsets, const int32_t* start, const int32_t* end,
+                int64_t m, T* out) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (j < m) out[j] = prefix_at(local, offsets, end[j]) - prefix_at(local, offsets, start[j]);
+}
+
+// Pass 3 of tree_rmatvec: out[i] += offset of i's tile (out holds the tile prefix).
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    add_offsets(const T* offsets, int64_t n, T* out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (i < n) out[i] += offsets[i / kTile];
+}
+
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+template <typename T>
+int tree_matvec_impl(int device, const T* x, const int32_t* start, const int32_t* end,
+                     T* local, T* totals, T* offsets, T* out, int64_t n, int64_t m,
+                     cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t nb = ceil_div(n, kTile);
+  if (nb > 0) {
+    scan_tiles<T><<<static_cast<unsigned>(nb), kThreads, 0, stream>>>(DenseLoad<T>{x}, n, local,
+                                                                      totals);
+    scan_totals<T><<<1, kThreads, 0, stream>>>(totals, nb, offsets);
+  }
+  if (m > 0) {
+    gather_rows<T><<<static_cast<unsigned>(ceil_div(m, kRowThreads)), kRowThreads, 0, stream>>>(
+        local, offsets, start, end, m, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int tree_rmatvec_impl(int device, const T* y, const int32_t* start_ptr, const int32_t* start_rows,
+                      const int32_t* end_ptr, const int32_t* end_rows, T* totals, T* offsets,
+                      T* out, int64_t n, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t nb = ceil_div(n, kTile);
+  if (nb > 0) {
+    const DiffLoad<T> load{y, start_ptr, start_rows, end_ptr, end_rows};
+    scan_tiles<T><<<static_cast<unsigned>(nb), kThreads, 0, stream>>>(load, n, out, totals);
+    scan_totals<T><<<1, kThreads, 0, stream>>>(totals, nb, offsets);
+    add_offsets<T><<<static_cast<unsigned>(ceil_div(n, kRowThreads)), kRowThreads, 0, stream>>>(
+        offsets, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tile size of the scan; the wrapper sizes the totals/offsets scratch with it.
+int tree_scan_tile() { return kTile; }
+
+int tree_matvec_f64(int device, const double* x, const int32_t* start, const int32_t* end,
+                    double* local, double* totals, double* offsets, double* out, int64_t n,
+                    int64_t m, void* stream) {
+  return tree_matvec_impl<double>(device, x, start, end, local, totals, offsets, out, n, m,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+int tree_matvec_f32(int device, const float* x, const int32_t* start, const int32_t* end,
+                    float* local, float* totals, float* offsets, float* out, int64_t n,
+                    int64_t m, void* stream) {
+  return tree_matvec_impl<float>(device, x, start, end, local, totals, offsets, out, n, m,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+int tree_rmatvec_f64(int device, const double* y, const int32_t* start_ptr,
+                     const int32_t* start_rows, const int32_t* end_ptr, const int32_t* end_rows,
+                     double* totals, double* offsets, double* out, int64_t n, void* stream) {
+  return tree_rmatvec_impl<double>(device, y, start_ptr, start_rows, end_ptr, end_rows, totals,
+                                   offsets, out, n, static_cast<cudaStream_t>(stream));
+}
+
+int tree_rmatvec_f32(int device, const float* y, const int32_t* start_ptr,
+                     const int32_t* start_rows, const int32_t* end_ptr, const int32_t* end_rows,
+                     float* totals, float* offsets, float* out, int64_t n, void* stream) {
+  return tree_rmatvec_impl<float>(device, y, start_ptr, start_rows, end_ptr, end_rows, totals,
+                                  offsets, out, n, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

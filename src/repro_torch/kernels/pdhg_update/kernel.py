@@ -1,0 +1,108 @@
+"""ctypes wrappers of the fused CUDA PDHG update kernels
+(``csrc/pdhg_update.cu``).
+
+Replace ``repro/kernels/pdhg_update/kernel.py:primal_update`` and
+``:dual_prox`` (Pallas, TPU).  The source's header comment gives the design
+and what bounds it.  Each wrapper checks its inputs, allocates its outputs
+with ``torch.empty``, launches on the current stream, raises on a non-zero
+``cudaGetLastError``, and counts its launches in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["LAUNCHES", "primal_update", "dual_prox"]
+
+LAUNCHES = {"primal_update": 0, "dual_prox": 0}
+
+
+def _check(names: str, tensors, n: int, like: torch.Tensor) -> None:
+    if like.device.type != "cuda":
+        raise ValueError(f"expected CUDA tensors, got {like.device}")
+    if like.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"expected float64 or float32, got {like.dtype}")
+    for name, v in zip(names.split(), tensors):
+        if v.device != like.device or v.dtype != like.dtype:
+            raise ValueError(f"{name} must be {like.dtype} on {like.device}")
+        if v.shape != (n,) or not v.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous of shape ({n},), got {tuple(v.shape)}"
+            )
+
+
+def _step(name: str, s, n: int, like: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """A step size as (buffer, stride): a [n] vector read with stride 1, or
+    one scalar (Python number or 0-d tensor) broadcast with stride 0."""
+    if not isinstance(s, torch.Tensor):
+        return torch.full((1,), float(s), dtype=like.dtype, device=like.device), 0
+    if s.ndim == 0:
+        if s.device != like.device or s.dtype != like.dtype:
+            raise ValueError(f"{name} must be {like.dtype} on {like.device}")
+        return s.reshape(1), 0
+    _check(name, (s,), n, like)
+    return s, 1
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def primal_update(x, gx, c, w, target, lo, hi, tau):
+    """(x1, xe) of the fused primal prox + extrapolation."""
+    n = x.shape[0]
+    _check("x gx c w target lo hi", (x, gx, c, w, target, lo, hi), n, x)
+    tau_buf, tau_stride = _step("tau", tau, n, x)
+    x1 = torch.empty_like(x)
+    xe = torch.empty_like(x)
+    fn = getattr(_build.library(), f"primal_update_{_suffix(x.dtype)}")
+    err = fn(
+        x.device.index,
+        x.data_ptr(),
+        gx.data_ptr(),
+        c.data_ptr(),
+        w.data_ptr(),
+        target.data_ptr(),
+        lo.data_ptr(),
+        hi.data_ptr(),
+        tau_buf.data_ptr(),
+        tau_stride,
+        n,
+        x1.data_ptr(),
+        xe.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(err, "primal_update")
+    LAUNCHES["primal_update"] += 1
+    return x1, xe
+
+
+def dual_prox(y, a, sigma, lo, hi):
+    """z - sigma * clip(z / sigma, lo, hi) with z = y + sigma * a."""
+    n = y.shape[0]
+    _check("y a lo hi", (y, a, lo, hi), n, y)
+    sig_buf, sig_stride = _step("sigma", sigma, n, y)
+    out = torch.empty_like(y)
+    fn = getattr(_build.library(), f"dual_prox_{_suffix(y.dtype)}")
+    err = fn(
+        y.device.index,
+        y.data_ptr(),
+        a.data_ptr(),
+        sig_buf.data_ptr(),
+        sig_stride,
+        lo.data_ptr(),
+        hi.data_ptr(),
+        n,
+        out.data_ptr(),
+        torch.cuda.current_stream(y.device).cuda_stream,
+    )
+    _raise_on(err, "dual_prox")
+    LAUNCHES["dual_prox"] += 1
+    return out
