@@ -3,9 +3,10 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py               # exits non-zero on any failure
-    python3 chip_smoke.py --profile     # also profiles one control step
-    python3 chip_smoke.py --out DIR     # where the details go
+    python3 chip_smoke.py                 # exits non-zero on any failure
+    python3 chip_smoke.py --profile       # also profiles two control steps
+    python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
+    python3 chip_smoke.py --out DIR       # where the details go
 
 Phases, each of which raises on failure:
 
@@ -13,8 +14,10 @@ Phases, each of which raises on failure:
 2. build the CUDA kernels (``src/repro_torch/kernels/csrc``) and print the
    ``nvcc -Xptxas -v`` summary;
 3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes (the paper's fleet: n = 12,288 devices, m = 1,637 tree
-   rows) and at block edges, in float64 and float32;
+   paths' shapes (the paper's fleet: n = 12,288 devices, m = 1,637 tree
+   rows; Appendix B: k = 100 tenants, E = 10,000 edges) and at block edges,
+   in float64 and float32; the tenant pair also against its CPU plain
+   version bit for bit, and over repeated launches;
 4. the main path: five warm-started control steps of
    ``repro_torch.core.nvpax.optimize`` on ``build_datacenter()`` with
    telemetry requests, through the kernels
@@ -24,7 +27,17 @@ Phases, each of which raises on failure:
 5. the paper's iterated max-min LP path (``use_waterfill=False``) on a
    1,536-device fleet, with the same checks;
 6. each kernel's time on the card (CUDA events; see :func:`time_calls`)
-   beside its plain version's and its bound.
+   beside its plain version's, its bound and, for the tree and tenant
+   pairs, a CSR sparse matrix-vector product on the same incidence;
+7. the serving path on a tenant fleet: ``PowerController.step`` on the
+   paper's fleet with the Appendix B tenants (100 x 100 devices), every
+   kernel flag on, three cold steps, each checked for certification,
+   breaker caps, tenant contracts, and Phase I and useful power against the
+   port's CPU run (the caps' distance from it is measured and reported, see
+   :func:`tenant_engine_phase`); then a repeated step (identical bits) and
+   a supply re-pin (no rebuild).
+   ``--warm-tenants`` adds one warm-carried step (iterations and
+   certificate only).
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -35,10 +48,12 @@ measurement) go to ``DIR/chip_smoke.json``, by default under
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,6 +63,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch.kernels as kernels  # noqa: E402
+from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core.nvpax import NvpaxOptions, optimize  # noqa: E402
 from repro_torch.core.problem import AllocProblem, FleetTopology  # noqa: E402
 from repro_torch.core.solver import SolverOptions  # noqa: E402
@@ -57,7 +73,9 @@ from repro_torch.kernels.pdhg_update import ref as pref  # noqa: E402
 from repro_torch.kernels.tree_matvec import kernel as tk  # noqa: E402
 from repro_torch.kernels.tree_matvec import ref as tref  # noqa: E402
 from repro_torch.pdn.telemetry import TelemetrySim, TraceConfig  # noqa: E402
+from repro_torch.pdn.tenants import appendix_b_layout  # noqa: E402
 from repro_torch.pdn.tree import build_datacenter  # noqa: E402
+from repro_torch.power import ControllerConfig, PowerController  # noqa: E402
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3, 34 TFLOP/s FP64 and
 # 67 TFLOP/s FP32 outside the tensor cores, at the 700 W power limit.
@@ -78,6 +96,29 @@ PARITY_TOL = 1e-6  # watts: card run vs the port's CPU run
 # beside each limit.
 ELEM_TOL = {"float64": 1e-13, "float32": 4 * 2.0**-23}
 TREE_TOL = {"float64": 1e-12, "float32": 4 * 2.0**-24}
+# The tenant kernels sum each list in edge order, so they equal the CPU
+# plain version bit for bit (checked exactly); against the plain version on
+# the card, whose index_add_ adds with atomics, they are held to TREE_TOL
+# of sum|terms|.  The chunk statistics' accumulator and maxima are exact
+# (ELEM_TOL); their sums add in another order than torch.sum and are held
+# to 8 unit roundoffs of the sum (all terms are squares), 4x the largest
+# |d| / sum measured on an NVIDIA H100 80GB HBM3 (2 unit roundoffs).
+STATS_TOL = {"float64": 8 * 2.0**-53, "float32": 8 * 2.0**-24}
+LIMITS = {
+    "tree_matvec": TREE_TOL,
+    "tree_rmatvec": TREE_TOL,
+    "sla_matvec": TREE_TOL,
+    "sla_rmatvec": TREE_TOL,
+    "primal_update": ELEM_TOL,
+    "dual_prox": ELEM_TOL,
+    "primal_chunk_stats": ELEM_TOL,
+    "dual_chunk_stats": ELEM_TOL,
+    "primal_chunk_stats sums": STATS_TOL,
+    "dual_chunk_stats sums": STATS_TOL,
+}
+# the serving path on the tenant fleet: telemetry samples of its cold steps
+ENGINE_SAMPLES = (0, 1, 2)
+SLA_FEAS_TOL = 1e-6  # watts: tenant sums inside [b_min, b_max]
 
 
 def log(*args) -> None:
@@ -134,10 +175,15 @@ def timed_steps(pdn_, requests, priority, options, device):
     return out
 
 
+# the kernels of the tree-only optimize paths (phases 4 and 5)
+OPTIMIZE_KERNELS = ("tree_matvec", "tree_rmatvec", "primal_update", "dual_prox")
+
+
 def run_steps(tag, pdn_, requests, options, seed, device="cuda"):
     """Warm-started control steps on ``device`` with three priority levels
     drawn from ``seed``, each checked against the port's CPU run of the same
-    steps; returns (rows, launch counts of the run on ``device``)."""
+    steps; returns (rows, launch counts of the run on ``device``), and fails
+    if a kernel of the path never launched."""
     priority = np.random.default_rng(seed).integers(1, 4, pdn_.n)
     kernels.reset_launch_counts()
     card = timed_steps(pdn_, requests, priority, options, device)
@@ -168,7 +214,7 @@ def run_steps(tag, pdn_, requests, options, seed, device="cuda"):
             f"card vs cpu {diff:.2e} W, cap excess {over:.2e} W, "
             f"{row['total_w']:.0f} W allocated")
     log(f"[{tag}] launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in OPTIMIZE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
     return rows, launches
@@ -226,7 +272,14 @@ def time_calls(fn, reps: int = 20, rounds: int = 5) -> tuple[float, float]:
 
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true", help="profile one step")
+    parser.add_argument(
+        "--profile", action="store_true", help="profile a warm step and a cold tenant step"
+    )
+    parser.add_argument(
+        "--warm-tenants",
+        action="store_true",
+        help="also run one warm-carried step on the tenant fleet (iterations only)",
+    )
     parser.add_argument("--out", default=str(ROOT / "artifacts" / "chip_smoke"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -296,7 +349,7 @@ def main(argv: list[str]) -> int:
         largest |d| of each kernel at the main shape in float64."""
         n_checks[0] += 1
         torch.cuda.synchronize()
-        limit = (TREE_TOL if name_.startswith("tree") else ELEM_TOL)[key]
+        limit = LIMITS[name_][key]
         # equal infinities match; a NaN anywhere is a mismatch
         err = torch.where(got == want, 0.0, (got - want).abs())
         rel = err / scale
@@ -308,7 +361,57 @@ def main(argv: list[str]) -> int:
             )
         worst[key][name_] = max(worst[key].get(name_, 0.0), float(rel.max()))
         if main_shape:
-            max_err[name_] = max(max_err.get(name_, 0.0), float(err.max()))
+            kernel_name = name_.split()[0]
+            max_err[kernel_name] = max(max_err.get(kernel_name, 0.0), float(err.max()))
+
+    def same_bits(name_, got, want):
+        """The kernel's result is the plain CPU version's, bit for bit."""
+        n_checks[0] += 1
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name_} (n={got.numel()}) differs from the CPU plain version")
+
+    def check_sla(n, k, e, dtype, main_shape, dev=None, ten=None):
+        """Tenant sums over e edges: devices may sit in several tenants."""
+        key = str(dtype).split(".")[-1]
+        if dev is None:
+            dev, ten = rng.integers(0, n, e), rng.integers(0, k, e)
+        idx = tk.sla_index(dev, ten, k, n, cuda)
+        dev64, ten64 = idx.dev.long(), idx.ten.long()
+        x = on_card(rng.normal(size=n), dtype)
+        y = on_card(rng.normal(size=k), dtype)
+        for name_, fn, ref, v, gather in (
+            ("sla_matvec", tk.sla_matvec, lambda v_, d, t: tref.sla_matvec_ref(v_, d, t, k),
+             x, dev64),
+            ("sla_rmatvec", tk.sla_rmatvec, lambda v_, d, t: tref.sla_rmatvec_ref(v_, d, t, n),
+             y, ten64),
+        ):
+            got = fn(v, idx)
+            if e == 0:
+                n_checks[0] += 1
+                if bool(got.any()):
+                    raise AssertionError(f"{name_} without edges is not zero")
+                continue
+            check(name_, key, got, ref(v, dev64, ten64), float(v[gather].abs().sum()), main_shape)
+            same_bits(name_, got, ref(v.cpu(), dev64.cpu(), ten64.cpu()))
+            for _ in range(3):  # no atomics: every launch gives the same bits
+                n_checks[0] += 1
+                if not torch.equal(fn(v, idx), got):
+                    raise AssertionError(f"{name_} (n={n}) differs between launches")
+
+    def check_stats(n, dtype, main_shape):
+        key = str(dtype).split(".")[-1]
+        vecs = [on_card(rng.normal(size=n) * 100.0, dtype) for _ in range(4)]
+        for name_, fn, ref, args, n_max in (
+            ("primal_chunk_stats", pk.primal_chunk_stats, pref.primal_chunk_stats_ref, vecs, 2),
+            ("dual_chunk_stats", pk.dual_chunk_stats, pref.dual_chunk_stats_ref, vecs[:3], 0),
+        ):
+            got, want = fn(*args, 3.0), ref(*args, 3.0)
+            # accumulator and maxima exact, sums to STATS_TOL of the sum
+            for i, (g, r) in enumerate(zip(got, want)):
+                if i <= n_max:
+                    check(name_, key, g, r, r.abs().clamp_min(1.0), main_shape)
+                else:
+                    check(f"{name_} sums", key, g, r, r.clamp_min(1e-300), main_shape)
 
     def check_tree(n, start, end, dtype, main_shape):
         key = str(dtype).split(".")[-1]
@@ -346,16 +449,25 @@ def main(argv: list[str]) -> int:
             want = pref.dual_prox_ref(y, a, sigma, lo, hi)
             check("dual_prox", key, got, want, want.abs().clamp_min(1.0), main_shape)
 
+    layout = appendix_b_layout(pdn, seed=0)
+    b_dev = np.nonzero(layout.tenant_of >= 0)[0]
+    b_ten = layout.tenant_of[b_dev]
     t0 = time.perf_counter()
     for dtype in (torch.float64, torch.float32):
         main = dtype == torch.float64
         check_tree(n_main, pdn.node_start, pdn.node_end, dtype, main)
         check_elementwise(n_main, dtype, main)
         check_elementwise(m_main, dtype, main)
+        check_sla(n_main, layout.n_tenants, b_dev.size, dtype, main, b_dev, b_ten)
+        check_stats(n_main, dtype, main)
+        check_stats(m_main, dtype, main)
+        check_sla(1000, 7, 0, dtype, False)  # no edges
         for n in edge_sizes:
             s, e = random_rows(n, min(2 * n, 5000) + 4)
             check_tree(n, s, e, dtype, False)
             check_elementwise(n, dtype, False)
+            check_sla(n, max(1, n // 50), min(3 * n, 300_000), dtype, False)
+            check_stats(n, dtype, False)
     log(f"[3] {n_checks[0]} kernel-vs-plain checks passed in {time.perf_counter() - t0:.1f} s "
         f"(tile {tile}, elementwise grid {grid} threads; n in {edge_sizes}); max |d| at "
         f"n={n_main}, m={m_main}, float64: "
@@ -363,14 +475,13 @@ def main(argv: list[str]) -> int:
     for key, per_kernel in worst.items():
         log(f"[3] {key}, all sizes, largest |d| / scale (limit): "
             + ", ".join(
-                f"{k} {v:.3e} ({(TREE_TOL if k.startswith('tree') else ELEM_TOL)[key]:.3e})"
-                for k, v in sorted(per_kernel.items())
+                f"{k} {v:.3e} ({LIMITS[k][key]:.3e})" for k, v in sorted(per_kernel.items())
             ))
     report["kernel_checks"] = {
         "count": n_checks[0],
         "max_abs_err_f64": max_err,
         "max_rel_err": worst,
-        "limits": {"elementwise": ELEM_TOL, "tree": TREE_TOL},
+        "limits": LIMITS,
     }
 
     # -- 4/5. control steps on the card vs the port's CPU run ---------------
@@ -382,8 +493,9 @@ def main(argv: list[str]) -> int:
         "4", pdn, telemetry_requests(pdn, STEPS, 0), NvpaxOptions(solver=kernel_opts), 0
     )
     report["main_path"] = {"n": n_main, "m": m_main, "steps": main_rows, "launches": main_launches}
-    # the same steps on the card through plain torch alone, for the step
-    # time the kernels replace
+    # the same steps on the card with the kernel flags off, for the step
+    # time the kernels replace (the scatter sums keep their deterministic
+    # kernels there too, see repro_torch.core.treeops)
     plain = timed_steps(
         pdn, telemetry_requests(pdn, STEPS, 0), np.random.default_rng(0).integers(1, 4, pdn.n),
         NvpaxOptions(), cuda,
@@ -394,7 +506,7 @@ def main(argv: list[str]) -> int:
         feasibility(pdn, res.allocation)
         if row["plain_phase_iterations"] != row["phase_iterations"]:
             raise AssertionError(f"plain torch on the card took other iterations: {row}")
-    log("[4] the same steps through plain torch on the card: "
+    log("[4] the same steps with the kernel flags off on the card: "
         + ", ".join(f"{w * 1e3:.1f} ms" for _, w in plain))
 
     pdn_lp = build_datacenter(n_halls=2, racks_per_hall=6)
@@ -415,6 +527,27 @@ def main(argv: list[str]) -> int:
     start64, end64 = idx.start.long(), idx.end.long()
     xv = on_card(rng.normal(size=n_main), f64)
     yv = on_card(rng.normal(size=m_main), f64)
+    k_b, e_b = layout.n_tenants, b_dev.size
+    sidx = tk.sla_index(b_dev, b_ten, k_b, n_main, cuda)
+    sdev64, sten64 = sidx.dev.long(), sidx.ten.long()
+    ys = on_card(rng.normal(size=k_b), f64)
+    stat_args = [on_card(rng.normal(size=n_main) * 100.0, f64) for _ in range(4)]
+    # the library's yardstick: one CSR sparse matrix-vector product by the
+    # same incidence (interval rows for the tree, tenant rows for the SLAs)
+    tree_rows = np.repeat(np.arange(m_main), pdn.node_end - pdn.node_start)
+    tree_cols = np.concatenate([np.arange(a, b) for a, b in zip(pdn.node_start, pdn.node_end)])
+    a_tree, a_tree_t = csr_pair(tree_rows, tree_cols, m_main, n_main, cuda)
+    a_sla, a_sla_t = csr_pair(b_ten, b_dev, k_b, n_main, cuda)
+    for name_, got, want in (
+        ("tree_matvec", torch.mv(a_tree, xv), tk.tree_matvec(xv, idx)),
+        ("tree_rmatvec", torch.mv(a_tree_t, yv), tk.tree_rmatvec(yv, idx)),
+        ("sla_matvec", torch.mv(a_sla, xv), tk.sla_matvec(xv, sidx)),
+        ("sla_rmatvec", torch.mv(a_sla_t, ys), tk.sla_rmatvec(ys, sidx)),
+    ):
+        d = float((got - want).abs().max())
+        if not d <= 1e-9 * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"the CSR product disagrees with {name_}: {d:.3e}")
+    n_touched = np.unique(b_dev).size
     args_p = [on_card(rng.normal(size=n_main), f64) for _ in range(8)]
     args_p[3] = args_p[3].abs()
     args_p[7] = args_p[7].abs() + 0.01
@@ -449,24 +582,62 @@ def main(argv: list[str]) -> int:
          lambda: pk.dual_prox(*args_d),
          lambda: pref.dual_prox_ref(*args_d),
          bound(6 * 8 * n_b, 7 * n_b)),
+        # tenant sums at Appendix B: the x entries the edges touch, the CSR
+        # list (k + 1 pointers, E ids) and the k sums; the adjoint reads the
+        # k duals, n + 1 pointers and E ids and writes n sums
+        ("sla_matvec", "src/repro_torch/kernels/csrc/tree_matvec.cu",
+         "src/repro/kernels/tree_matvec/kernel.py:166",
+         lambda: tk.sla_matvec(xv, sidx),
+         lambda: tref.sla_matvec_ref(xv, sdev64, sten64, k_b),
+         bound(8 * n_touched + 4 * (k_b + 1) + 4 * e_b + 8 * k_b, e_b),
+         lambda: torch.mv(a_sla, xv)),
+        ("sla_rmatvec", "src/repro_torch/kernels/csrc/tree_matvec.cu",
+         "src/repro/kernels/tree_matvec/kernel.py:187",
+         lambda: tk.sla_rmatvec(ys, sidx),
+         lambda: tref.sla_rmatvec_ref(ys, sdev64, sten64, n_b),
+         bound(8 * k_b + 4 * (n_b + 1) + 4 * e_b + 8 * n_b, e_b),
+         lambda: torch.mv(a_sla_t, ys)),
+        # 4 vectors read, the accumulator and 4 scalars written
+        ("primal_chunk_stats", "src/repro_torch/kernels/csrc/pdhg_update.cu",
+         "src/repro/kernels/pdhg_update/kernel.py:154",
+         lambda: pk.primal_chunk_stats(*stat_args, 3.0),
+         lambda: pref.primal_chunk_stats_ref(*stat_args, 3.0),
+         bound(5 * 8 * n_b + 4 * 8, 13 * n_b),
+         None),
+        # 3 vectors read, the accumulator and 3 scalars written (r = n)
+        ("dual_chunk_stats", "src/repro_torch/kernels/csrc/pdhg_update.cu",
+         "src/repro/kernels/pdhg_update/kernel.py:190",
+         lambda: pk.dual_chunk_stats(*stat_args[:3], 3.0),
+         lambda: pref.dual_chunk_stats_ref(*stat_args[:3], 3.0),
+         bound(4 * 8 * n_b + 3 * 8, 10 * n_b),
+         None),
     ]
+    library = {
+        "tree_matvec": lambda: torch.mv(a_tree, xv),
+        "tree_rmatvec": lambda: torch.mv(a_tree_t, yv),
+    }
     entries = []
-    log(f"[6] kernel times on {smi}, float64, n={n_b}, m={m_b} (dual_prox at r=n):")
-    log("[6]   name: device time per call, kernel / plain (host-paced kernel / plain) | bound")
-    for kname, source, replaces, fn_kernel, fn_plain, (bound_ms, bound_by) in timing:
+    log(f"[6] kernel times on {smi}, float64, n={n_b}, m={m_b}, k={k_b}, E={e_b} "
+        "(dual_prox and dual_chunk_stats at r=n):")
+    log("[6]   name: device time per call, kernel / plain (host-paced kernel / plain) | bound"
+        " | CSR SpMV")
+    for kname, source, replaces, fn_kernel, fn_plain, (bound_ms, bound_by), *lib in timing:
+        fn_lib = lib[0] if lib else library.get(kname)
         # plain, kernel, kernel, plain: the later of each pair is kept
         time_calls(fn_plain)
         time_calls(fn_kernel)
         ms, paced_ms = time_calls(fn_kernel)
         plain_ms, plain_paced_ms = time_calls(fn_plain)
+        lib_ms = None if fn_lib is None else time_calls(fn_lib)[0]
         log(f"[6]   {kname}: {ms * 1e3:.2f} / {plain_ms * 1e3:.2f} us "
             f"({paced_ms * 1e3:.2f} / {plain_paced_ms * 1e3:.2f} us) | "
-            f"{bound_ms * 1e3:.3f} us ({bound_by})")
+            f"{bound_ms * 1e3:.3f} us ({bound_by}) | "
+            + ("none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"))
         entries.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main_launches[kname], "max_abs_err": max_err[kname],
+            "launches": None, "max_abs_err": max_err[kname],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "paced_ms": paced_ms, "plain_paced_ms": plain_paced_ms,
+            "library_ms": lib_ms, "paced_ms": paced_ms, "plain_paced_ms": plain_paced_ms,
         })
     d_m = [v[:m_b].contiguous() for v in args_d]
     dm_ms, dm_paced = time_calls(lambda: pk.dual_prox(*d_m))
@@ -474,14 +645,33 @@ def main(argv: list[str]) -> int:
     log(f"[6]   dual_prox at r=m={m_b}: {dm_ms * 1e3:.2f} / {dm_plain * 1e3:.2f} us "
         f"({dm_paced * 1e3:.2f} / {dm_plain_paced * 1e3:.2f} us) | "
         f"{bound(6 * 8 * m_b, 7 * m_b)[0] * 1e3:.3f} us")
+    s_m = [v[:m_b].contiguous() for v in stat_args[:3]]
+    sm_ms, sm_paced = time_calls(lambda: pk.dual_chunk_stats(*s_m, 3.0))
+    sm_plain, sm_plain_paced = time_calls(lambda: pref.dual_chunk_stats_ref(*s_m, 3.0))
+    log(f"[6]   dual_chunk_stats at r=m={m_b}: {sm_ms * 1e3:.2f} / {sm_plain * 1e3:.2f} us "
+        f"({sm_paced * 1e3:.2f} / {sm_plain_paced * 1e3:.2f} us) | "
+        f"{bound(4 * 8 * m_b + 3 * 8, 10 * m_b)[0] * 1e3:.3f} us")
     report["timing"] = {
         "kernels": entries,
         "dual_prox_rows_m": {"ms": dm_ms, "plain_ms": dm_plain, "paced_ms": dm_paced,
                              "plain_paced_ms": dm_plain_paced},
+        "dual_chunk_stats_rows_m": {"ms": sm_ms, "plain_ms": sm_plain, "paced_ms": sm_paced,
+                                    "plain_paced_ms": sm_plain_paced},
     }
+
+    # -- 7. the serving path on the tenant fleet -----------------------------
+    engine_opts = kernel_opts._replace(use_pallas_stats=True)  # all eight kernels
+    engine_launches, engine_report = tenant_engine_phase(
+        pdn, layout, engine_opts, cuda, args.warm_tenants
+    )
+    report["engine_path"] = engine_report
+    for entry in entries:
+        entry["launches"] = engine_launches[entry["name"]]
+        entry["launches_optimize_path"] = main_launches[entry["name"]]
 
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
+        report["profile_tenant"] = profile_tenant_step(pdn, layout, engine_opts)
 
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[card] {smi}")
@@ -491,24 +681,189 @@ def main(argv: list[str]) -> int:
     return 0
 
 
-def profile_step(pdn, kernel_opts) -> dict:
-    """Device busy time of one warm control step, from torch.profiler."""
+def csr_pair(rows, cols, n_rows, n_cols, device):
+    """The 0/1 incidence matrix with ones at (rows, cols), and its
+    transpose, as CUDA CSR tensors."""
+
+    def csr(r, c, shape):
+        order = np.lexsort((c, r))
+        crow = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=shape[0]))])
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(
+                torch.as_tensor(crow, dtype=torch.int64),
+                torch.as_tensor(c[order], dtype=torch.int64),
+                torch.ones(len(r), dtype=torch.float64),
+                size=shape,
+                check_invariants=True,
+            ).to(device)
+
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    return csr(rows, cols, (n_rows, n_cols)), csr(cols, rows, (n_cols, n_rows))
+
+
+def tenant_engine_phase(pdn, layout, kernel_opts, cuda, warm_tenants: bool):
+    """Phase 7: cold ``PowerController`` steps on the Appendix B tenant fleet
+    through every kernel, against the port's CPU run of the same steps.
+    Returns (launch counts of the card's cold steps, report).
+
+    Fails unless every step certifies, keeps the breaker caps and tenant
+    contracts to 1e-6 W, and lands within ``PARITY_TOL`` of the CPU run in
+    Phase I (a strictly convex QP) and in every device's useful power,
+    min(request, cap).  The caps themselves are measured against the same
+    bar, per device and with equal per-phase iterations, and reported as
+    met or missed, not failed: Phase II/III here are epsilon-degenerate
+    max-min LPs that spread the surplus above the requests differently, at
+    equal quality, when the reference's own input moves by one ulp (up to
+    2e-2 W per device, ROADMAP Queue 3), so a summation order changed from
+    CPU to card moves it too."""
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    samples = [sim.power(t) for t in ENGINE_SAMPLES]
+    config = ControllerConfig(options=NvpaxOptions(solver=kernel_opts))
+    owned = layout.tenant_of >= 0
+
+    def controller(device):
+        return PowerController(
+            pdn, sla=layout.sla_topo(device=device), priority=layout.priority,
+            config=config, device=device,
+        )
+
+    def cold_steps(ctl, device):
+        out = []
+        for tele in samples:
+            ctl.reset_warm()
+            sync(device)
+            t0 = time.perf_counter()
+            res = ctl.step(tele)
+            sync(device)
+            out.append((res, time.perf_counter() - t0))
+        return out
+
+    log(f"[7] serving path: PowerController.step on n={pdn.n}, Appendix B tenants "
+        f"k={layout.n_tenants}, E={int(owned.sum())}, cold steps on samples {ENGINE_SAMPLES}")
+    card = controller(cuda)
+    kernels.reset_launch_counts()
+    card_runs = cold_steps(card, cuda)
+    launches = kernels.launch_counts()
+    cpu_runs = cold_steps(controller("cpu"), "cpu")
+    rows = []
+    for t, ((res, wall), (ref, _)) in zip(ENGINE_SAMPLES, zip(card_runs, cpu_runs)):
+        st = res.stats
+        if not (st["converged"] and st["kkt_certified"]):
+            raise AssertionError(f"[7] sample {t} not certified: {dict(st)}")
+        phase1_gap = float(np.max(np.abs(res.phase1 - ref.phase1)))
+        if phase1_gap > PARITY_TOL:
+            raise AssertionError(f"[7] sample {t}: Phase I card vs CPU {phase1_gap:.3e} W")
+        req = np.asarray(samples[t], np.float64) * config.request_margin
+        active = req >= config.idle_threshold
+        r_eff = np.where(active, np.clip(req, pdn.dev_l, pdn.dev_u), 0.0)
+        useful_gap = float(np.max(np.abs(
+            np.minimum(r_eff, res.allocation) - np.minimum(r_eff, ref.allocation)
+        )))
+        if useful_gap > PARITY_TOL:
+            raise AssertionError(f"[7] sample {t}: useful power card vs CPU {useful_gap:.3e} W")
+        over = feasibility(pdn, res.allocation)
+        sums = np.bincount(layout.tenant_of[owned], weights=res.allocation[owned],
+                           minlength=layout.n_tenants)
+        sla_gap = float(max(np.max(layout.b_min - sums), np.max(sums - layout.b_max)))
+        if sla_gap > SLA_FEAS_TOL:
+            raise AssertionError(f"[7] sample {t}: a tenant sum leaves its bounds by {sla_gap:.3e} W")
+        per_tenant = metrics.tenant_satisfaction(
+            r_eff, res.allocation, layout.tenant_of, layout.n_tenants
+        )
+        row = {
+            "sample": t,
+            "wall_ms": wall * 1e3,
+            "phase_iterations": list(st["phase_iterations"]),
+            "cpu_phase_iterations": list(ref.stats["phase_iterations"]),
+            "certified": bool(st["kkt_certified"]),
+            "max_abs_vs_cpu_w": float(np.max(np.abs(res.allocation - ref.allocation))),
+            "phase1_max_abs_vs_cpu_w": phase1_gap,
+            "useful_max_abs_vs_cpu_w": useful_gap,
+            "total_vs_cpu_w": float(res.allocation.sum() - ref.allocation.sum()),
+            "satisfaction_vs_cpu": metrics.satisfaction_ratio(r_eff, res.allocation)
+            - metrics.satisfaction_ratio(r_eff, ref.allocation),
+            "max_cap_excess_w": over,
+            "max_tenant_bound_excess_w": sla_gap,
+            "satisfaction": metrics.satisfaction_ratio(r_eff, res.allocation),
+            "tenant_satisfaction_min": float(per_tenant.min()),
+            "tenant_satisfaction_mean": float(per_tenant.mean()),
+            "sla_margin_min": float(metrics.sla_margin(
+                res.allocation, layout.tenant_of, layout.n_tenants, layout.b_min, layout.b_max
+            ).min()),
+            "total_w": float(res.allocation.sum()),
+        }
+        row["parity_bar_met"] = (
+            row["max_abs_vs_cpu_w"] <= PARITY_TOL
+            and row["phase_iterations"] == row["cpu_phase_iterations"]
+        )
+        rows.append(row)
+        log(f"[7] sample {t}: {row['wall_ms']:.1f} ms, iterations {row['phase_iterations']} "
+            f"(cpu {row['cpu_phase_iterations']}), certified, cap excess {over:.2e} W, tenant "
+            f"bound excess {sla_gap:.2e} W, satisfaction {row['satisfaction']:.6f} (tenants min "
+            f"{row['tenant_satisfaction_min']:.4f}, mean {row['tenant_satisfaction_mean']:.4f})")
+        log(f"[7]   card vs cpu: phase I {phase1_gap:.2e} W, useful power {useful_gap:.2e} W; "
+            f"caps {row['max_abs_vs_cpu_w']:.2e} W per device, total "
+            f"{row['total_vs_cpu_w']:+.3e} W, satisfaction "
+            f"{row['satisfaction_vs_cpu']:+.2e}; <= {PARITY_TOL:.0e} W with equal iterations: "
+            + ("met" if row["parity_bar_met"] else "missed"))
+    log(f"[7] launches {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"[7] kernels never launched: {missing}")
+
+    # the same cold step again: the same bits (no atomics on the path)
+    card.reset_warm()
+    again = card.step(samples[0])
+    if not np.array_equal(again.allocation, card_runs[0][0].allocation):
+        d = float(np.max(np.abs(again.allocation - card_runs[0][0].allocation)))
+        raise AssertionError(f"[7] a repeated cold step differs by {d:.3e} W")
+    # a supply drop re-pins the engine's caps: no rebuild
+    card.set_supply_scale(0.9)
+    derated = card.step(samples[0])
+    scaled = dataclasses.replace(pdn, node_cap=pdn.node_cap * 0.9)
+    feasibility(scaled, derated.allocation)
+    if card.rebuild_count() != 1:
+        raise AssertionError(f"[7] rebuild_count {card.rebuild_count()} after a re-pin")
+    log(f"[7] repeated sample 0: identical bits; supply 0.9: iterations "
+        f"{derated.stats['phase_iterations']}, certified {derated.stats['kkt_certified']}, "
+        f"rebuild_count {card.rebuild_count()}")
+    report = {
+        "samples": rows,
+        "launches": launches,
+        "repeat_identical": True,
+        "derated": {"phase_iterations": list(derated.stats["phase_iterations"]),
+                    "certified": bool(derated.stats["kkt_certified"]),
+                    "rebuild_count": card.rebuild_count()},
+    }
+    if warm_tenants:
+        warm = controller(cuda)
+        warm.step(samples[0])
+        t0 = time.perf_counter()
+        res = warm.step(samples[1])
+        sync(cuda)
+        report["warm_step"] = {
+            "phase_iterations": list(res.stats["phase_iterations"]),
+            "certified": bool(res.stats["kkt_certified"]),
+            "converged": bool(res.stats["converged"]),
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+        }
+        log(f"[7] warm-carried sample 1 after sample 0: {report['warm_step']}")
+    return launches, report
+
+
+def profiled(tag: str, step) -> dict:
+    """Device busy time, launches and the top kernels of ``step()`` (which
+    ends in a sync), from torch.profiler."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
-    priority = np.random.default_rng(0).integers(1, 4, pdn.n)
-    topo = FleetTopology.from_pdn(pdn, device="cuda")
-    opts = NvpaxOptions(solver=kernel_opts)
-    warm = optimize(AllocProblem.build(pdn, sim.power(0), priority=priority, topology=topo),
-                    opts).warm_state
-    ap = AllocProblem.build(pdn, sim.power(1), priority=priority, topology=topo)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        optimize(ap, opts, warm)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
 
     def dev_us(e):
         us = getattr(e, "self_device_time_total", None)
@@ -519,11 +874,35 @@ def profile_step(pdn, kernel_opts) -> dict:
     launches = sum(e.count for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:12]
     rows = [{"name": e.key, "calls": e.count, "device_us": dev_us(e)} for e in top]
-    log(f"[profile] one warm step: wall {wall_us:.0f} us, device busy {device_us:.0f} us "
+    log(f"[profile] {tag}: wall {wall_us:.0f} us, device busy {device_us:.0f} us "
         f"({100.0 * device_us / wall_us:.1f}%), {launches} kernel launches")
     for r in rows:
         log(f"[profile]   {r['device_us']:9.0f} us  {r['calls']:6d}x  {r['name'][:70]}")
     return {"wall_us": wall_us, "device_us": device_us, "launches": launches, "top": rows}
+
+
+def profile_step(pdn, kernel_opts) -> dict:
+    """One warm control step of the host driver on the paper fleet."""
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    priority = np.random.default_rng(0).integers(1, 4, pdn.n)
+    topo = FleetTopology.from_pdn(pdn, device="cuda")
+    opts = NvpaxOptions(solver=kernel_opts)
+    warm = optimize(AllocProblem.build(pdn, sim.power(0), priority=priority, topology=topo),
+                    opts).warm_state
+    ap = AllocProblem.build(pdn, sim.power(1), priority=priority, topology=topo)
+    return profiled("one warm step", lambda: optimize(ap, opts, warm))
+
+
+def profile_tenant_step(pdn, layout, solver_opts) -> dict:
+    """One cold PowerController step on the Appendix B tenant fleet."""
+    ctl = PowerController(
+        pdn, sla=layout.sla_topo(device="cuda"), priority=layout.priority,
+        config=ControllerConfig(options=NvpaxOptions(solver=solver_opts)), device="cuda",
+    )
+    tele = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0)).power(0)
+    ctl.step(tele)  # builds the engine
+    ctl.reset_warm()
+    return profiled("one cold tenant step", lambda: ctl.step(tele))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.compat import resolve_device
+from repro_torch.core.batched import BatchMeta
 from repro_torch.core.phases import WarmCarry
 from repro_torch.core.problem import AllocProblem, FleetTopology
 from repro_torch.core.solver import SolverOptions, SolverState
@@ -27,6 +28,7 @@ from repro_torch.core.treeops import SlaTopo, TreeTopo
 
 __all__ = [
     "alloc_problem_from_numpy",
+    "batch_meta_from_dict",
     "fleet_topology_from_numpy",
     "solver_state_from_numpy",
     "warm_carry_from_numpy",
@@ -47,7 +49,7 @@ def _trees(d: Mapping[str, Any], n: int, device) -> tuple[TreeTopo, SlaTopo]:
     tree = TreeTopo.make(
         t["start"], t["end"], t["cap"], t["depth"], n, dtype=dtype, device=device
     )
-    sla = SlaTopo.make(s["dev"], s["ten"], s["lo"], s["hi"], dtype=dtype, device=device)
+    sla = SlaTopo.make(s["dev"], s["ten"], s["lo"], s["hi"], n=n, dtype=dtype, device=device)
     return tree, sla
 
 
@@ -99,3 +101,19 @@ def solver_options_from_dict(d: Mapping[str, Any]) -> SolverOptions:
     if unknown:
         raise ValueError(f"unknown solver option(s): {sorted(unknown)}")
     return SolverOptions(**dict(d))
+
+
+# the reference's incremental-mode (certify-first) fields, which the port
+# leaves out until ROADMAP Queue 1 item 9
+_INCREMENTAL_META = ("certify_tol", "certify_margin")
+
+
+def batch_meta_from_dict(d: Mapping[str, Any]) -> BatchMeta:
+    """``BatchMeta`` field by field (the reference engine's ``meta``); its
+    incremental-mode tolerances are dropped, any other unknown field
+    raises."""
+    d = {key: value for key, value in d.items() if key not in _INCREMENTAL_META}
+    unknown = set(d) - set(BatchMeta._fields)
+    if unknown:
+        raise ValueError(f"unknown engine metadata field(s): {sorted(unknown)}")
+    return BatchMeta(**{**d, "levels": tuple(int(p) for p in d["levels"])})

@@ -74,10 +74,11 @@ class FleetTopology(NamedTuple):
         ``dev``/``ten``/``lo``/``hi`` arrays (e.g. a tenant layout's)."""
         device = resolve_device(device)
         if sla is None:
-            sla = SlaTopo.empty(dtype, device)
+            sla = SlaTopo.empty(pdn.n, dtype, device)
         else:
             sla = SlaTopo.make(
                 *(_host(getattr(sla, f)) for f in ("dev", "ten", "lo", "hi")),
+                n=pdn.n,
                 dtype=dtype,
                 device=device,
             )
@@ -101,6 +102,20 @@ class FleetTopology(NamedTuple):
             u=vec(pdn.dev_u),
             weight_scale=vec(weight_scale),
         )
+
+
+    def with_sla_bounds(self, lo, hi) -> "FleetTopology":
+        """Same topology with re-pinned tenant SLA row bounds: the incidence
+        and its kernel index are kept, only the ``[lo, hi]`` values change
+        (the engine's ``set_sla_bounds``)."""
+        sla = self.sla
+        lo = torch.as_tensor(np.asarray(lo, np.float64), dtype=sla.lo.dtype, device=self.device)
+        hi = torch.as_tensor(np.asarray(hi, np.float64), dtype=sla.hi.dtype, device=self.device)
+        if lo.shape != sla.lo.shape or hi.shape != sla.hi.shape:
+            raise ValueError(
+                f"sla bounds shapes {tuple(lo.shape)}/{tuple(hi.shape)} != ({sla.k},)"
+            )
+        return self._replace(sla=sla._replace(lo=lo, hi=hi))
 
 
 def _host(v) -> np.ndarray:

@@ -63,11 +63,6 @@ def solve(
     dtype = prob.lo.dtype
     dev = prob.lo.device
     m, k = tree.m, sla.k
-    if opts.use_pallas_stats and dev.type == "cuda":
-        raise NotImplementedError(
-            "use_pallas_stats needs the primal/dual chunk-stats kernels, which "
-            "are not ported yet (ROADMAP Queue 2)"
-        )
 
     sc = scaling.make_scales(prob, tree, sla)
     if opts.precondition:
@@ -132,9 +127,7 @@ def solve(
         sig_tree = steps.sig_tree / omega
         sig_imp = steps.sig_imp / omega
         for _ in range(opts.check_every):
-            gx, gt = scaling.scaled_rmatvec(
-                y_tree, y_sla, y_imp, tree, sla, sc, n, use_kernels=opts.use_pallas_tree
-            )
+            gx, gt = scaling.scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc, n)
             if opts.use_pallas:
                 # fused primal prox + extrapolation, one pass over memory
                 x1, xe = pk.primal_update(x, gx, c_s, w_s, target_s, lo_s, hi_s, tau_x)
@@ -222,7 +215,18 @@ def solve(
     while not done and chunk < n_chunks:
         x, t, yt, ys, yi = run_chunk(x, t, yt, ys, yi, omega, om_sla)
         cnt = acount + 1.0
-        ax, at, ayt, ays, ayi = ax + x, at + t, ayt + yt, ays + ys, ayi + yi
+        if opts.use_pallas_stats:
+            # fused chunk-boundary bookkeeping: average accumulation, move
+            # norms and restart-candidate travel in one pass per block; the
+            # results stay on the device
+            ax, move_num, move_den, dx2_cur, dx2_avg = pk.primal_chunk_stats(
+                x, px, rx, ax, cnt
+            )
+            ayt, dyt2_cur, dyt2_avg, dyt2_zero = pk.dual_chunk_stats(yt, ry_tree, ayt, cnt)
+            ayi, dyi2_cur, dyi2_avg, dyi2_zero = pk.dual_chunk_stats(yi, ry_imp, ayi, cnt)
+            at, ays = at + t, ays + ys
+        else:
+            ax, at, ayt, ays, ayi = ax + x, at + t, ayt + yt, ays + ys, ayi + yi
 
         # KKT of three restart candidates: the current iterate, the running
         # average, and the current primal with ZERO duals (the escape hatch
@@ -263,10 +267,11 @@ def solve(
         # no-progress / optimal-vertex certificate (termination module):
         # only the max-min LP structure earns it; QP solves never exit so.
         if use_cert:
-            move = torch.maximum(
-                torch.max(torch.abs(x - px)) / (1.0 + torch.max(torch.abs(x))),
-                torch.abs(t - pt) / (1.0 + torch.abs(t)),
-            )
+            if opts.use_pallas_stats:
+                move_x = move_num / (1.0 + move_den)
+            else:
+                move_x = torch.max(torch.abs(x - px)) / (1.0 + torch.max(torch.abs(x)))
+            move = torch.maximum(move_x, torch.abs(t - pt) / (1.0 + torch.abs(t)))
             frozen = torch.where(move < opts.noprogress_tol, frozen + 1, 0)
             st_cur = unscale(x, t, yt, ys, yi)
             t_pol = (
@@ -316,10 +321,18 @@ def solve(
         if restart:
             # primal-weight re-estimate: travel ratio since the anchor, or
             # residual balance when the stall detector fired
-            dx = torch.sqrt(torch.sum((xn - rx) ** 2))
-            dy = torch.sqrt(
-                torch.sum((ytn - ry_tree) ** 2) + torch.sum((yin - ry_imp) ** 2)
-            )
+            if opts.use_pallas_stats:
+                # the fused travel partials of the adopted candidate (a
+                # vertex exit is `done`, which suppresses the restart)
+                dx = torch.sqrt(pick(dx2_cur, dx2_avg, dx2_cur))
+                dy = torch.sqrt(
+                    pick(dyt2_cur, dyt2_avg, dyt2_zero) + pick(dyi2_cur, dyi2_avg, dyi2_zero)
+                )
+            else:
+                dx = torch.sqrt(torch.sum((xn - rx) ** 2))
+                dy = torch.sqrt(
+                    torch.sum((ytn - ry_tree) ** 2) + torch.sum((yin - ry_imp) ** 2)
+                )
             if use_blockwise:
                 dy_sla = torch.sqrt(torch.sum((ysn - ry_sla) ** 2))
                 omega, om_sla = restarts_mod.update_omega_blocks(

@@ -66,13 +66,14 @@ class SolverOptions(NamedTuple):
     noprogress_patience: int = 4
     # exact epigraph polish on exit: t <- clip(min_i(x_i - imp_lo_i))
     polish_t: bool = True
-    # Route the tree matvecs of the inner iteration through the CUDA kernels
-    # (repro_torch.kernels.tree_matvec).  Tenant (SLA) rows have no kernel
-    # in the port yet: on CUDA with k > 0 this raises NotImplementedError.
+    # Route the tree matvec of the inner iteration through its CUDA kernel
+    # (repro_torch.kernels.tree_matvec).  The scatter sums (tree adjoint,
+    # tenant rows) take their deterministic kernels on a card regardless.
     use_pallas_tree: bool = False
-    # Fused chunk-boundary statistics.  Their kernels are not ported yet
-    # (ROADMAP Queue 2): on CUDA this raises NotImplementedError; on CPU the
-    # plain bookkeeping runs, which computes the same quantities.
+    # Fused chunk-boundary statistics at every KKT check
+    # (repro_torch.kernels.pdhg_update.primal/dual_chunk_stats): the average
+    # accumulators, the move norms and the restart-candidate travel in one
+    # pass per vector.
     use_pallas_stats: bool = False
     # Per-dual-block primal weights (PDLP multi-block style): a second
     # omega for the SLA rows.  Requires precondition=True (inert otherwise /

@@ -51,12 +51,6 @@ __all__ = [
     "estimate_norm",
 ]
 
-_NO_SLA_KERNEL = (
-    "use_pallas_tree on CUDA with tenant (SLA) rows needs the sla_matvec/"
-    "sla_rmatvec kernels, which are not ported yet (ROADMAP Queue 2)"
-)
-
-
 class Scales(NamedTuple):
     s: torch.Tensor  # [n] primal variable scales
     s_t: torch.Tensor  # scalar: scale of t
@@ -80,10 +74,6 @@ class StepSizes(NamedTuple):
     sig_tree: torch.Tensor  # [m]
     sig_sla: torch.Tensor  # [k]
     sig_imp: torch.Tensor  # [n]
-
-
-def _segment_sum(v: torch.Tensor, sla: SlaTopo) -> torch.Tensor:
-    return v.new_zeros(sla.k).index_add_(0, sla.ten, v[sla.dev])
 
 
 def make_scales(prob: StepProblem, tree: TreeTopo, sla: SlaTopo) -> Scales:
@@ -112,17 +102,11 @@ def make_scales(prob: StepProblem, tree: TreeTopo, sla: SlaTopo) -> Scales:
     s2m = s * s * mov
     d_tree = torch.rsqrt(torch.clamp_min(tree_matvec(s2m, tree), 1.0))
     if sla.k > 0:
-        d_sla = torch.rsqrt(torch.clamp_min(_segment_sum(s2m, sla), 1.0))
+        d_sla = torch.rsqrt(torch.clamp_min(sla_matvec(s2m, sla), 1.0))
     else:
         d_sla = s2m.new_zeros(0)
     d_imp = torch.rsqrt(torch.clamp_min(s2m + s_t * s_t * t_mov, 1.0))
     return Scales(s, s_t, mov, t_mov, d_tree, d_sla, d_imp)
-
-
-def _sla_block(fn, v, sla: SlaTopo, *args):
-    if v.device.type == "cuda":
-        raise NotImplementedError(_NO_SLA_KERNEL)
-    return fn(v, sla, *args)
 
 
 def scaled_matvec(xs, ts, tree, sla, sc: Scales, *, use_kernels=False):
@@ -131,36 +115,29 @@ def scaled_matvec(xs, ts, tree, sla, sc: Scales, *, use_kernels=False):
 
     ``use_kernels`` routes the tree prefix through the CUDA kernel
     (:mod:`repro_torch.kernels.tree_matvec`) — the
-    ``SolverOptions.use_pallas_tree`` path.
+    ``SolverOptions.use_pallas_tree`` path.  The tenant sums take their
+    kernel on a card either way (see :mod:`repro_torch.core.treeops`).
     """
     x = sc.s * sc.mov * xs
-    if use_kernels:
-        kx = tk.tree_matvec(x, tree.index)
-        sx = _sla_block(sla_matvec, x, sla) if sla.k else sla_matvec(x, sla)
-    else:
-        kx = tree_matvec(x, tree)
-        sx = sla_matvec(x, sla)
+    kx = tk.tree_matvec(x, tree.index) if use_kernels else tree_matvec(x, tree)
     return (
         sc.d_tree * kx,
-        sc.d_sla * sx,
+        sc.d_sla * sla_matvec(x, sla),
         sc.d_imp * (x - sc.s_t * sc.t_mov * ts),
     )
 
 
-def scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc: Scales, n, *, use_kernels=False):
-    """Scaled adjoint S K_mov^T D2 -> (grad on x~, grad on t~)."""
+def scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc: Scales, n):
+    """Scaled adjoint S K_mov^T D2 -> (grad on x~, grad on t~).
+
+    Both scatter sums take their deterministic kernels on a card and their
+    plain versions on the CPU (see :mod:`repro_torch.core.treeops`), so
+    unlike the reference this needs no kernel switch."""
     yi = sc.d_imp * y_imp
-    if use_kernels:
-        gx = tk.tree_rmatvec(sc.d_tree * y_tree, tree.index)
-        if sla.k:
-            gx = gx + _sla_block(sla_rmatvec, sc.d_sla * y_sla, sla, n)
-        gx = gx + yi
-    else:
-        gx = (
-            tree_rmatvec(sc.d_tree * y_tree, tree, n)
-            + sla_rmatvec(sc.d_sla * y_sla, sla, n)
-            + yi
-        )
+    gx = tree_rmatvec(sc.d_tree * y_tree, tree, n)
+    if sla.k:
+        gx = gx + sla_rmatvec(sc.d_sla * y_sla, sla, n)
+    gx = gx + yi
     gt = -sc.s_t * sc.t_mov * torch.sum(yi)
     return sc.s * sc.mov * gx, gt
 
@@ -179,7 +156,7 @@ def pc_step_sizes(
     # row absolute sums of A = D K_mov S
     row_tree = sc.d_tree * tree_matvec(sm, tree)
     if sla.k > 0:
-        row_sla = sc.d_sla * _segment_sum(sm, sla)
+        row_sla = sc.d_sla * sla_matvec(sm, sla)
     else:
         row_sla = sm.new_zeros(0)
     row_imp = sc.d_imp * (sm + sc.s_t * sc.t_mov)

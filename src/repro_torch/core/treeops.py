@@ -14,8 +14,13 @@ The constraint matrix ``K`` stacks three row blocks over the primal vector
 Because devices are DFS-ordered, the tree block is a cumulative sum plus two
 gathers, and its transpose is a difference-array scatter plus a cumulative
 sum — O(n + m) with no sparse data structures.  These are the plain PyTorch
-operators; ``SolverOptions(use_pallas_tree=True)`` routes the solver's tree
-matvecs through the CUDA kernels of :mod:`repro_torch.kernels.tree_matvec`.
+operators, with one exception: on a CUDA tensor the sums that scatter (the
+tree adjoint and both tenant sums) go through the deterministic kernels of
+:mod:`repro_torch.kernels.tree_matvec`, because ``index_add_`` on a card
+adds with atomics in an order that changes from run to run, and the
+feasibility repair, the saturation masks and the KKT checks compare these
+sums against thresholds.  ``SolverOptions(use_pallas_tree=True)`` also
+routes the inner iteration's tree matvec through its kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.tree_matvec import TreeIndex, tree_index
+from repro_torch.kernels import tree_matvec as tk
+from repro_torch.kernels.tree_matvec import SlaIndex, TreeIndex, sla_index, tree_index
 
 __all__ = [
     "TreeTopo",
@@ -85,30 +91,36 @@ class SlaTopo(NamedTuple):
     ``dev``/``ten`` form an incidence edge list: device ``dev[e]`` belongs
     to tenant ``ten[e]``.  Disjoint tenancy is the common case but is not
     assumed.  ``lo``/``hi`` are aggregate bounds (+-inf when absent).
+    ``index`` holds the int32 copies and CSR lists the CUDA kernels take,
+    made once per topology by :meth:`make`; re-pinning the bounds
+    (``_replace(lo=..., hi=...)``) keeps it.
     """
 
     dev: torch.Tensor  # [nnz] int64
     ten: torch.Tensor  # [nnz] int64
     lo: torch.Tensor  # [k] float
     hi: torch.Tensor  # [k] float
+    index: SlaIndex
 
     @property
     def k(self) -> int:
         return self.lo.shape[0]
 
     @classmethod
-    def make(cls, dev, ten, lo, hi, *, dtype, device) -> "SlaTopo":
-        """Build from host arrays (numpy or CPU tensors)."""
+    def make(cls, dev, ten, lo, hi, *, n: int, dtype, device) -> "SlaTopo":
+        """Build from host arrays (numpy or CPU tensors) for ``n`` devices."""
+        lo = _as_float(lo, dtype, device)
         return cls(
             dev=_as_index(dev, device),
             ten=_as_index(ten, device),
-            lo=_as_float(lo, dtype, device),
+            lo=lo,
             hi=_as_float(hi, dtype, device),
+            index=sla_index(dev, ten, lo.shape[0], n, device),
         )
 
     @classmethod
-    def empty(cls, dtype=torch.float32, device="cpu") -> "SlaTopo":
-        return cls.make([], [], [], [], dtype=dtype, device=device)
+    def empty(cls, n: int = 0, dtype=torch.float32, device="cpu") -> "SlaTopo":
+        return cls.make([], [], [], [], n=n, dtype=dtype, device=device)
 
 
 def tree_matvec(x: torch.Tensor, tree: TreeTopo) -> torch.Tensor:
@@ -119,26 +131,23 @@ def tree_matvec(x: torch.Tensor, tree: TreeTopo) -> torch.Tensor:
 
 def tree_rmatvec(y: torch.Tensor, tree: TreeTopo, n: int) -> torch.Tensor:
     """Transpose of :func:`tree_matvec`: device i accumulates its ancestors'
-    duals.  Difference-array scatter + cumsum."""
-    diff = y.new_zeros(n + 1)
-    diff.index_add_(0, tree.start, y)
-    diff.index_add_(0, tree.end, -y)
-    return torch.cumsum(diff, 0)[:n]
+    duals (``n`` devices, as the tree was built for).  Difference-array
+    scatter + cumsum, the kernel on a card."""
+    return tk.tree_rmatvec(y, tree.index)
 
 
 def sla_matvec(x: torch.Tensor, sla: SlaTopo) -> torch.Tensor:
-    """Per-tenant sums of ``x`` over the incidence list."""
-    out = x.new_zeros(sla.k)
+    """Per-tenant sums of ``x`` over the incidence list, in edge order."""
     if sla.k == 0:
-        return out
-    return out.index_add_(0, sla.ten, x[sla.dev])
+        return x.new_zeros(0)
+    return tk.sla_matvec(x, sla.index)
 
 
 def sla_rmatvec(y: torch.Tensor, sla: SlaTopo, n: int) -> torch.Tensor:
-    out = y.new_zeros(n)
+    """Adjoint of :func:`sla_matvec`: device d sums its tenants' duals."""
     if sla.k == 0:
-        return out
-    return out.index_add_(0, sla.dev, y[sla.ten])
+        return y.new_zeros(n)
+    return tk.sla_rmatvec(y, sla.index)
 
 
 def full_matvec(x, t, tree: TreeTopo, sla: SlaTopo):

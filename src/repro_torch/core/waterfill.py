@@ -10,15 +10,19 @@ host phase drivers for SLA-free problems.
 
 Per-round cost is O(n + m); the number of rounds is bounded by the number of
 distinct binding events (<= number of nodes + 1), and in practice is ~tree
-depth.  A numpy copy of the reference's ``waterfill_arrays``; the
-trace-safe ``waterfill_jax`` of the batched engine comes with that engine.
+depth.  :func:`waterfill_arrays` is a numpy copy of the reference's, for the
+host phase drivers; :func:`waterfill_torch` ports the reference's
+``waterfill_jax`` for the engine's one-scenario program, on the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["waterfill_arrays"]
+from repro_torch.kernels import tree_matvec as tk
+
+__all__ = ["waterfill_arrays", "waterfill_torch"]
 
 
 def waterfill_arrays(
@@ -71,3 +75,40 @@ def waterfill_arrays(
         live &= ~newly
     return x
 
+
+
+def waterfill_torch(base, opt_mask, tree, u, max_rounds: int = 10_000):
+    """The port of the reference's ``waterfill_jax``: the progressive-filling
+    sweep of :func:`waterfill_arrays` as a loop over the port's tree ops on
+    the tensors' device (on a card, the tree matvec kernels).
+
+    ``tree`` is a :class:`repro_torch.core.treeops.TreeTopo`; semantics and
+    freezing order mirror the reference's loop body exactly.  Each round
+    brings its exit test to the host in one transfer.
+    """
+    x = base
+    dtype = x.dtype
+    live = opt_mask.to(torch.bool)
+    inf = torch.full((), float("inf"), dtype=dtype, device=x.device)
+    if not bool(live.any()):
+        return x
+    for _ in range(max_rounds):
+        lv = live.to(dtype)
+        n_live = tk.tree_matvec(lv, tree.index)
+        slack = tree.cap - tk.tree_matvec(x, tree.index)
+        node_rate = torch.where(n_live > 0, slack / torch.clamp_min(n_live, 1.0), inf)
+        dev_rate = torch.where(live, u - x, inf)
+        t = torch.clamp_min(torch.minimum(torch.min(node_rate), torch.min(dev_rate)), 0.0)
+        finite = torch.isfinite(t)
+        # the numpy sweep stops BEFORE applying a non-finite raise
+        x = torch.where(live & finite, x + t, x)
+        # freeze: devices at u, or under any node now tight
+        tight = (tree.cap - tk.tree_matvec(x, tree.index) <= 1e-9) & (n_live > 0)
+        under_tight = tk.tree_rmatvec(tight.to(dtype), tree.index) > 0.5
+        newly = live & ((u - x <= 1e-9) | under_tight)
+        done = (~finite) | (~torch.any(newly))  # absorbed or stalled
+        live = torch.where(finite, live & ~newly, live)
+        stop, any_live = torch.stack([done, torch.any(live)]).tolist()
+        if stop or not any_live:
+            break
+    return x

@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F64 = ctypes.c_double
 
 # argument types of every exported function, by name stem (f64/f32 twins)
 _SIGNATURES = {
@@ -49,6 +50,9 @@ _SIGNATURES = {
     "tree_rmatvec": [_INT] + [_PTR] * 8 + [_I64, _PTR],
     "primal_update": [_INT] + [_PTR] * 8 + [_I64, _I64, _PTR, _PTR, _PTR],
     "dual_prox": [_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR],
+    "segment_sums": [_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR],
+    "primal_chunk_stats": [_INT] + [_PTR] * 4 + [_F64, _I64] + [_PTR] * 4,
+    "dual_chunk_stats": [_INT] + [_PTR] * 3 + [_F64, _I64] + [_PTR] * 4,
 }
 
 
@@ -149,4 +153,6 @@ def library() -> ctypes.CDLL:
     lib.tree_scan_tile.restype = ctypes.c_int
     lib.elementwise_grid_threads.argtypes = []
     lib.elementwise_grid_threads.restype = ctypes.c_int64
+    lib.chunk_stats_blocks.argtypes = [_I64]
+    lib.chunk_stats_blocks.restype = ctypes.c_int64
     return lib

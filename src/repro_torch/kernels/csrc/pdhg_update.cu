@@ -5,6 +5,10 @@
 //     x1 = clip((x - tau*(gx + c) + tau*w*target) / (1 + tau*w), lo, hi),  xe = 2*x1 - x
 //   dual_prox (_dual_kernel)
 //     z = y + sigma*a,  out = z - sigma*clip(z/sigma, lo, hi)
+//   primal_chunk_stats (_primal_stats_kernel)   at every KKT check
+//     ax + x,  max|x - px|,  max|x|,  sum (x - rx)^2,  sum ((ax + x)/cnt - rx)^2
+//   dual_chunk_stats (_dual_stats_kernel)
+//     ay + y,  sum (y - ry)^2,  sum ((ay + y)/cnt - ry)^2,  sum ry^2
 //
 // What bounds it on this card: memory traffic, and at the paper's fleet
 // launch latency.  primal_update streams 8 vectors in and 2 out (0.98 MB in
@@ -18,6 +22,17 @@
 // and quotient is one IEEE-rounded operation in the plain version's order
 // (the __*_rn intrinsics are never contracted into an FMA), so the kernel
 // returns bit for bit what the plain PyTorch expression returns.
+//
+// The chunk statistics are one grid-stride pass that writes the new average
+// accumulator and, per block, one row of partial results (a fixed-order
+// shared-memory tree over the block's threads), then a one-block launch that
+// combines the rows in a fixed order: max for the move norms, sums for the
+// travel terms.  The TPU version leaves the per-block rows to the caller;
+// here no float64 atomics are used, so repeated calls return the same bits.
+// The sums add in another order than torch.sum, so they agree with the plain
+// version to a few unit roundoffs of the sum of the terms, not bit for bit;
+// the maxima and the accumulator are exact.  Bound: bytes, 40 n (primal: 4
+// reads + 1 write of n values) and 32 r (dual) in float64.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -88,6 +103,119 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kStatThreads = 256;
+
+// max that lets a NaN through, as torch.max does
+template <typename T>
+__device__ __forceinline__ T max_nan(T a, T b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// Reduce K values per thread over the block in a fixed order; the first
+// kMax slots take the max, the rest the sum.  Thread 0 gets the results.
+template <typename T, int K, int kMax>
+__device__ void block_reduce(T (&v)[K], T* sh) {
+  using R = Rn<T>;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < K; ++k) sh[k * kStatThreads + tid] = v[k];
+  __syncthreads();
+  for (int half = kStatThreads / 2; half > 0; half >>= 1) {
+    if (tid < half) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const T a = sh[k * kStatThreads + tid];
+        const T b = sh[k * kStatThreads + tid + half];
+        sh[k * kStatThreads + tid] = k < kMax ? max_nan(a, b) : R::add(a, b);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = sh[k * kStatThreads];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+    primal_stats_kernel(const T* __restrict__ x, const T* __restrict__ px,
+                        const T* __restrict__ rx, const T* __restrict__ ax, T cnt, int64_t n,
+                        T* __restrict__ axn, T* __restrict__ part) {
+  using R = Rn<T>;
+  __shared__ T sh[4 * kStatThreads];
+  T v[4] = {T(0), T(0), T(0), T(0)};  // |.| >= 0, so 0 is the max's identity
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kStatThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kStatThreads + threadIdx.x; i < n;
+       i += step) {
+    const T xi = x[i];
+    const T a = R::add(ax[i], xi);
+    axn[i] = a;
+    const T r = rx[i];
+    v[0] = max_nan(v[0], fabs(R::sub(xi, px[i])));
+    v[1] = max_nan(v[1], fabs(xi));
+    const T d = R::sub(xi, r);
+    v[2] = R::add(v[2], R::mul(d, d));
+    const T e = R::sub(R::div(a, cnt), r);
+    v[3] = R::add(v[3], R::mul(e, e));
+  }
+  block_reduce<T, 4, 2>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) part[blockIdx.x * 4 + k] = v[k];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+    dual_stats_kernel(const T* __restrict__ y, const T* __restrict__ ry,
+                      const T* __restrict__ ay, T cnt, int64_t n, T* __restrict__ ayn,
+                      T* __restrict__ part) {
+  using R = Rn<T>;
+  __shared__ T sh[3 * kStatThreads];
+  T v[3] = {T(0), T(0), T(0)};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kStatThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kStatThreads + threadIdx.x; i < n;
+       i += step) {
+    const T yi = y[i];
+    const T a = R::add(ay[i], yi);
+    ayn[i] = a;
+    const T r = ry[i];
+    const T d = R::sub(yi, r);
+    v[0] = R::add(v[0], R::mul(d, d));
+    const T e = R::sub(R::div(a, cnt), r);
+    v[1] = R::add(v[1], R::mul(e, e));
+    v[2] = R::add(v[2], R::mul(r, r));
+  }
+  block_reduce<T, 3, 0>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) part[blockIdx.x * 3 + k] = v[k];
+  }
+}
+
+// One block: combine the nb rows of K partials, each thread a fixed stripe
+// of rows, then the block tree.  nb = 0 gives zeros.
+template <typename T, int K, int kMax>
+__global__ void __launch_bounds__(kStatThreads)
+    combine_rows(const T* __restrict__ part, int64_t nb, T* __restrict__ out) {
+  using R = Rn<T>;
+  __shared__ T sh[K * kStatThreads];
+  T v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = T(0);
+  for (int64_t b = threadIdx.x; b < nb; b += kStatThreads) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T p = part[b * K + k];
+      v[k] = k < kMax ? max_nan(v[k], p) : R::add(v[k], p);
+    }
+  }
+  block_reduce<T, K, kMax>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = v[k];
+  }
+}
+
 unsigned grid_for(int64_t n) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
@@ -115,6 +243,35 @@ int dual_prox_impl(int device, const T* y, const T* a, const T* sigma, int64_t s
     dual_prox_kernel<T><<<grid_for(n), kThreads, 0, stream>>>(y, a, sigma, sigma_stride, lo, hi,
                                                              n, out);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int primal_chunk_stats_impl(int device, const T* x, const T* px, const T* rx, const T* ax,
+                            double cnt, int64_t n, T* axn, T* part, T* out,
+                            cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned nb = n > 0 ? grid_for(n) : 0;
+  if (nb > 0) {
+    primal_stats_kernel<T><<<nb, kStatThreads, 0, stream>>>(x, px, rx, ax, static_cast<T>(cnt), n,
+                                                           axn, part);
+  }
+  combine_rows<T, 4, 2><<<1, kStatThreads, 0, stream>>>(part, nb, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dual_chunk_stats_impl(int device, const T* y, const T* ry, const T* ay, double cnt,
+                          int64_t n, T* ayn, T* part, T* out, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned nb = n > 0 ? grid_for(n) : 0;
+  if (nb > 0) {
+    dual_stats_kernel<T><<<nb, kStatThreads, 0, stream>>>(y, ry, ay, static_cast<T>(cnt), n, ayn,
+                                                         part);
+  }
+  combine_rows<T, 3, 0><<<1, kStatThreads, 0, stream>>>(part, nb, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -152,8 +309,43 @@ int dual_prox_f32(int device, const float* y, const float* a, const float* sigma
                                static_cast<cudaStream_t>(stream));
 }
 
+// (ax + x, [max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2]);
+// `part` holds chunk_stats_blocks(n) rows of 4.
+int primal_chunk_stats_f64(int device, const double* x, const double* px, const double* rx,
+                           const double* ax, double cnt, int64_t n, double* axn, double* part,
+                           double* out, void* stream) {
+  return primal_chunk_stats_impl<double>(device, x, px, rx, ax, cnt, n, axn, part, out,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+int primal_chunk_stats_f32(int device, const float* x, const float* px, const float* rx,
+                           const float* ax, double cnt, int64_t n, float* axn, float* part,
+                           float* out, void* stream) {
+  return primal_chunk_stats_impl<float>(device, x, px, rx, ax, cnt, n, axn, part, out,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// (ay + y, [sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2]);
+// `part` holds chunk_stats_blocks(n) rows of 3.
+int dual_chunk_stats_f64(int device, const double* y, const double* ry, const double* ay,
+                         double cnt, int64_t n, double* ayn, double* part, double* out,
+                         void* stream) {
+  return dual_chunk_stats_impl<double>(device, y, ry, ay, cnt, n, ayn, part, out,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+int dual_chunk_stats_f32(int device, const float* y, const float* ry, const float* ay,
+                         double cnt, int64_t n, float* ayn, float* part, float* out,
+                         void* stream) {
+  return dual_chunk_stats_impl<float>(device, y, ry, ay, cnt, n, ayn, part, out,
+                                      static_cast<cudaStream_t>(stream));
+}
+
 // Threads in the largest grid a launch uses: a longer vector makes the
 // grid-stride loop take more than one pass.
 int64_t elementwise_grid_threads() { return kMaxBlocks * kThreads; }
+
+// Rows of partial results the chunk-stats pass writes for n elements.
+int64_t chunk_stats_blocks(int64_t n) { return n > 0 ? grid_for(n) : 0; }
 
 }  // extern "C"

@@ -1,8 +1,11 @@
-// Tree-constraint matvecs of the nvPAX PDHG loop, written for Hopper (sm_90a).
+// Tree- and tenant-constraint matvecs of the nvPAX PDHG loop, written for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tree_matvec/kernel.py:
 //   tree_matvec  (_blocked_prefix + _gather_kernel)   out[j] = csum[end_j] - csum[start_j]
 //   tree_rmatvec (_scatter_diff_kernel + _blocked_prefix)   the adjoint
+//   sla_matvec   (_sla_matvec_kernel)    out[t] = sum over edges e of tenant t of x[dev_e]
+//   sla_rmatvec  (_sla_rmatvec_kernel)   out[d] = sum over edges e of device d of y[ten_e]
 //
 // What bounds it on this card: memory traffic and launch latency.  At the
 // paper's fleet (n = 12,288 devices, m = 1,637 tree rows) each call moves
@@ -25,6 +28,19 @@
 // position's lists in that fixed order while loading it.  That is the order
 // a sequential index_add_ adds in, so the difference array is exact and the
 // result is the same from run to run.
+//
+// The tenant pair is one segmented-sum kernel.  The TPU version scatters
+// each chunk of incidence edges into the output with `.at[].add`; on this
+// card that would be fp64 atomics, whose order changes from run to run, and
+// the feasibility repair and saturation tests compare these sums against
+// thresholds.  Once per tenant topology the host sorts the edges into CSR
+// lists (by tenant for the forward sum, by device for the adjoint; a stable
+// sort, so each list keeps edge order), and one thread per output sums its
+// list in that order -- the order a sequential index_add_ adds in -- so the
+// kernel returns the bits of the plain version, every time.  At the paper's
+// Appendix B fleet (k = 100 tenants, E = 10,000 edges, n = 12,288 devices)
+// a call moves 0.16-0.26 MB; a thread walks at most ~100 edges, so latency
+// of the dependent adds, not bytes, bounds it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -164,7 +180,40 @@ __global__ void __launch_bounds__(kRowThreads)
   if (i < n) out[i] += offsets[i / kTile];
 }
 
+// out[s] = sum of v[idx[e]] for e in [ptr[s], ptr[s + 1]), added in list
+// order with round-to-nearest adds (nothing to contract, but kept explicit).
+template <typename T>
+__device__ __forceinline__ T add_rn(T a, T b);
+template <>
+__device__ __forceinline__ double add_rn<double>(double a, double b) { return __dadd_rn(a, b); }
+template <>
+__device__ __forceinline__ float add_rn<float>(float a, float b) { return __fadd_rn(a, b); }
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    segment_sums(const T* __restrict__ v, const int32_t* __restrict__ ptr,
+                 const int32_t* __restrict__ idx, int64_t nseg, T* __restrict__ out) {
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (s >= nseg) return;
+  T acc = T(0);
+  const int32_t stop = ptr[s + 1];
+  for (int32_t e = ptr[s]; e < stop; ++e) acc = add_rn(acc, v[idx[e]]);
+  out[s] = acc;
+}
+
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+template <typename T>
+int segment_sums_impl(int device, const T* v, const int32_t* ptr, const int32_t* idx,
+                      int64_t nseg, T* out, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nseg > 0) {
+    segment_sums<T><<<static_cast<unsigned>(ceil_div(nseg, kRowThreads)), kRowThreads, 0, stream>>>(
+        v, ptr, idx, nseg, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T>
 int tree_matvec_impl(int device, const T* x, const int32_t* start, const int32_t* end,
@@ -235,6 +284,21 @@ int tree_rmatvec_f32(int device, const float* y, const int32_t* start_ptr,
                      float* totals, float* offsets, float* out, int64_t n, void* stream) {
   return tree_rmatvec_impl<float>(device, y, start_ptr, start_rows, end_ptr, end_rows, totals,
                                   offsets, out, n, static_cast<cudaStream_t>(stream));
+}
+
+// Tenant sums: out[s] = sum of v[idx[e]] over the CSR list of segment s.
+// sla_matvec passes (x, tenant lists of device ids, k); sla_rmatvec passes
+// (y, device lists of tenant ids, n).
+int segment_sums_f64(int device, const double* v, const int32_t* ptr, const int32_t* idx,
+                     int64_t nseg, double* out, void* stream) {
+  return segment_sums_impl<double>(device, v, ptr, idx, nseg, out,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+int segment_sums_f32(int device, const float* v, const int32_t* ptr, const int32_t* idx,
+                     int64_t nseg, float* out, void* stream) {
+  return segment_sums_impl<float>(device, v, ptr, idx, nseg, out,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """ctypes wrappers of the fused CUDA PDHG update kernels
 (``csrc/pdhg_update.cu``).
 
-Replace ``repro/kernels/pdhg_update/kernel.py:primal_update`` and
-``:dual_prox`` (Pallas, TPU).  The source's header comment gives the design
+Replace ``repro/kernels/pdhg_update/kernel.py:primal_update``,
+``:dual_prox``, ``:primal_chunk_stats`` and ``:dual_chunk_stats`` (Pallas,
+TPU).  The source's header comment gives the design
 and what bounds it.  Each wrapper checks its inputs, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises on a non-zero
 ``cudaGetLastError``, and counts its launches in :data:`LAUNCHES`.
@@ -14,9 +15,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "primal_update", "dual_prox"]
+__all__ = [
+    "LAUNCHES",
+    "dual_chunk_stats",
+    "dual_prox",
+    "primal_chunk_stats",
+    "primal_update",
+]
 
-LAUNCHES = {"primal_update": 0, "dual_prox": 0}
+LAUNCHES = {
+    "primal_update": 0,
+    "dual_prox": 0,
+    "primal_chunk_stats": 0,
+    "dual_chunk_stats": 0,
+}
 
 
 def _check(names: str, tensors, n: int, like: torch.Tensor) -> None:
@@ -106,3 +118,42 @@ def dual_prox(y, a, sigma, lo, hi):
     _raise_on(err, "dual_prox")
     LAUNCHES["dual_prox"] += 1
     return out
+
+
+def _chunk_stats(name: str, vecs, cnt, n_out: int):
+    """Launch one chunk-stats pass over ``vecs`` (the iterate first, the
+    accumulator last); returns the new accumulator and ``n_out`` 0-d
+    results on the device."""
+    v = vecs[0]
+    n = v.shape[0]
+    lib = _build.library()
+    acc = torch.empty_like(v)
+    part = torch.empty(max(lib.chunk_stats_blocks(n), 1) * n_out, dtype=v.dtype, device=v.device)
+    out = torch.empty(n_out, dtype=v.dtype, device=v.device)
+    fn = getattr(lib, f"{name}_{_suffix(v.dtype)}")
+    err = fn(
+        v.device.index,
+        *(t.data_ptr() for t in vecs),
+        float(cnt),
+        n,
+        acc.data_ptr(),
+        part.data_ptr(),
+        out.data_ptr(),
+        torch.cuda.current_stream(v.device).cuda_stream,
+    )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return (acc, *out.unbind())
+
+
+def primal_chunk_stats(x, px, rx, ax, cnt):
+    """(ax + x, max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2);
+    ``cnt`` is a host number."""
+    _check("x px rx ax", (x, px, rx, ax), x.shape[0], x)
+    return _chunk_stats("primal_chunk_stats", (x, px, rx, ax), cnt, 4)
+
+
+def dual_chunk_stats(y, ry, ay, cnt):
+    """(ay + y, sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2)."""
+    _check("y ry ay", (y, ry, ay), y.shape[0], y)
+    return _chunk_stats("dual_chunk_stats", (y, ry, ay), cnt, 3)

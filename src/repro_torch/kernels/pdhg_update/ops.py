@@ -1,12 +1,18 @@
-"""Dispatch of the fused PDHG updates: a CUDA tensor launches the kernel (or
-the kernel raises), a CPU tensor runs the plain version in :mod:`.ref`."""
+"""Dispatch of the fused PDHG updates and chunk statistics: a CUDA tensor
+launches the kernel (or the kernel raises), a CPU tensor runs the plain
+version in :mod:`.ref`."""
 
 from __future__ import annotations
 
 from repro_torch.kernels.pdhg_update import kernel
-from repro_torch.kernels.pdhg_update.ref import dual_prox_ref, primal_update_ref
+from repro_torch.kernels.pdhg_update.ref import (
+    dual_chunk_stats_ref,
+    dual_prox_ref,
+    primal_chunk_stats_ref,
+    primal_update_ref,
+)
 
-__all__ = ["primal_update", "dual_prox"]
+__all__ = ["primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats"]
 
 
 def primal_update(x, gx, c, w, target, lo, hi, tau):
@@ -19,3 +25,15 @@ def dual_prox(y, a, sigma, lo, hi):
     if y.device.type == "cpu":
         return dual_prox_ref(y, a, sigma, lo, hi)
     return kernel.dual_prox(y, a, sigma, lo, hi)
+
+
+def primal_chunk_stats(x, px, rx, ax, cnt):
+    if x.device.type == "cpu":
+        return primal_chunk_stats_ref(x, px, rx, ax, cnt)
+    return kernel.primal_chunk_stats(x, px, rx, ax, cnt)
+
+
+def dual_chunk_stats(y, ry, ay, cnt):
+    if y.device.type == "cpu":
+        return dual_chunk_stats_ref(y, ry, ay, cnt)
+    return kernel.dual_chunk_stats(y, ry, ay, cnt)

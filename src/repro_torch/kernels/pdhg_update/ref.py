@@ -5,7 +5,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["primal_update_ref", "dual_prox_ref"]
+__all__ = [
+    "primal_update_ref",
+    "dual_prox_ref",
+    "primal_chunk_stats_ref",
+    "dual_chunk_stats_ref",
+]
 
 
 def primal_update_ref(x, gx, c, w, target, lo, hi, tau):
@@ -23,3 +28,33 @@ def dual_prox_ref(y, a, sigma, lo, hi):
     z - sigma * clip(z / sigma, lo, hi)."""
     z = y + sigma * a
     return z - sigma * torch.clamp(z / sigma, lo, hi)
+
+
+def _max_abs(v):
+    # the reference pads to whole blocks with zeros, so an empty vector's max is 0
+    return torch.max(torch.abs(v)) if v.shape[0] else v.new_zeros(())
+
+
+def primal_chunk_stats_ref(x, px, rx, ax, cnt):
+    """Chunk-boundary primal bookkeeping: average accumulation + move norms
+    + current/average restart-candidate travel (squared)."""
+    axn = ax + x
+    return (
+        axn,
+        _max_abs(x - px),
+        _max_abs(x),
+        torch.sum((x - rx) ** 2),
+        torch.sum((axn / cnt - rx) ** 2),
+    )
+
+
+def dual_chunk_stats_ref(y, ry, ay, cnt):
+    """Chunk-boundary dual bookkeeping: average accumulation +
+    current/average/zero-dual restart-candidate travel (squared)."""
+    ayn = ay + y
+    return (
+        ayn,
+        torch.sum((y - ry) ** 2),
+        torch.sum((ayn / cnt - ry) ** 2),
+        torch.sum(ry * ry),
+    )

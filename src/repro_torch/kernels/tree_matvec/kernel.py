@@ -1,7 +1,8 @@
-"""ctypes wrappers of the CUDA tree matvec kernels (``csrc/tree_matvec.cu``).
+"""ctypes wrappers of the CUDA tree and tenant matvec kernels
+(``csrc/tree_matvec.cu``).
 
-Replace ``repro/kernels/tree_matvec/kernel.py:tree_matvec`` and
-``:tree_rmatvec`` (Pallas, TPU).  The source's header comment gives the
+Replace ``repro/kernels/tree_matvec/kernel.py:tree_matvec``,
+``:tree_rmatvec``, ``:sla_matvec`` and ``:sla_rmatvec`` (Pallas, TPU).  The source's header comment gives the
 design and what bounds it.  Each wrapper checks its inputs, allocates its
 output and scratch with ``torch.empty``, launches on the current stream,
 raises on a non-zero ``cudaGetLastError``, and counts its launches in
@@ -17,9 +18,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "TreeIndex", "tree_index", "tree_matvec", "tree_rmatvec"]
+__all__ = [
+    "LAUNCHES",
+    "SlaIndex",
+    "TreeIndex",
+    "sla_index",
+    "sla_matvec",
+    "sla_rmatvec",
+    "tree_index",
+    "tree_matvec",
+    "tree_rmatvec",
+]
 
-LAUNCHES = {"tree_matvec": 0, "tree_rmatvec": 0}
+LAUNCHES = {"tree_matvec": 0, "tree_rmatvec": 0, "sla_matvec": 0, "sla_rmatvec": 0}
 
 
 class TreeIndex(NamedTuple):
@@ -69,6 +80,57 @@ def tree_index(start, end, n: int, device) -> TreeIndex:
 
     return TreeIndex(
         i32(start), i32(end), i32(s_ptr), i32(s_rows), i32(e_ptr), i32(e_rows), int(n)
+    )
+
+
+class SlaIndex(NamedTuple):
+    """Kernel-ready tenant incidence, made once per tenant topology by
+    :func:`sla_index`.
+
+    ``dev``/``ten`` are int32 copies of the edge list (edge ``e`` puts device
+    ``dev[e]`` in tenant ``ten[e]``).  The CSR lists drive both sums without
+    atomics, each list in edge order: tenant ``t`` sums
+    ``x[ten_dev[ten_ptr[t]:ten_ptr[t + 1]]]``, device ``d`` sums
+    ``y[dev_ten[dev_ptr[d]:dev_ptr[d + 1]]]``.
+    """
+
+    dev: torch.Tensor  # [E] int32
+    ten: torch.Tensor  # [E] int32
+    ten_ptr: torch.Tensor  # [k + 1] int32
+    ten_dev: torch.Tensor  # [E] int32: device ids, grouped by tenant
+    dev_ptr: torch.Tensor  # [n + 1] int32
+    dev_ten: torch.Tensor  # [E] int32: tenant ids, grouped by device
+    k: int
+    n: int
+
+
+def _group(key: np.ndarray, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """CSR of edge ids grouped by ``key`` in ``[0, size)``, edge order kept
+    within each group (a stable sort)."""
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=size)
+    return np.concatenate([[0], np.cumsum(counts)]), order
+
+
+def sla_index(dev, ten, k: int, n: int, device) -> SlaIndex:
+    """Validate ``0 <= dev < n``, ``0 <= ten < k`` and build the kernel
+    index."""
+    dev, ten = _host_index(dev), _host_index(ten)
+    if dev.shape != ten.shape or dev.ndim != 1:
+        raise ValueError(f"dev/ten shapes {dev.shape}/{ten.shape} differ")
+    if ((dev < 0) | (dev >= n)).any() or ((ten < 0) | (ten >= k)).any():
+        raise ValueError(f"tenant edges must satisfy 0 <= dev < n={n}, 0 <= ten < k={k}")
+    if max(n, k, dev.shape[0]) >= 2**31:
+        raise ValueError("the tenant incidence does not fit the kernels' int32 indices")
+    t_ptr, t_order = _group(ten, k)
+    d_ptr, d_order = _group(dev, n)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    return SlaIndex(
+        i32(dev), i32(ten), i32(t_ptr), i32(dev[t_order]), i32(d_ptr), i32(ten[d_order]),
+        int(k), int(n),
     )
 
 
@@ -162,3 +224,43 @@ def tree_rmatvec(y: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
     _raise_on(err, "tree_rmatvec")
     LAUNCHES["tree_rmatvec"] += 1
     return out
+
+
+def _check_sla_index(idx: SlaIndex, device: torch.device) -> None:
+    for name in ("ten_ptr", "ten_dev", "dev_ptr", "dev_ten"):
+        t = getattr(idx, name)
+        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"index.{name} must be contiguous int32 on {device}")
+
+
+def _segment_sums(name, v, ptr, ids, nseg):
+    out = torch.empty(nseg, dtype=v.dtype, device=v.device)
+    if ids.shape[0] == 0:
+        return out.zero_()  # no edges: zeros without a launch
+    fn = getattr(_build.library(), f"segment_sums_{_suffix(v.dtype)}")
+    err = fn(
+        v.device.index,
+        v.data_ptr(),
+        ptr.data_ptr(),
+        ids.data_ptr(),
+        nseg,
+        out.data_ptr(),
+        torch.cuda.current_stream(v.device).cuda_stream,
+    )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def sla_matvec(x: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
+    """out[t] = sum of x over tenant t's devices, in edge order."""
+    _check_vec("x", x, idx.n)
+    _check_sla_index(idx, x.device)
+    return _segment_sums("sla_matvec", x, idx.ten_ptr, idx.ten_dev, idx.k)
+
+
+def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
+    """Adjoint: out[d] = sum of y over device d's tenants, in edge order."""
+    _check_vec("y", y, idx.k)
+    _check_sla_index(idx, y.device)
+    return _segment_sums("sla_rmatvec", y, idx.dev_ptr, idx.dev_ten, idx.n)

@@ -1,15 +1,30 @@
-"""Dispatch of the tree matvecs: a CUDA tensor launches the kernel (or the
-kernel raises), a CPU tensor runs the plain version in :mod:`.ref`."""
+"""Dispatch of the tree and tenant matvecs: a CUDA tensor launches the
+kernel (or the kernel raises), a CPU tensor runs the plain version in
+:mod:`.ref`."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.tree_matvec import kernel
-from repro_torch.kernels.tree_matvec.kernel import TreeIndex, tree_index
-from repro_torch.kernels.tree_matvec.ref import tree_matvec_ref, tree_rmatvec_ref
+from repro_torch.kernels.tree_matvec.kernel import SlaIndex, TreeIndex, sla_index, tree_index
+from repro_torch.kernels.tree_matvec.ref import (
+    sla_matvec_ref,
+    sla_rmatvec_ref,
+    tree_matvec_ref,
+    tree_rmatvec_ref,
+)
 
-__all__ = ["TreeIndex", "tree_index", "tree_matvec", "tree_rmatvec"]
+__all__ = [
+    "SlaIndex",
+    "TreeIndex",
+    "sla_index",
+    "sla_matvec",
+    "sla_rmatvec",
+    "tree_index",
+    "tree_matvec",
+    "tree_rmatvec",
+]
 
 
 def tree_matvec(x: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
@@ -22,3 +37,15 @@ def tree_rmatvec(y: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
     if y.device.type == "cpu":
         return tree_rmatvec_ref(y, idx.start, idx.end, idx.n)
     return kernel.tree_rmatvec(y, idx)
+
+
+def sla_matvec(x: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return sla_matvec_ref(x, idx.dev, idx.ten, idx.k)
+    return kernel.sla_matvec(x, idx)
+
+
+def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
+    if y.device.type == "cpu":
+        return sla_rmatvec_ref(y, idx.dev, idx.ten, idx.n)
+    return kernel.sla_rmatvec(y, idx)

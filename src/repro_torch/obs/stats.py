@@ -4,13 +4,16 @@ A host-only copy of the reference's ``repro.obs.stats.StepStats``.  It
 subclasses ``dict`` so consumers can index it (``stats["total_solves"]``,
 ``stats.get("skipped", False)``); the canonical *and* alias spellings are
 both present as keys, and canonical fields are additionally readable as
-attributes (``stats.solves``).  The reference's ``from_jit`` converter
-belongs to the batched engine and comes with it.
+attributes (``stats.solves``).  :meth:`StepStats.from_tensors` is the
+counterpart of the reference's ``from_jit`` for the one-scenario engine.
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import numpy as np
+import torch
 
 __all__ = ["StepStats"]
 
@@ -72,6 +75,33 @@ class StepStats(dict):
                 out[alias] = value
         out.update(extras)
         return out
+
+    @classmethod
+    def from_tensors(cls, stats: dict, **extras: Any) -> "StepStats":
+        """Convert the stats dict of
+        :func:`repro_torch.core.batched.solve_three_phase` (keys ``solves``,
+        ``iterations``, ``iterations_p1..3``, flags; counts and flags are
+        host values, ``kkt_res`` and ``kkt_hist`` device tensors) to host
+        scalars — the reference's ``from_jit(..., scalar=True)``, the
+        engine's (K = 1) record."""
+
+        def host(v):
+            return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+        return cls.build(
+            solves=int(stats["solves"]),
+            iterations=int(stats["iterations"]),
+            phase_iterations=[int(stats[f"iterations_p{i}"]) for i in (1, 2, 3)],
+            converged=bool(stats["converged"]),
+            skipped=bool(stats["skipped"]),
+            certify_pass=bool(stats["certify_pass"]),
+            kkt_certified=bool(stats["kkt_certified"]),
+            truncated=bool(stats["truncated"]),
+            kkt_res=float(host(stats["kkt_res"])),
+            restarts=int(stats["restarts"]),
+            kkt_hist=host(stats["kkt_hist"]),
+            **extras,
+        )
 
     def __getattr__(self, name: str):
         try:

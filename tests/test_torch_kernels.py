@@ -3,11 +3,12 @@
 Each kernel's plain PyTorch version (``repro_torch.kernels.*.ref``, which
 ``ops`` runs for a CPU tensor) is held against the reference's Pallas kernel
 in interpret mode and against its jnp oracle, on the sweeps of
-``tests/test_kernels.py`` at small n.  Inputs are made with numpy from a
+``tests/test_kernels.py`` at small n (block and edge-chunk sizes made small
+so the sweeps cross them).  Inputs are made with numpy from a
 seed and handed to both packages.  The CUDA kernels themselves run only on
 the card (``tests/test_torch_kernels_cuda.py``); here the host-side parts
-they depend on (the CSR index of the adjoint, the wrappers' refusal of CPU
-tensors) are checked.
+they depend on (the CSR indexes of the adjoints and tenant sums, the
+wrappers' refusal of CPU tensors) are checked.
 """
 
 from __future__ import annotations
@@ -20,14 +21,26 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.compat import enable_x64  # noqa: E402
+from repro.kernels.pdhg_update import dual_chunk_stats as j_dual_chunk_stats  # noqa: E402
 from repro.kernels.pdhg_update import dual_prox as j_dual_prox  # noqa: E402
+from repro.kernels.pdhg_update import primal_chunk_stats as j_primal_chunk_stats  # noqa: E402
 from repro.kernels.pdhg_update import primal_update as j_primal_update  # noqa: E402
 from repro.kernels.pdhg_update.ref import dual_prox_ref as j_dual_prox_ref  # noqa: E402
 from repro.kernels.pdhg_update.ref import (  # noqa: E402
     primal_update_ref as j_primal_update_ref,
 )
+from repro.kernels.pdhg_update.ref import (  # noqa: E402
+    dual_chunk_stats_ref as j_dual_chunk_stats_ref,
+)
+from repro.kernels.pdhg_update.ref import (  # noqa: E402
+    primal_chunk_stats_ref as j_primal_chunk_stats_ref,
+)
+from repro.kernels.tree_matvec import sla_matvec as j_sla_matvec  # noqa: E402
+from repro.kernels.tree_matvec import sla_rmatvec as j_sla_rmatvec  # noqa: E402
 from repro.kernels.tree_matvec import tree_matvec as j_tree_matvec  # noqa: E402
 from repro.kernels.tree_matvec import tree_rmatvec as j_tree_rmatvec  # noqa: E402
+from repro.kernels.tree_matvec.ref import sla_matvec_ref as j_sla_matvec_ref  # noqa: E402
+from repro.kernels.tree_matvec.ref import sla_rmatvec_ref as j_sla_rmatvec_ref  # noqa: E402
 from repro.kernels.tree_matvec.ref import tree_matvec_ref as j_tree_matvec_ref  # noqa: E402
 from repro.kernels.tree_matvec.ref import (  # noqa: E402
     tree_rmatvec_ref as j_tree_rmatvec_ref,
@@ -190,6 +203,152 @@ def test_tree_index_rejects_malformed_rows():
         tk.tree_index([0], [5], 4, "cpu")
 
 
+# ---------------------------------------------------------------------------
+# tenant (SLA) matvecs
+# ---------------------------------------------------------------------------
+
+# the reference's edge chunk, small so the sweep crosses chunk edges
+EDGE_BLOCK = 64
+
+
+def _edges(rng, n, k, e):
+    """Random incidence edges: devices may sit in several tenants (and
+    repeat within one), tenants may be empty."""
+    return rng.integers(0, n, e).astype(np.int32), rng.integers(0, k, e).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "e", [0, 1, EDGE_BLOCK - 1, EDGE_BLOCK, EDGE_BLOCK + 1, 3 * EDGE_BLOCK + 5]
+)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sla_matvecs_match_reference(e, dtype):
+    """Forward and adjoint tenant sums against the reference's chunked
+    Pallas kernels (interpret mode) and its jnp oracles, across edge-chunk
+    edges and with no edges at all."""
+    rng = np.random.default_rng(e)
+    n, k = 50, 7
+    dev, ten = _edges(rng, n, k, e)
+    x = rng.normal(size=n).astype(dtype)
+    y = rng.normal(size=k).astype(dtype)
+    with enable_x64(dtype == np.float64):
+        jx, jy = jnp.asarray(x, JNP[dtype]), jnp.asarray(y, JNP[dtype])
+        jdev, jten = jnp.asarray(dev), jnp.asarray(ten)
+        jk = j_sla_matvec(jx, jdev, jten, k, edge_block=EDGE_BLOCK)
+        jr = j_sla_matvec_ref(jx, jdev, jten, k)
+        jkt = j_sla_rmatvec(jy, jdev, jten, n, edge_block=EDGE_BLOCK)
+        jrt = j_sla_rmatvec_ref(jy, jdev, jten, n)
+    idx = tk.sla_index(dev, ten, k, n, "cpu")
+    _close(tk.sla_matvec(torch.as_tensor(x), idx), jk, jr, dtype=dtype)
+    _close(tk.sla_rmatvec(torch.as_tensor(y), idx), jkt, jrt, dtype=dtype)
+
+
+def test_sla_matvecs_without_tenants():
+    """k = 0 (no tenant rows): empty sums and a zero adjoint."""
+    idx = tk.sla_index([], [], 0, 9, "cpu")
+    x = torch.arange(9, dtype=torch.float64)
+    assert tk.sla_matvec(x, idx).shape == (0,)
+    assert torch.equal(tk.sla_rmatvec(x[:0], idx), torch.zeros(9, dtype=torch.float64))
+    with enable_x64(True):
+        assert np.asarray(j_sla_matvec(jnp.asarray(x.numpy()), jnp.zeros(0, jnp.int32),
+                                       jnp.zeros(0, jnp.int32), 0)).shape == (0,)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sla_index_csr_reproduces_index_add(seed):
+    """The kernels sum each CSR list in its stored order.  Emulated here on
+    the host, that sum equals a sequential ``index_add_`` bit for bit,
+    forward and adjoint, for devices in several tenants."""
+    rng = np.random.default_rng(seed)
+    n, k, e = 40, 6, 300
+    dev, ten = _edges(rng, n, k, e)
+    idx = tk.sla_index(dev, ten, k, n, "cpu")
+    x, y = rng.normal(size=n) * 1e3, rng.normal(size=k) * 1e3
+
+    def csr_sums(v, ptr, ids):
+        out = np.zeros(len(ptr) - 1)
+        for s in range(len(out)):
+            acc = 0.0
+            for j in ids[ptr[s] : ptr[s + 1]]:
+                acc += v[j]
+            out[s] = acc
+        return out
+
+    fwd = csr_sums(x, idx.ten_ptr.numpy(), idx.ten_dev.numpy())
+    adj = csr_sums(y, idx.dev_ptr.numpy(), idx.dev_ten.numpy())
+    tx, ty = torch.as_tensor(x), torch.as_tensor(y)
+    dev64, ten64 = torch.as_tensor(dev, dtype=torch.int64), torch.as_tensor(ten, dtype=torch.int64)
+    want_fwd = torch.zeros(k, dtype=torch.float64).index_add_(0, ten64, tx[dev64])
+    want_adj = torch.zeros(n, dtype=torch.float64).index_add_(0, dev64, ty[ten64])
+    np.testing.assert_array_equal(fwd, want_fwd.numpy())
+    np.testing.assert_array_equal(adj, want_adj.numpy())
+    np.testing.assert_array_equal(tk.sla_matvec(tx, idx).numpy(), fwd)
+    np.testing.assert_array_equal(tk.sla_rmatvec(ty, idx).numpy(), adj)
+
+
+def test_sla_index_rejects_malformed_edges():
+    with pytest.raises(ValueError, match="0 <= dev < n"):
+        tk.sla_index([4], [0], 1, 4, "cpu")
+    with pytest.raises(ValueError, match="0 <= dev < n"):
+        tk.sla_index([0], [1], 1, 4, "cpu")
+    with pytest.raises(ValueError, match="differ"):
+        tk.sla_index([0, 1], [0], 1, 4, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# chunk statistics
+# ---------------------------------------------------------------------------
+
+STATS_BLOCK = 128
+# float32: the sums of squares add in another order than the reference's
+# per-block partials; 1e-5 relative covers a few hundred terms
+STATS_TOL = {np.float64: 1e-12, np.float32: 1e-5}
+
+
+@pytest.mark.parametrize(
+    "n", [1, STATS_BLOCK - 1, STATS_BLOCK, STATS_BLOCK + 1, 3 * STATS_BLOCK + 5]
+)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chunk_stats_match_reference(n, dtype):
+    """Primal and dual chunk statistics against the reference's Pallas
+    kernels (interpret mode, per-block partials) and jnp oracles, across
+    block edges: the accumulators and maxima exactly, the sums to
+    ``STATS_TOL`` relative."""
+    rng = np.random.default_rng(n)
+    x, px, rx, ax = (rng.normal(size=n).astype(dtype) for _ in range(4))
+    cnt = 3.0
+    with enable_x64(dtype == np.float64):
+        jargs = [jnp.asarray(v, JNP[dtype]) for v in (x, px, rx, ax)]
+        jp = j_primal_chunk_stats(*jargs, cnt, block=STATS_BLOCK)
+        jpr = j_primal_chunk_stats_ref(*jargs, cnt)
+        jd = j_dual_chunk_stats(*jargs[:3], cnt, block=STATS_BLOCK)
+        jdr = j_dual_chunk_stats_ref(*jargs[:3], cnt)
+    got_p = pk.primal_chunk_stats(*(torch.as_tensor(v) for v in (x, px, rx, ax)), cnt)
+    got_d = pk.dual_chunk_stats(*(torch.as_tensor(v) for v in (x, px, rx)), cnt)
+    tol = STATS_TOL[dtype]
+    for i, (g, a, b) in enumerate(zip(got_p, jp, jpr)):
+        assert g.dtype == torch.from_numpy(x).dtype
+        if i < 3:  # accumulator and maxima: no reordering
+            np.testing.assert_array_equal(g.numpy(), np.asarray(a))
+            np.testing.assert_array_equal(g.numpy(), np.asarray(b))
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(a), rtol=tol)
+            np.testing.assert_allclose(g.numpy(), np.asarray(b), rtol=tol)
+    np.testing.assert_array_equal(got_d[0].numpy(), np.asarray(jd[0]))
+    for g, a, b in zip(got_d[1:], jd[1:], jdr[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(a), rtol=tol)
+        np.testing.assert_allclose(g.numpy(), np.asarray(b), rtol=tol)
+
+
+def test_chunk_stats_of_an_empty_vector_are_zero():
+    """The reference pads to whole blocks with zeros, so nothing moved and
+    nothing travelled."""
+    z = torch.zeros(0, dtype=torch.float64)
+    axn, *rest = pk.primal_chunk_stats(z, z, z, z, 1.0)
+    assert axn.shape == (0,) and all(float(v) == 0.0 for v in rest)
+    ayn, *rest = pk.dual_chunk_stats(z, z, z, 1.0)
+    assert ayn.shape == (0,) and all(float(v) == 0.0 for v in rest)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper never takes the plain path itself: ops dispatches a CPU
     tensor to ``ref``, and the kernel wrappers only take CUDA tensors."""
@@ -203,3 +362,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pk_kernel.primal_update(*([x] * 8))
     with pytest.raises(ValueError, match="CUDA"):
         pk_kernel.dual_prox(*([x] * 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        pk_kernel.primal_chunk_stats(x, x, x, x, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk_kernel.dual_chunk_stats(x, x, x, 1.0)
+    sidx = tk.sla_index([0, 1], [0, 0], 1, pdn.n, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tk_kernel.sla_matvec(x, sidx)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk_kernel.sla_rmatvec(torch.zeros(1, dtype=torch.float64), sidx)

@@ -93,8 +93,8 @@ def test_optimize_matches_reference(small_pdn, kernels, use_waterfill, warm):
 
 
 def test_optimize_with_tenants_matches_reference(small_pdn):
-    """Tenant SLA rows run through plain torch on the CPU, also with the
-    kernel flags set (their kernels are not ported yet)."""
+    """Tenant SLA rows run through their kernels' plain versions on the CPU,
+    also with the kernel flags set."""
     layout = assign_tenants(small_pdn, n_tenants=4, devices_per_tenant=8, seed=1)
     tele = np.random.default_rng(3).uniform(100, 650, small_pdn.n)
     with enable_x64(True):
@@ -162,7 +162,9 @@ def test_device_rule():
 def test_import_loads_neither_jax_nor_reference():
     code = (
         "import sys, repro_torch, repro_torch.convert, repro_torch.core, "
-        "repro_torch.kernels, repro_torch.pdn, repro_torch.obs\n"
+        "repro_torch.kernels, repro_torch.pdn, repro_torch.obs, repro_torch.power, "
+        "repro_torch.pdn.tenants, repro_torch.core.engine, repro_torch.core.batched, "
+        "repro_torch.core.metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
