@@ -4,7 +4,7 @@
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py                 # exits non-zero on any failure
-    python3 chip_smoke.py --profile       # also profiles two control steps
+    python3 chip_smoke.py --profile       # also profiles two control steps, a prefill and a decode step
     python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
     python3 chip_smoke.py --out DIR       # where the details go
 
@@ -37,7 +37,21 @@ Phases, each of which raises on failure:
    :func:`tenant_engine_phase`); then a repeated step (identical bits) and
    a supply re-pin (no rebuild).
    ``--warm-tenants`` adds one warm-carried step (iterations and
-   certificate only).
+   certificate only);
+8. the data plane's serving path on qwen3-4b at full width (36 layers,
+   d_model 2,560, bf16 compute, weights from a seeded ``torch.Generator``
+   on the card), see :func:`serving_phase`: (a) parameters and peak memory;
+   (b) the flash-attention kernel against its plain version at the serving
+   shape (layer 0's q/k/v of a 4 x 2,048-token prompt) and at edge shapes;
+   (c) ``make_serve_steps`` prefill of that prompt through the kernel (36
+   launches) and through the plain blocked scan (``flash_vjp=False``),
+   logits and KV caches held against each other; (d) the reduced config in
+   float32 on the card (kernel) against the CPU (plain version); (e) token
+   by token decode against the prefill, 4 layers, one 1,152-token request;
+   (f) the launcher ``repro_torch.launch.serve.run`` twice with ``--cap
+   450`` (same greedy tokens; it prefills token by token and so runs no
+   flash-attention kernel); (g) the kernel's time beside its plain
+   version's, its bound and ``scaled_dot_product_attention``'s.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -63,11 +77,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch.kernels as kernels  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core.nvpax import NvpaxOptions, optimize  # noqa: E402
 from repro_torch.core.problem import AllocProblem, FleetTopology  # noqa: E402
 from repro_torch.core.solver import SolverOptions  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.pdhg_update import kernel as pk  # noqa: E402
 from repro_torch.kernels.pdhg_update import ref as pref  # noqa: E402
 from repro_torch.kernels.tree_matvec import kernel as tk  # noqa: E402
@@ -75,12 +92,17 @@ from repro_torch.kernels.tree_matvec import ref as tref  # noqa: E402
 from repro_torch.pdn.telemetry import TelemetrySim, TraceConfig  # noqa: E402
 from repro_torch.pdn.tenants import appendix_b_layout  # noqa: E402
 from repro_torch.pdn.tree import build_datacenter  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention, build  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.power import ControllerConfig, PowerController  # noqa: E402
+from repro_torch.training.step import make_serve_steps  # noqa: E402
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3, 34 TFLOP/s FP64 and
-# 67 TFLOP/s FP32 outside the tensor cores, at the 700 W power limit.
+# 67 TFLOP/s FP32 outside the tensor cores, 989.4 TFLOP/s dense bf16 in
+# them, at the 700 W power limit.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989.4e12}
 
 STEPS = 5
 LP_STEPS = 2
@@ -119,6 +141,57 @@ LIMITS = {
 # the serving path on the tenant fleet: telemetry samples of its cold steps
 ENGINE_SAMPLES = (0, 1, 2)
 SLA_FEAS_TOL = 1e-6  # watts: tenant sums inside [b_min, b_max]
+# the allocator's kernels (phases 3-7); flash attention is phase 8's
+ALLOCATOR_KERNELS = (
+    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec",
+    "primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats",
+)
+
+# Phase 8, the data plane's serving path.  Flash attention against its plain
+# version (attention_ref), row by row: |d| <= tol * max|plain row|.  Float32:
+# 1e-5 (both keep float32 throughout, summing in other orders).  Bfloat16:
+# 2^-7 against the plain version run in float32 on the same values (the
+# kernel rounds P and its output to bfloat16, one unit roundoff 2^-8 each),
+# and 2^-5 against the plain version in bfloat16, which also rounds each
+# product q.k to bfloat16 before the scale (up to 2^-8 |q.k| dh^-0.5 in a
+# logit; 1.6e-2 measured on the H100 at the serving shape with N(0, 1)
+# inputs).
+SERVE_ARCH = "qwen3-4b"
+SERVE_B, SERVE_S = 4, 2_048  # the serving prefill: 4 requests of 2,048 tokens
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2.0**-5}
+FLASH_TOL_VS_F32 = 2.0**-7
+# B, Sq, Sk, H, KV, dh, causal, dtype: the edge shapes beside the serving one
+FLASH_EDGES = [
+    (2, 300, 1_000, 32, 8, 128, True, torch.bfloat16),  # Sq < Sk
+    (2, 1_000, 300, 32, 8, 128, True, torch.bfloat16),  # Sq > Sk: 700 rows see no key
+    (2, 1_000, 1_537, 32, 8, 128, True, torch.bfloat16),  # ragged tiles
+    (2, 1_537, 1_537, 32, 1, 128, True, torch.bfloat16),  # MQA
+    (2, 1_000, 1_000, 16, 4, 64, True, torch.bfloat16),  # dh = 64
+    (2, 1_537, 1_000, 32, 8, 128, False, torch.bfloat16),  # non-causal
+    (2, 192, 192, 4, 2, 32, True, torch.bfloat16),  # the reduced configs' head_dim
+    (2, 1_000, 1_537, 32, 8, 128, True, torch.float32),
+    (2, 1_537, 1_000, 16, 4, 64, False, torch.float32),
+    (2, 192, 192, 4, 2, 32, True, torch.float32),
+]
+# reduced qwen3-4b in float32, prefill logits, card (kernel) vs CPU (plain
+# version): about 5x the reference's own blocked-vs-plain gap (3.7e-6)
+CARD_CPU_TOL = 2e-5
+# decode vs prefill: the reference's own bar, rtol = atol = 2e-2
+# (tests/test_arch_smoke.py::test_decode_matches_prefill_consistency), in
+# float32 compute as that test runs; in bf16 compute the reference's own
+# decode and prefill miss it (1.6% of the logits outside it, reduced
+# qwen3-4b, S = 192: tests/test_torch_lm.py run as a script), so bf16 is held
+# to PATH_TOL below in relative Frobenius norm
+SERVE_TOL = 2e-2
+# the prefill through the kernel vs through the plain blocked scan: the two
+# differ only in the attention arithmetic, whose outputs 8b holds within
+# 2^-5 (FLASH_TOL, bf16) of each other; each layer's K and V caches are held
+# to the same 2^-5 in relative Frobenius norm (elementwise, two bf16 paths
+# differ by a few bf16 ulps: up to 0.07 on keys of magnitude ~4 at layer 1,
+# measured on the H100), and layer 0's, computed before any attention, must
+# be identical
+PATH_TOL = 2.0**-5
+DECODE_LAYERS, DECODE_S = 4, 1_152  # S > attn_chunk: the prefill runs the kernel
 
 
 def log(*args) -> None:
@@ -273,7 +346,8 @@ def time_calls(fn, reps: int = 20, rounds: int = 5) -> tuple[float, float]:
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--profile", action="store_true", help="profile a warm step and a cold tenant step"
+        "--profile", action="store_true",
+        help="profile a warm step, a cold tenant step, a prefill and a decode step"
     )
     parser.add_argument(
         "--warm-tenants",
@@ -669,6 +743,10 @@ def main(argv: list[str]) -> int:
         entry["launches"] = engine_launches[entry["name"]]
         entry["launches_optimize_path"] = main_launches[entry["name"]]
 
+    # -- 8. the data plane's serving path -------------------------------------
+    flash_entry, report["serving_path"] = serving_phase(cuda, smi, args.profile)
+    entries.append(flash_entry)
+
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
         report["profile_tenant"] = profile_tenant_step(pdn, layout, engine_opts)
@@ -808,7 +886,7 @@ def tenant_engine_phase(pdn, layout, kernel_opts, cuda, warm_tenants: bool):
             f"{row['satisfaction_vs_cpu']:+.2e}; <= {PARITY_TOL:.0e} W with equal iterations: "
             + ("met" if row["parity_bar_met"] else "missed"))
     log(f"[7] launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ALLOCATOR_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"[7] kernels never launched: {missing}")
 
@@ -850,6 +928,291 @@ def tenant_engine_phase(pdn, layout, kernel_opts, cuda, warm_tenants: bool):
         }
         log(f"[7] warm-carried sample 1 after sample 0: {report['warm_step']}")
     return launches, report
+
+
+def _row_err(got, want) -> float:
+    """max |got - want| / max|want row| over the rows of the last axis."""
+    scale = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return float(((got.float() - want.float()).abs() / scale).max())
+
+
+def check_flash(tag, q, k, v, causal) -> dict:
+    """Phase 8b: the kernel against its plain version on one shape (see
+    ``FLASH_TOL``); a causal row that sees no key must give the mean of V."""
+    dtype = str(q.dtype).split(".")[-1]
+    (B, Sq, H, dh), (Sk, KV) = q.shape, k.shape[1:3]
+    got = fk.flash_attention(q, k, v, causal=causal)
+    plain = attention_ref(q, k, v, causal=causal)
+    row = {
+        "tag": tag, "shape": [B, Sq, Sk, H, KV, dh], "causal": causal, "dtype": dtype,
+        "max_abs": float((got.float() - plain.float()).abs().max()),
+        "rel": _row_err(got, plain), "tol": FLASH_TOL[dtype],
+    }
+    bad = row["rel"] > row["tol"]
+    if q.dtype == torch.bfloat16:
+        row["rel_vs_f32"] = _row_err(got, attention_ref(q.float(), k.float(), v.float(), causal=causal))
+        bad |= row["rel_vs_f32"] > FLASH_TOL_VS_F32
+    if causal and Sq > Sk:
+        blind = got[:, : Sq - Sk]
+        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None].expand(blind.shape)
+        row["rel_mean_v"] = _row_err(blind, mean_v)
+        bad |= row["rel_mean_v"] > FLASH_TOL[dtype]
+    log(f"[8b] {tag} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
+        f"{'causal' if causal else 'non-causal'} {dtype}: max |d| {row['max_abs']:.3e}, "
+        f"|d| / max|plain row| {row['rel']:.3e} (limit {row['tol']:.3e})"
+        + (f", vs plain in float32 {row['rel_vs_f32']:.3e} (limit {FLASH_TOL_VS_F32:.3e})"
+           if "rel_vs_f32" in row else "")
+        + (f", blind rows vs mean of V {row['rel_mean_v']:.3e}" if "rel_mean_v" in row else ""))
+    if bad:
+        raise AssertionError(f"[8b] flash attention disagrees with its plain version: {row}")
+    return row
+
+
+def _timed(fn):
+    """(result, host seconds) of ``fn()``, ending in a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serving_phase(cuda, smi, profile: bool = False):
+    """Phase 8: the data plane's serving path on qwen3-4b at full width.
+    Returns (the ``kernels`` line's flash_attention entry, report).  With
+    ``profile``, also a torch.profiler breakdown of one prefill and of one
+    decode step of the launcher's batch."""
+    report: dict = {}
+    cfg = get_arch(SERVE_ARCH)
+    api = build(cfg)
+    prefill, _ = make_serve_steps(cfg, api)
+
+    # (a) the model, from a seeded generator on the card
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = _timed(lambda: api.init(torch.Generator(device=cuda).manual_seed(0), cuda))
+    n_params = sum(p.numel() for p in params.parameters())
+    report["model"] = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "params": n_params,
+        "init_s": init_s, "peak_gb_after_build": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"[8a] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads (kv {cfg.n_kv}) of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params:,} parameters ({4 * n_params / 1e9:.2f} GB float32), built in "
+        f"{init_s:.2f} s; peak device memory {report['model']['peak_gb_after_build']:.2f} GB")
+
+    # (b) the kernel vs its plain version: layer 0's q/k/v of the prompt, edges
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_B, SERVE_S)), device=cuda
+    )
+    layer0 = params["layers"][0]
+    h = rms_norm(params["tok_embed"][tokens].to(cfg.compute_dtype), layer0["ln1"], cfg.norm_eps)
+    positions = torch.arange(SERVE_S, device=cuda).expand(SERVE_B, SERVE_S)
+    q, k, v = attention._project_qkv(layer0["attn"], cfg, h, positions)
+    del h
+    rows = [check_flash("serving shape", q, k, v, True)]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for B, Sq, Sk, H, KV, dh, causal, dtype in FLASH_EDGES:
+        qe, ke, ve = (
+            torch.randn(B, S, n, dh, generator=gen, device=cuda).to(dtype)
+            for S, n in ((Sq, H), (Sk, KV), (Sk, KV))
+        )
+        rows.append(check_flash("edge", qe, ke, ve, causal))
+    del qe, ke, ve
+    report["flash_checks"] = rows
+
+    # (c) the prefill of the serving prompt, through the kernel and through
+    # the plain blocked scan (flash_vjp=False), on the same weights
+    batch = {"tokens": tokens}
+    prefill(params, batch)  # warm-up: cuBLAS handles, the caching allocator
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (logits, caches), wall = _timed(lambda: prefill(params, batch))
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches["flash_attention"] != cfg.n_layers or any(launches[k] for k in ALLOCATOR_KERNELS):
+        raise AssertionError(f"[8c] prefill launched {launches}, not {cfg.n_layers} flash_attention")
+    if logits.shape != (SERVE_B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[8c] prefill logits {tuple(logits.shape)}, finite {torch.isfinite(logits).all()}")
+    plain_cfg = dataclasses.replace(cfg, flash_vjp=False)
+    plain_prefill, _ = make_serve_steps(plain_cfg, build(plain_cfg))
+    kernels.reset_launch_counts()
+    (logits_p, caches_p), wall_p = _timed(lambda: plain_prefill(params, batch))
+    if kernels.launch_counts()["flash_attention"]:
+        raise AssertionError("[8c] the plain blocked prefill launched the kernel")
+    gap = float((logits - logits_p).abs().max())
+    top = logits[:, 0].topk(2, dim=-1).values
+    same_top1 = logits.argmax(-1) == logits_p.argmax(-1)
+    # where the top-2 margin exceeds twice the gap, the greedy token must agree
+    decided = (top[:, 0] - top[:, 1]) > 2 * gap
+    if not bool(same_top1[:, 0][decided].all()):
+        raise AssertionError(f"[8c] greedy tokens differ where the margin exceeds 2x the gap {gap:.3e}")
+    cache_rel, cache_gap = [], 0.0
+    for layer, (c, cp) in enumerate(zip(caches, caches_p)):
+        for name_, a, b in (("k", c.k, cp.k), ("v", c.v, cp.v)):
+            if layer == 0 and not torch.equal(a, b):
+                raise AssertionError(f"[8c] layer 0's {name_} cache differs (same input, same projection)")
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            if not rel <= PATH_TOL:
+                raise AssertionError(f"[8c] layer {layer} {name_} cache: relative |d| {rel:.3e} > {PATH_TOL:.3e}")
+            cache_rel.append(rel)
+            cache_gap = max(cache_gap, float((a.float() - b.float()).abs().max()))
+    report["prefill"] = {
+        "batch": SERVE_B, "seq": SERVE_S, "wall_ms": wall * 1e3, "tokens_per_s": SERVE_B * SERVE_S / wall,
+        "peak_gb": peak, "launches": launches["flash_attention"],
+        "plain_blocked_wall_ms": wall_p * 1e3, "logit_gap": gap,
+        "logit_scale": float(logits.abs().max()), "top1_agree": float(same_top1.float().mean()),
+        "top1_decided": int(decided.sum()), "cache_gap": cache_gap,
+        "cache_rel_by_layer": cache_rel,  # k, v of layer 0, then of layer 1, ...
+        "logit_rel": float((logits - logits_p).norm() / logits_p.norm()),
+    }
+    log(f"[8c] prefill B={SERVE_B} S={SERVE_S}: {wall * 1e3:.1f} ms "
+        f"({SERVE_B * SERVE_S / wall:,.0f} tokens/s), {launches['flash_attention']} flash_attention "
+        f"launches, peak device memory {peak:.2f} GB; plain blocked scan {wall_p * 1e3:.1f} ms; "
+        f"last-position logits gap {gap:.3e} (scale {report['prefill']['logit_scale']:.2f}), top-1 "
+        f"agreement {int(same_top1.sum())}/{SERVE_B} ({int(decided.sum())} decided by the margin); "
+        f"KV caches: layer 0 identical, relative |d| per layer at most {max(cache_rel):.3e} "
+        f"(limit {PATH_TOL:.3e}; layer {cfg.n_layers - 1}: k {cache_rel[-2]:.3e}, v "
+        f"{cache_rel[-1]:.3e}), largest elementwise |d| {cache_gap:.3e}")
+    if profile:
+        report["profile_prefill"] = profiled(f"one prefill B={SERVE_B} S={SERVE_S}",
+                                             lambda: prefill(params, batch))
+        step_caches = api.init_decode_cache(SERVE_B, 48, cuda)
+        step_tokens = tokens[:, :1]
+        report["profile_decode"] = profiled(f"one decode step B={SERVE_B}",
+                                            lambda: api.decode_step(params, step_caches, step_tokens, 0))
+        del step_caches
+    del logits_p, caches_p, caches, params
+
+    # (d) reduced, float32: the card (kernel) against the CPU (plain version)
+    small = get_arch(SERVE_ARCH).reduced()
+    sapi = build(small)
+    sparams = sapi.init(torch.Generator().manual_seed(0), "cpu")
+    stoks = torch.as_tensor(np.random.default_rng(1).integers(0, small.vocab, (2, 192)))
+    cpu_logits, cpu_caches = sapi.prefill(sparams, stoks)
+    sparams.to(cuda)
+    kernels.reset_launch_counts()
+    card_logits, card_caches = sapi.prefill(sparams, stoks.to(cuda))
+    small_launches = kernels.launch_counts()["flash_attention"]
+    small_gap = max(
+        [float((card_logits.cpu() - cpu_logits).abs().max())]
+        + [float((c.cpu() - r).abs().max()) for cc, rc in zip(card_caches, cpu_caches)
+           for c, r in zip(cc, rc)]
+    )
+    if small_launches != small.n_layers or not small_gap <= CARD_CPU_TOL:
+        raise AssertionError(f"[8d] card vs CPU {small_gap:.3e} (limit {CARD_CPU_TOL}), "
+                             f"{small_launches} launches")
+    report["card_vs_cpu"] = {"arch": small.name, "seq": 192, "max_abs": small_gap,
+                             "logit_scale": float(cpu_logits.abs().max()), "launches": small_launches}
+    log(f"[8d] {small.name} float32, S=192 > attn_chunk {small.attn_chunk}: card (kernel, "
+        f"{small_launches} launches) vs CPU (plain) logits and caches max |d| {small_gap:.3e} "
+        f"(limit {CARD_CPU_TOL}; logits scale {report['card_vs_cpu']['logit_scale']:.2f})")
+
+    # (e) token-by-token decode against the prefill (through the kernel), on
+    # one set of weights in float32 and in bf16 compute
+    dcfg = dataclasses.replace(cfg, n_layers=DECODE_LAYERS)
+    dparams = build(dcfg).init(torch.Generator(device=cuda).manual_seed(2), cuda)
+    dtoks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (1, DECODE_S)), device=cuda)
+    report["decode_vs_prefill"] = []
+    for compute in (torch.float32, torch.bfloat16):
+        dapi = build(dataclasses.replace(dcfg, compute_dtype=compute))
+        kernels.reset_launch_counts()
+        full, _ = dapi.prefill(dparams, dtoks)
+        if kernels.launch_counts()["flash_attention"] != DECODE_LAYERS:
+            raise AssertionError(f"[8e] the prefill launched {kernels.launch_counts()}")
+        dcaches = dapi.init_decode_cache(1, DECODE_S, cuda)
+
+        def decode_all():
+            out = None
+            for i in range(DECODE_S):
+                out, _ = dapi.decode_step(dparams, dcaches, dtoks[:, i : i + 1], i)
+            return out
+
+        last, dwall = _timed(decode_all)
+        d = (last - full).abs()
+        row = {
+            "compute": str(compute).split(".")[-1], "n_layers": DECODE_LAYERS, "seq": DECODE_S,
+            "max_abs": float(d.max()), "rel": float((last - full).norm() / full.norm()),
+            "outside_ref_bar": float((d > SERVE_TOL + SERVE_TOL * full.abs()).float().mean()),
+            "logit_scale": float(full.abs().max()), "decode_ms_per_token": dwall * 1e3 / DECODE_S,
+        }
+        report["decode_vs_prefill"].append(row)
+        log(f"[8e] {DECODE_LAYERS} layers at full width, {row['compute']} compute, one request of "
+            f"{DECODE_S} tokens: decode token by token ({row['decode_ms_per_token']:.2f} ms/token) vs "
+            f"prefill, last-position logits max |d| {row['max_abs']:.3e} (scale "
+            f"{row['logit_scale']:.2f}), relative |d| {row['rel']:.3e}, outside rtol = atol = "
+            f"{SERVE_TOL}: {row['outside_ref_bar']:.2%}")
+        if compute == torch.float32:
+            torch.testing.assert_close(last, full, rtol=SERVE_TOL, atol=SERVE_TOL,
+                                       msg=lambda m: f"[8e] float32 decode vs prefill: {m}")
+        elif not row["rel"] <= PATH_TOL:
+            raise AssertionError(f"[8e] bf16 decode vs prefill: relative |d| {row['rel']:.3e} > {PATH_TOL:.3e}")
+        del dcaches
+    del dparams
+
+    # (f) the launcher, with the reference's defaults and a 450 W cap, twice
+    argv = ["--requests", "4", "--prompt-len", "32", "--gen", "16", "--cap", "450"]
+    runs = []
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        r = serve.run(serve.parse_args(argv))
+        runs.append({"tokens": r.tokens.tolist(), "prefill_ms": r.prefill_ms,
+                     "decode_ms_per_token": r.decode_ms_per_token, "tok_s": r.tok_s,
+                     "cap_multiplier": r.cap_multiplier})
+        log(f"[8f] {r.arch} on {r.device}: prefill {r.prefill_ms:.1f} ms, decode "
+            f"{r.decode_ms_per_token:.2f} ms/token, {r.tok_s:.1f} tok/s; capped at 450 W -> "
+            f"x{r.cap_multiplier:.2f} step time -> {r.tok_s / r.cap_multiplier:.1f} tok/s")
+        log(f"[8f]   on {smi}")
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError("[8f] two launcher runs gave other greedy tokens")
+    report["launcher"] = {"argv": argv, "runs": runs}
+    log(f"[8f] both runs: the same {len(runs[0]['tokens'])} x {len(runs[0]['tokens'][0])} greedy tokens")
+
+    # (g) the kernel's time at the serving shape
+    B, Sq, H, dh = q.shape
+    flops = 4 * B * H * dh * Sq * (Sq + 1) / 2  # QK^T and PV over the causal triangle
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES_S
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True
+        )
+
+    # the yardstick computes the same function: both within 2^-7 of float32
+    sdpa_err = _row_err(sdpa().transpose(1, 2), fk.flash_attention(q, k, v))
+    if not sdpa_err <= 2 * FLASH_TOL_VS_F32:
+        raise AssertionError(f"[8g] scaled_dot_product_attention disagrees with the kernel: {sdpa_err:.3e}")
+
+    def kernel():
+        return fk.flash_attention(q, k, v)
+
+    def plain():
+        return attention_ref(q, k, v)
+
+    # plain, kernel, kernel, plain: the later of each pair is kept
+    time_calls(plain)
+    time_calls(kernel)
+    ms, paced_ms = time_calls(kernel)
+    plain_ms, plain_paced_ms = time_calls(plain)
+    lib_ms = time_calls(sdpa)[0]
+    log(f"[8g] flash_attention at B={B} Sq=Sk={Sq} H={H} KV={k.shape[2]} dh={dh} bf16 causal on "
+        f"{smi}: {ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s useful), plain {plain_ms:.4f} "
+        f"ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{flops:.3e} flops, {nbytes / 1e6:.1f} MB); kernel / SDPA {ms / lib_ms:.2f}, kernel / "
+        f"bound {ms / bound_ms:.2f}")
+    report["timing"] = {"flops": flops, "bytes": nbytes, "sdpa_rel_err": sdpa_err}
+    entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+        "launches": launches["flash_attention"], "max_abs_err": rows[0]["max_abs"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms, "paced_ms": paced_ms, "plain_paced_ms": plain_paced_ms,
+    }
+    return entry, report
 
 
 def profiled(tag: str, step) -> dict:

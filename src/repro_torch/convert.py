@@ -9,7 +9,8 @@ index arrays become the port's index tensors (int64 for torch indexing,
 plus the int32 kernel copies of a tree, made from the given arrays).
 
 With these a test feeds both packages the same step and the same warm
-start, without the port importing the reference.
+start, and runs an LM on the reference's weights, without the port
+importing the reference.
 """
 
 from __future__ import annotations
@@ -25,11 +26,13 @@ from repro_torch.core.phases import WarmCarry
 from repro_torch.core.problem import AllocProblem, FleetTopology
 from repro_torch.core.solver import SolverOptions, SolverState
 from repro_torch.core.treeops import SlaTopo, TreeTopo
+from repro_torch.models.common import Params
 
 __all__ = [
     "alloc_problem_from_numpy",
     "batch_meta_from_dict",
     "fleet_topology_from_numpy",
+    "lm_params_from_numpy",
     "solver_state_from_numpy",
     "warm_carry_from_numpy",
     "solver_options_from_dict",
@@ -117,3 +120,25 @@ def batch_meta_from_dict(d: Mapping[str, Any]) -> BatchMeta:
     if unknown:
         raise ValueError(f"unknown engine metadata field(s): {sorted(unknown)}")
     return BatchMeta(**{**d, "levels": tuple(int(p) for p in d["levels"])})
+
+
+def lm_params_from_numpy(params: Mapping[str, Any], cfg, device=None) -> Params:
+    """The port's model with the weights of the reference's ``init_lm``
+    params tree (numpy arrays by the reference's names; each unit position
+    ``unit/b{pos}`` stacked ``[n_units, ...]``).  Layer ``u * unit_size +
+    pos`` gets unit ``u`` of ``b{pos}``, the port's one entry per layer."""
+    device = resolve_device(device)
+
+    def tree(d, pick):
+        return {
+            name: tree(value, pick) if isinstance(value, Mapping) else _float(pick(value), device)
+            for name, value in d.items()
+        }
+
+    top = {name: value for name, value in params.items() if name != "unit"}
+    out = tree(top, lambda a: a)
+    out["layers"] = []
+    for layer in range(cfg.n_layers):
+        unit, pos = divmod(layer, cfg.unit_size)
+        out["layers"].append(tree(params["unit"][f"b{pos}"], lambda a: np.asarray(a)[unit]))
+    return Params(out)

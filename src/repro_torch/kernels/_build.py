@@ -42,17 +42,26 @@ NVCC_FLAGS = (
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 _F64 = ctypes.c_double
 
-# argument types of every exported function, by name stem (f64/f32 twins)
+_SOLVER = ("f64", "f32")  # the allocator's kernels: float64 and float32 twins
+_ATTENTION = ("bf16", "f32")  # flash attention: bfloat16 and float32 twins
+
+# argument types of every exported function, by name stem, and the type
+# suffixes of its twins
 _SIGNATURES = {
-    "tree_matvec": [_INT] + [_PTR] * 7 + [_I64, _I64, _PTR],
-    "tree_rmatvec": [_INT] + [_PTR] * 8 + [_I64, _PTR],
-    "primal_update": [_INT] + [_PTR] * 8 + [_I64, _I64, _PTR, _PTR, _PTR],
-    "dual_prox": [_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR],
-    "segment_sums": [_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR],
-    "primal_chunk_stats": [_INT] + [_PTR] * 4 + [_F64, _I64] + [_PTR] * 4,
-    "dual_chunk_stats": [_INT] + [_PTR] * 3 + [_F64, _I64] + [_PTR] * 4,
+    "tree_matvec": ([_INT] + [_PTR] * 7 + [_I64, _I64, _PTR], _SOLVER),
+    "tree_rmatvec": ([_INT] + [_PTR] * 8 + [_I64, _PTR], _SOLVER),
+    "primal_update": ([_INT] + [_PTR] * 8 + [_I64, _I64, _PTR, _PTR, _PTR], _SOLVER),
+    "dual_prox": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR], _SOLVER),
+    "segment_sums": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
+    "primal_chunk_stats": ([_INT] + [_PTR] * 4 + [_F64, _I64] + [_PTR] * 4, _SOLVER),
+    "dual_chunk_stats": ([_INT] + [_PTR] * 3 + [_F64, _I64] + [_PTR] * 4, _SOLVER),
+    "flash_attention": (
+        [_INT] + [_PTR] * 4 + [_I64] * 6 + [ctypes.POINTER(_I64), _F32, _INT, _PTR],
+        _ATTENTION,
+    ),
 }
 
 
@@ -144,8 +153,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every exported
     function's argument and return types declared."""
     lib = ctypes.CDLL(str(build().path))
-    for stem, argtypes in _SIGNATURES.items():
-        for suffix in ("f64", "f32"):
+    for stem, (argtypes, suffixes) in _SIGNATURES.items():
+        for suffix in suffixes:
             fn = getattr(lib, f"{stem}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -1,0 +1,169 @@
+"""GQA attention with qk-norm, partial rotary, a blocked (flash) path for
+long sequences and a KV-cache decode path (the port's
+``repro/models/attention.py``).
+
+Sequences longer than ``cfg.attn_chunk`` take the blocked branch, as in the
+reference: with ``cfg.flash_vjp`` (the default) the flash-attention kernel
+(``kernels.flash_attention``; its plain version on the CPU), without it the
+plain torch blocked scan :func:`_blocked_attention`.  Shorter ones take
+:func:`_plain_attention`.  The reference's sharding constraints have no
+counterpart on one card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import apply_rope, init_dense, rms_norm, rope_freqs
+
+__all__ = ["KVCache", "init_attn", "attn_train", "attn_decode", "init_kv_cache"]
+
+NEG_INF = -1e30
+
+
+def init_attn(generator, cfg, device=None) -> dict:
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    dt = cfg.param_dtype
+    p = {
+        "wq": init_dense(generator, D, H * dh, dt, device),
+        "wk": init_dense(generator, D, KV * dh, dt, device),
+        "wv": init_dense(generator, D, KV * dh, dt, device),
+        "wo": init_dense(generator, H * dh, D, dt, device, scale=(H * dh) ** -0.5),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(dh, dtype=dt, device=device)
+        p["k_norm"] = torch.ones(dh, dtype=dt, device=device)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions):
+    B, S, D = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    cd = cfg.compute_dtype
+    q = (x @ p["wq"].to(cd)).reshape(B, S, H, dh)
+    k = (x @ p["wk"].to(cd)).reshape(B, S, KV, dh)
+    v = (x @ p["wv"].to(cd)).reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    inv, rot = rope_freqs(dh, cfg.rope_frac, cfg.rope_theta, device=x.device)
+    return apply_rope(q, positions, inv, rot), apply_rope(k, positions, inv, rot), v
+
+
+def _plain_attention(q, k, v):
+    """Reference causal attention; used for short sequences."""
+    B, S, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    kq = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+    vq = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kq) * dh**-0.5
+    # row i sees keys j <= i + Sk - S: the last query aligns with the last key
+    mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril(Sk - S)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vq)
+
+
+def _pick_chunk(seq: int, target: int) -> int:
+    """Largest divisor of ``seq`` that is <= ``target`` (so ragged lengths
+    like whisper's 1500 encoder frames block cleanly)."""
+    c = min(seq, target)
+    while seq % c:
+        c -= 1
+    return c
+
+
+def _blocked_attention(q, k, v, chunk: int):
+    """Causal flash-style two-level loop with online softmax, in plain torch.
+
+    Memory per step: [B, H, qc, kc] logits only.  Equivalent to
+    ``_plain_attention`` to within fp tolerance (asserted in tests)."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    Sk = k.shape[1]
+    rep = H // KV
+    scale = dh**-0.5
+    qc = _pick_chunk(S, chunk)
+    kc = _pick_chunk(Sk, chunk)
+    outs = []
+    for q0 in range(0, S, qc):
+        qb = q[:, q0 : q0 + qc]
+        m = torch.full((B, H, qc), -torch.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, qc, dh), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Sk, kc):
+            kb, vb = k[:, k0 : k0 + kc], v[:, k0 : k0 + kc]
+            kbh = kb.repeat_interleave(rep, dim=2) if rep > 1 else kb
+            vbh = vb.repeat_interleave(rep, dim=2) if rep > 1 else vb
+            logits = (torch.einsum("bqhd,bkhd->bhqk", qb, kbh) * scale).float()
+            qpos = q0 + torch.arange(qc, device=q.device) + (Sk - S)
+            kpos = k0 + torch.arange(kc, device=q.device)
+            logits = logits.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(qb.dtype), vbh
+            ).float()
+            m = m_new
+        out = (acc / l.clamp_min(1e-30)[..., None]).to(qb.dtype)
+        outs.append(out.transpose(1, 2))  # [B, qc, H, dh]
+    return torch.cat(outs, dim=1)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, S_max, KV, dh]
+    v: torch.Tensor
+
+
+def attn_train(p, cfg, x, positions):
+    """Causal full-sequence attention (training / prefill): (output,
+    KVCache(k, v))."""
+    B, S, D = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    if max(S, k.shape[1]) > cfg.attn_chunk:
+        if cfg.flash_vjp:
+            o = flash_attention(q, k, v)
+        else:
+            o = _blocked_attention(q, k, v, cfg.attn_chunk)
+    else:
+        o = _plain_attention(q, k, v)
+    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return o @ p["wo"].to(cfg.compute_dtype), KVCache(k, v)
+
+
+def init_kv_cache(cfg, batch, seq, device=None) -> KVCache:
+    dt = cfg.compute_dtype
+    shape = (batch, seq, cfg.n_kv, cfg.head_dim)
+    return KVCache(
+        torch.zeros(shape, dtype=dt, device=device), torch.zeros(shape, dtype=dt, device=device)
+    )
+
+
+def attn_decode(p, cfg, x, pos, cache: KVCache):
+    """One-token decode against a KV cache.
+
+    ``x``: [B, 1, D]; ``pos``: absolute position (an int).  The new key and
+    value are written into ``cache`` in place at ``pos`` (the reference
+    returns a new cache; this saves a cache-sized copy per step) and the
+    same cache is returned.  Entries at index > pos are masked out."""
+    B, S1, D = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    rep = H // KV
+    # grouped GQA: contract against the unrepeated cache
+    qg = q.reshape(B, 1, KV, rep, dh)
+    logits = torch.einsum("bqgrd,bsgd->bgrqs", qg, cache.k) * (dh**-0.5)
+    valid = torch.arange(cache.k.shape[1], device=x.device) <= pos
+    logits = logits.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    o = torch.einsum("bgrqs,bsgd->bqgrd", w, cache.v).reshape(B, 1, H * dh)
+    return o @ p["wo"].to(cfg.compute_dtype), cache

@@ -14,6 +14,14 @@ float32 (about 7x the float32 error measured on the H100).  The tenant
 kernels sum each CSR list in edge order: they equal the CPU plain version
 bit for bit.  The chunk statistics' accumulator and maxima are exact; their
 sums are held to 8 unit roundoffs of the sum (all terms are squares).
+Flash attention is held to its plain version (``attention_ref``) row by
+row, |d| <= tol * max|ref row|.  Float32: 1e-5 (both keep float32
+throughout, summing in other orders).  Bfloat16: 2^-7 against the plain
+version run in float32 on the same values (the kernel rounds P and the
+output to bfloat16, one unit roundoff 2^-8 each), and 2^-5 against the plain
+version in bfloat16, which also rounds each product q.k to bfloat16 before
+the scale (an error of up to 2^-8 |q.k| dh^-0.5 in a logit: 1.6e-2 of the
+row's largest output measured on the H100 at the serving shape).
 """
 
 from __future__ import annotations
@@ -38,6 +46,11 @@ STATS_TOL = {torch.float64: 8 * 2.0**-53, torch.float32: 8 * 2.0**-24}
 # 2,162,689 is past the elementwise grid (see test_sizes_cover_a_second_grid_pass)
 SIZES = [1, 31, 1023, 1024, 1025, 3079, 12288, 100_003, 2_162_689]
 DTYPES = [torch.float64, torch.float32]
+# the kernels of the allocator's paths (flash attention is the data plane's)
+ALLOCATOR_KERNELS = (
+    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec",
+    "primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats",
+)
 
 
 @pytest.fixture
@@ -267,7 +280,7 @@ def test_tenant_engine_step_runs_through_every_kernel(cuda):
     eng = engine(cuda)
     reset_launch_counts()
     res = eng.step(tele)
-    assert all(v > 0 for v in launch_counts().values()), launch_counts()
+    assert all(launch_counts()[k] > 0 for k in ALLOCATOR_KERNELS), launch_counts()
     cpu = engine("cpu").step(tele)
     assert res.stats["kkt_certified"]
     assert res.stats["phase_iterations"] == cpu.stats["phase_iterations"]
@@ -297,3 +310,113 @@ def test_tree_only_engine_step_waterfills_through_the_tree_kernels(cuda):
     cpu = AllocEngine(pdn, device="cpu").step(tele)
     assert res.stats["phase_iterations"] == cpu.stats["phase_iterations"]
     np.testing.assert_allclose(res.allocation, cpu.allocation, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-5}
+FLASH_TOL_VS_F32 = 2.0**-7  # a bfloat16 kernel against the plain version in float32
+# B, Sq, Sk, H, KV, dh, causal, dtype
+FLASH_CASES = [
+    (4, 2048, 2048, 32, 8, 128, True, torch.bfloat16),  # the serving prefill of qwen3-4b
+    (2, 300, 1000, 8, 2, 128, True, torch.bfloat16),  # Sq < Sk
+    (2, 1000, 300, 8, 2, 128, True, torch.bfloat16),  # Sq > Sk: 700 rows see no key
+    (1, 1000, 1537, 4, 4, 128, True, torch.bfloat16),  # ragged tiles
+    (2, 1537, 1537, 8, 1, 128, True, torch.bfloat16),  # MQA
+    (2, 513, 513, 4, 2, 64, True, torch.bfloat16),
+    (2, 700, 900, 4, 2, 128, False, torch.bfloat16),
+    (1, 257, 257, 4, 2, 32, True, torch.bfloat16),  # the reduced configs' head_dim
+    (1, 200, 200, 2, 1, 160, True, torch.bfloat16),
+    (1, 1, 77, 4, 2, 128, True, torch.bfloat16),  # one query
+    (2, 1000, 1537, 8, 2, 128, True, torch.float32),
+    (2, 1000, 300, 4, 2, 64, True, torch.float32),
+    (1, 333, 333, 4, 1, 32, False, torch.float32),
+    (1, 100, 100, 2, 2, 160, True, torch.float32),
+]
+
+
+def _flash_inputs(rng, B, Sq, Sk, H, KV, dh, dtype, device):
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32).to(device, dtype)
+
+    return t(B, Sq, H, dh), t(B, Sk, KV, dh), t(B, Sk, KV, dh)
+
+
+def _assert_rows_close(got, want, tol):
+    scale = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    rel = ((got.float() - want.float()).abs() / scale).max().item()
+    assert rel <= tol, f"max |d| / max|ref row| {rel:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dh,causal,dtype", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, KV, dh, causal, dtype):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _flash_inputs(np.random.default_rng(Sq + Sk + dh), B, Sq, Sk, H, KV, dh, dtype, cuda)
+    reset_launch_counts()
+    got = fk.flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_rows_close(got, attention_ref(q, k, v, causal=causal), FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        exact = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        _assert_rows_close(got, exact, FLASH_TOL_VS_F32)
+    if causal and Sq > Sk:  # rows that see no key return the mean of V
+        blind = got[:, : Sq - Sk].float()
+        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None]
+        _assert_rows_close(blind, mean_v.expand_as(blind), FLASH_TOL[dtype])
+
+
+def test_flash_attention_reads_strided_inputs(cuda):
+    """q, k and v as views of one packed [B, S, H + 2 KV, dh] projection
+    (strides that are not the contiguous ones) give the contiguous result."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    B, S, H, KV, dh = 2, 700, 8, 2, 128
+    rng = np.random.default_rng(5)
+    qkv = torch.as_tensor(rng.normal(size=(B, S, H + 2 * KV, dh)), dtype=torch.bfloat16).to(cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H : H + KV], qkv[:, :, H + KV :]
+    assert not q.is_contiguous()
+    got = fk.flash_attention(q, k, v)
+    want = fk.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_rejects_what_it_has_no_kernel_for(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    q = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fk.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        fk.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="multiple"):
+        fk.flash_attention(torch.zeros(1, 8, 3, 64, device=cuda), *(2 * [torch.zeros(1, 8, 2, 64, device=cuda)]))
+
+
+def test_prefill_runs_the_flash_kernel_and_matches_the_cpu(cuda):
+    """Reduced qwen3-4b in float32, one set of weights: lm_prefill on the card
+    (blocked branch: the kernel, once per layer) against the CPU (its plain
+    version), and the card's plain blocked scan (flash_vjp=False)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+
+    cfg = get_arch("qwen3-4b").reduced()
+    api = build(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 192)))
+    reset_launch_counts()
+    logits, caches = api.prefill(params, tokens.to(cuda))
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    cpu_logits, _ = api.prefill(params.to("cpu"), tokens)
+    params.to(cuda)
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=0, atol=2e-5)
+    blocked = build(dataclasses.replace(cfg, flash_vjp=False))
+    reset_launch_counts()
+    plain_logits, _ = blocked.prefill(params, tokens.to(cuda))
+    assert launch_counts()["flash_attention"] == 0
+    torch.testing.assert_close(logits, plain_logits, rtol=0, atol=2e-5)

@@ -164,7 +164,9 @@ def test_import_loads_neither_jax_nor_reference():
         "import sys, repro_torch, repro_torch.convert, repro_torch.core, "
         "repro_torch.kernels, repro_torch.pdn, repro_torch.obs, repro_torch.power, "
         "repro_torch.pdn.tenants, repro_torch.core.engine, repro_torch.core.batched, "
-        "repro_torch.core.metrics\n"
+        "repro_torch.core.metrics, repro_torch.configs, repro_torch.models, "
+        "repro_torch.training.step, repro_torch.launch.serve, repro_torch.power.power_model, "
+        "repro_torch.kernels.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
