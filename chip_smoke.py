@@ -16,8 +16,9 @@ Phases, each of which raises on failure:
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes (the paper's fleet: n = 12,288 devices, m = 1,637 tree
    rows; Appendix B: k = 100 tenants, E = 10,000 edges) and at block edges,
-   in float64 and float32; the tenant pair also against its CPU plain
-   version bit for bit, and over repeated launches;
+   in float64 and float32 (tree rows that overlap at will up to the paper's
+   n, the rows of a random tree past it); the tenant pair also against its
+   CPU plain version bit for bit, and over repeated launches;
 4. the main path: five warm-started control steps of
    ``repro_torch.core.nvpax.optimize`` on ``build_datacenter()`` with
    telemetry requests, through the kernels
@@ -41,17 +42,23 @@ Phases, each of which raises on failure:
 8. the data plane's serving path on qwen3-4b at full width (36 layers,
    d_model 2,560, bf16 compute, weights from a seeded ``torch.Generator``
    on the card), see :func:`serving_phase`: (a) parameters and peak memory;
-   (b) the flash-attention kernel against its plain version at the serving
-   shape (layer 0's q/k/v of a 4 x 2,048-token prompt) and at edge shapes;
-   (c) ``make_serve_steps`` prefill of that prompt through the kernel (36
-   launches) and through the plain blocked scan (``flash_vjp=False``),
-   logits and KV caches held against each other; (d) the reduced config in
-   float32 on the card (kernel) against the CPU (plain version); (e) token
-   by token decode against the prefill, 4 layers, one 1,152-token request;
-   (f) the launcher ``repro_torch.launch.serve.run`` twice with ``--cap
-   450`` (same greedy tokens; it prefills token by token and so runs no
-   flash-attention kernel); (g) the kernel's time beside its plain
-   version's, its bound and ``scaled_dot_product_attention``'s.
+   (b) the flash-attention kernels against their plain version at the
+   serving shape (layer 0's q/k/v of a 4 x 2,048-token prompt), at edge
+   shapes and on views of a packed projection: the one the wrapper picks,
+   and the mma.sync kernel too wherever that is the Hopper kernel;
+   (c) ``make_serve_steps`` prefill of that prompt through the Hopper kernel
+   (36 launches, no other flash kernel) and through the plain blocked scan
+   (``flash_vjp=False``), logits and KV caches held against each other;
+   (d) the reduced config in float32 on the card (the float32 kernel)
+   against the CPU (plain version), and in bf16 (head_dim 32: the mma.sync
+   kernel) against the card's plain blocked scan; (e) token by token decode
+   against the prefill, 4 layers, one 1,152-token request; (f) the launcher
+   ``repro_torch.launch.serve.run`` twice with ``--cap 450`` (same greedy
+   tokens; it prefills token by token and so runs no flash-attention
+   kernel); (g) the kernels' times beside their plain version's, their
+   bound and ``scaled_dot_product_attention``'s: plain, Hopper, mma.sync,
+   Hopper, mma.sync, plain at the serving shape, the float32 kernel at
+   (e)'s float32 prefill shape.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -146,6 +153,8 @@ ALLOCATOR_KERNELS = (
     "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec",
     "primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats",
 )
+# the flash-attention kernels: Hopper (TMA + wgmma) and mma.sync bf16, float32
+FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_mma", "flash_attention_f32")
 
 # Phase 8, the data plane's serving path.  Flash attention against its plain
 # version (attention_ref), row by row: |d| <= tol * max|plain row|.  Float32:
@@ -196,6 +205,21 @@ DECODE_LAYERS, DECODE_S = 4, 1_152  # S > attn_chunk: the prefill runs the kerne
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def nested_rows(rng, n: int, m: int):
+    """At most m rows of a random tree over [0, n), in random order: three
+    levels, each splitting the one above at random cut points (repeated cuts
+    give empty rows), so each level covers [0, n) once."""
+    cuts = np.array([0, n])
+    starts, ends = [], []
+    for size in (m // 16, m // 4, m // 2):
+        cuts = np.sort(np.concatenate([cuts, rng.integers(0, n + 1, size)]))
+        starts.append(cuts[:-1])
+        ends.append(cuts[1:])
+    s, e = np.concatenate(starts), np.concatenate(ends)
+    keep = rng.permutation(s.size)[:m]
+    return s[keep], e[keep]
 
 
 def sync(device) -> None:
@@ -409,11 +433,18 @@ def main(argv: list[str]) -> int:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=cuda)
 
     def random_rows(n: int, m: int):
-        """Row ranges covering the cases the scan must get right: the whole
-        range, empty rows, rows at both ends, rows sharing endpoints."""
+        """Row ranges covering the cases the kernels must get right: the
+        whole range, empty rows, rows at both ends, rows sharing endpoints.
+        Up to the paper's n they overlap at will; past it they nest as a
+        tree's do, so that the adjoint's covering-rows index (the rows'
+        total length, n x depth for a tree) fits int32."""
         s = rng.integers(0, n + 1, m)
         e = rng.integers(0, n + 1, m)
         s, e = np.minimum(s, e), np.maximum(s, e)
+        if n > n_main:
+            # a generator of its own, so that the draws of `rng` and the
+            # data of every other check stay as they were
+            s, e = nested_rows(np.random.default_rng(n), n, m)
         s[:4], e[:4] = [0, 0, n, n // 2], [n, 0, n, n]
         return s, e
 
@@ -744,8 +775,8 @@ def main(argv: list[str]) -> int:
         entry["launches_optimize_path"] = main_launches[entry["name"]]
 
     # -- 8. the data plane's serving path -------------------------------------
-    flash_entry, report["serving_path"] = serving_phase(cuda, smi, args.profile)
-    entries.append(flash_entry)
+    flash_entries, report["serving_path"] = serving_phase(cuda, smi, args.profile)
+    entries.extend(flash_entries)
 
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
@@ -936,36 +967,48 @@ def _row_err(got, want) -> float:
     return float(((got.float() - want.float()).abs() / scale).max())
 
 
-def check_flash(tag, q, k, v, causal) -> dict:
-    """Phase 8b: the kernel against its plain version on one shape (see
-    ``FLASH_TOL``); a causal row that sees no key must give the mean of V."""
+def check_flash(tag, q, k, v, causal) -> list[dict]:
+    """Phase 8b: every kernel that takes these inputs against the plain
+    version on one shape (see ``FLASH_TOL``): the one the wrapper picks and,
+    where that is the Hopper kernel, the mma.sync kernel too (its private
+    entry); a causal row that sees no key must give the mean of V."""
     dtype = str(q.dtype).split(".")[-1]
     (B, Sq, H, dh), (Sk, KV) = q.shape, k.shape[1:3]
-    got = fk.flash_attention(q, k, v, causal=causal)
     plain = attention_ref(q, k, v, causal=causal)
-    row = {
-        "tag": tag, "shape": [B, Sq, Sk, H, KV, dh], "causal": causal, "dtype": dtype,
-        "max_abs": float((got.float() - plain.float()).abs().max()),
-        "rel": _row_err(got, plain), "tol": FLASH_TOL[dtype],
-    }
-    bad = row["rel"] > row["tol"]
-    if q.dtype == torch.bfloat16:
-        row["rel_vs_f32"] = _row_err(got, attention_ref(q.float(), k.float(), v.float(), causal=causal))
-        bad |= row["rel_vs_f32"] > FLASH_TOL_VS_F32
-    if causal and Sq > Sk:
-        blind = got[:, : Sq - Sk]
-        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None].expand(blind.shape)
-        row["rel_mean_v"] = _row_err(blind, mean_v)
-        bad |= row["rel_mean_v"] > FLASH_TOL[dtype]
-    log(f"[8b] {tag} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
-        f"{'causal' if causal else 'non-causal'} {dtype}: max |d| {row['max_abs']:.3e}, "
-        f"|d| / max|plain row| {row['rel']:.3e} (limit {row['tol']:.3e})"
-        + (f", vs plain in float32 {row['rel_vs_f32']:.3e} (limit {FLASH_TOL_VS_F32:.3e})"
-           if "rel_vs_f32" in row else "")
-        + (f", blind rows vs mean of V {row['rel_mean_v']:.3e}" if "rel_mean_v" in row else ""))
-    if bad:
-        raise AssertionError(f"[8b] flash attention disagrees with its plain version: {row}")
-    return row
+    exact = (attention_ref(q.float(), k.float(), v.float(), causal=causal)
+             if q.dtype == torch.bfloat16 else None)
+    picked = fk.variant(q, k, v)
+    runs = [(picked, fk.flash_attention)]
+    if picked == "wgmma":
+        runs.append(("mma", fk._flash_attention_mma))
+    rows = []
+    for kind, fn in runs:
+        got = fn(q, k, v, causal=causal)
+        row = {
+            "tag": tag, "kernel": f"flash_attention_{kind}", "shape": [B, Sq, Sk, H, KV, dh],
+            "causal": causal, "dtype": dtype,
+            "max_abs": float((got.float() - plain.float()).abs().max()),
+            "rel": _row_err(got, plain), "tol": FLASH_TOL[dtype],
+        }
+        bad = row["rel"] > row["tol"]
+        if exact is not None:
+            row["rel_vs_f32"] = _row_err(got, exact)
+            bad |= row["rel_vs_f32"] > FLASH_TOL_VS_F32
+        if causal and Sq > Sk:
+            blind = got[:, : Sq - Sk]
+            mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None].expand(blind.shape)
+            row["rel_mean_v"] = _row_err(blind, mean_v)
+            bad |= row["rel_mean_v"] > FLASH_TOL[dtype]
+        log(f"[8b] {tag} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
+            f"{'causal' if causal else 'non-causal'} {dtype}, {kind}: max |d| {row['max_abs']:.3e}, "
+            f"|d| / max|plain row| {row['rel']:.3e} (limit {row['tol']:.3e})"
+            + (f", vs plain in float32 {row['rel_vs_f32']:.3e} (limit {FLASH_TOL_VS_F32:.3e})"
+               if "rel_vs_f32" in row else "")
+            + (f", blind rows vs mean of V {row['rel_mean_v']:.3e}" if "rel_mean_v" in row else ""))
+        if bad:
+            raise AssertionError(f"[8b] flash attention disagrees with its plain version: {row}")
+        rows.append(row)
+    return rows
 
 
 def _timed(fn):
@@ -979,7 +1022,7 @@ def _timed(fn):
 
 def serving_phase(cuda, smi, profile: bool = False):
     """Phase 8: the data plane's serving path on qwen3-4b at full width.
-    Returns (the ``kernels`` line's flash_attention entry, report).  With
+    Returns (the ``kernels`` line's flash-attention entries, report).  With
     ``profile``, also a torch.profiler breakdown of one prefill and of one
     decode step of the launcher's batch."""
     report: dict = {}
@@ -1010,16 +1053,26 @@ def serving_phase(cuda, smi, profile: bool = False):
     positions = torch.arange(SERVE_S, device=cuda).expand(SERVE_B, SERVE_S)
     q, k, v = attention._project_qkv(layer0["attn"], cfg, h, positions)
     del h
-    rows = [check_flash("serving shape", q, k, v, True)]
+    if fk.variant(q, k, v) != "wgmma":
+        raise AssertionError("[8b] the serving shape's q/k/v do not go to the Hopper kernel")
+    rows = check_flash("serving shape", q, k, v, True)
     gen = torch.Generator(device=cuda).manual_seed(1)
     for B, Sq, Sk, H, KV, dh, causal, dtype in FLASH_EDGES:
         qe, ke, ve = (
             torch.randn(B, S, n, dh, generator=gen, device=cuda).to(dtype)
             for S, n in ((Sq, H), (Sk, KV), (Sk, KV))
         )
-        rows.append(check_flash("edge", qe, ke, ve, causal))
-    del qe, ke, ve
+        rows += check_flash("edge", qe, ke, ve, causal)
+    # q, k and v as views of one packed [B, S, H + 2 KV, dh] projection
+    B, S, H, KV = 2, 1_000, 32, 8
+    packed = torch.randn(B, S, H + 2 * KV, 128, generator=gen, device=cuda).bfloat16()
+    qe, ke, ve = packed[:, :, :H], packed[:, :, H : H + KV], packed[:, :, H + KV :]
+    rows += check_flash("packed qkv views", qe, ke, ve, True)
+    del qe, ke, ve, packed
     report["flash_checks"] = rows
+    serving_err = {r["kernel"]: r["max_abs"] for r in rows if r["tag"] == "serving shape"}
+    # the float32 kernel's largest |d| over its shapes (the serving shape is bf16)
+    f32_err = max(r["max_abs"] for r in rows if r["kernel"] == "flash_attention_f32")
 
     # (c) the prefill of the serving prompt, through the kernel and through
     # the plain blocked scan (flash_vjp=False), on the same weights
@@ -1030,16 +1083,18 @@ def serving_phase(cuda, smi, profile: bool = False):
     (logits, caches), wall = _timed(lambda: prefill(params, batch))
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    if launches["flash_attention"] != cfg.n_layers or any(launches[k] for k in ALLOCATOR_KERNELS):
-        raise AssertionError(f"[8c] prefill launched {launches}, not {cfg.n_layers} flash_attention")
+    if (launches["flash_attention_wgmma"] != cfg.n_layers
+            or any(launches[k] for k in ALLOCATOR_KERNELS + FLASH_KERNELS[1:])):
+        raise AssertionError(
+            f"[8c] prefill launched {launches}, not {cfg.n_layers} flash_attention_wgmma")
     if logits.shape != (SERVE_B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"[8c] prefill logits {tuple(logits.shape)}, finite {torch.isfinite(logits).all()}")
     plain_cfg = dataclasses.replace(cfg, flash_vjp=False)
     plain_prefill, _ = make_serve_steps(plain_cfg, build(plain_cfg))
     kernels.reset_launch_counts()
     (logits_p, caches_p), wall_p = _timed(lambda: plain_prefill(params, batch))
-    if kernels.launch_counts()["flash_attention"]:
-        raise AssertionError("[8c] the plain blocked prefill launched the kernel")
+    if any(kernels.launch_counts()[k] for k in FLASH_KERNELS):
+        raise AssertionError("[8c] the plain blocked prefill launched a flash kernel")
     gap = float((logits - logits_p).abs().max())
     top = logits[:, 0].topk(2, dim=-1).values
     same_top1 = logits.argmax(-1) == logits_p.argmax(-1)
@@ -1059,7 +1114,7 @@ def serving_phase(cuda, smi, profile: bool = False):
             cache_gap = max(cache_gap, float((a.float() - b.float()).abs().max()))
     report["prefill"] = {
         "batch": SERVE_B, "seq": SERVE_S, "wall_ms": wall * 1e3, "tokens_per_s": SERVE_B * SERVE_S / wall,
-        "peak_gb": peak, "launches": launches["flash_attention"],
+        "peak_gb": peak, "launches": launches["flash_attention_wgmma"],
         "plain_blocked_wall_ms": wall_p * 1e3, "logit_gap": gap,
         "logit_scale": float(logits.abs().max()), "top1_agree": float(same_top1.float().mean()),
         "top1_decided": int(decided.sum()), "cache_gap": cache_gap,
@@ -1067,8 +1122,8 @@ def serving_phase(cuda, smi, profile: bool = False):
         "logit_rel": float((logits - logits_p).norm() / logits_p.norm()),
     }
     log(f"[8c] prefill B={SERVE_B} S={SERVE_S}: {wall * 1e3:.1f} ms "
-        f"({SERVE_B * SERVE_S / wall:,.0f} tokens/s), {launches['flash_attention']} flash_attention "
-        f"launches, peak device memory {peak:.2f} GB; plain blocked scan {wall_p * 1e3:.1f} ms; "
+        f"({SERVE_B * SERVE_S / wall:,.0f} tokens/s), {launches['flash_attention_wgmma']} "
+        f"flash_attention_wgmma launches (no other flash kernel), peak device memory {peak:.2f} GB; plain blocked scan {wall_p * 1e3:.1f} ms; "
         f"last-position logits gap {gap:.3e} (scale {report['prefill']['logit_scale']:.2f}), top-1 "
         f"agreement {int(same_top1.sum())}/{SERVE_B} ({int(decided.sum())} decided by the margin); "
         f"KV caches: layer 0 identical, relative |d| per layer at most {max(cache_rel):.3e} "
@@ -1093,20 +1148,43 @@ def serving_phase(cuda, smi, profile: bool = False):
     sparams.to(cuda)
     kernels.reset_launch_counts()
     card_logits, card_caches = sapi.prefill(sparams, stoks.to(cuda))
-    small_launches = kernels.launch_counts()["flash_attention"]
+    small_counts = kernels.launch_counts()
+    small_launches = small_counts["flash_attention_f32"]
     small_gap = max(
         [float((card_logits.cpu() - cpu_logits).abs().max())]
         + [float((c.cpu() - r).abs().max()) for cc, rc in zip(card_caches, cpu_caches)
            for c, r in zip(cc, rc)]
     )
-    if small_launches != small.n_layers or not small_gap <= CARD_CPU_TOL:
+    if (small_launches != small.n_layers or any(small_counts[k] for k in FLASH_KERNELS[:2])
+            or not small_gap <= CARD_CPU_TOL):
         raise AssertionError(f"[8d] card vs CPU {small_gap:.3e} (limit {CARD_CPU_TOL}), "
-                             f"{small_launches} launches")
+                             f"launches {small_counts}")
     report["card_vs_cpu"] = {"arch": small.name, "seq": 192, "max_abs": small_gap,
                              "logit_scale": float(cpu_logits.abs().max()), "launches": small_launches}
-    log(f"[8d] {small.name} float32, S=192 > attn_chunk {small.attn_chunk}: card (kernel, "
-        f"{small_launches} launches) vs CPU (plain) logits and caches max |d| {small_gap:.3e} "
-        f"(limit {CARD_CPU_TOL}; logits scale {report['card_vs_cpu']['logit_scale']:.2f})")
+    log(f"[8d] {small.name} float32, S=192 > attn_chunk {small.attn_chunk}: card "
+        f"(flash_attention_f32, {small_launches} launches) vs CPU (plain) logits and caches max |d| "
+        f"{small_gap:.3e} (limit {CARD_CPU_TOL}; logits scale "
+        f"{report['card_vs_cpu']['logit_scale']:.2f})")
+    # the same in bf16 compute: head_dim 32 goes to the mma.sync kernel; held
+    # to the card's plain blocked scan (flash_vjp=False) as 8c is
+    bsmall = dataclasses.replace(small, compute_dtype=torch.bfloat16)
+    kernels.reset_launch_counts()
+    b_logits, _ = build(bsmall).prefill(sparams, stoks.to(cuda))
+    mma_counts = kernels.launch_counts()
+    mma_launches = mma_counts["flash_attention_mma"]
+    kernels.reset_launch_counts()
+    bp_logits, _ = build(dataclasses.replace(bsmall, flash_vjp=False)).prefill(sparams, stoks.to(cuda))
+    b_rel = float((b_logits.float() - bp_logits.float()).norm() / bp_logits.float().norm())
+    if (mma_launches != small.n_layers or mma_counts["flash_attention_wgmma"]
+            or any(kernels.launch_counts()[k] for k in FLASH_KERNELS) or not b_rel <= PATH_TOL):
+        raise AssertionError(f"[8d] bf16: kernel vs plain blocked scan relative |d| {b_rel:.3e} "
+                             f"(limit {PATH_TOL:.3e}), launches {mma_counts}")
+    report["reduced_bf16"] = {"arch": small.name, "seq": 192, "logit_rel": b_rel,
+                              "launches": mma_launches}
+    log(f"[8d] {small.name} bf16 compute: prefill through flash_attention_mma ({mma_launches} "
+        f"launches, head_dim {small.head_dim}) vs the plain blocked scan on the card, logits "
+        f"relative |d| {b_rel:.3e} (limit {PATH_TOL:.3e})")
+    del sparams
 
     # (e) token-by-token decode against the prefill (through the kernel), on
     # one set of weights in float32 and in bf16 compute
@@ -1118,7 +1196,9 @@ def serving_phase(cuda, smi, profile: bool = False):
         dapi = build(dataclasses.replace(dcfg, compute_dtype=compute))
         kernels.reset_launch_counts()
         full, _ = dapi.prefill(dparams, dtoks)
-        if kernels.launch_counts()["flash_attention"] != DECODE_LAYERS:
+        kind = "flash_attention_f32" if compute == torch.float32 else "flash_attention_wgmma"
+        if (kernels.launch_counts()[kind] != DECODE_LAYERS
+                or sum(kernels.launch_counts()[k] for k in FLASH_KERNELS) != DECODE_LAYERS):
             raise AssertionError(f"[8e] the prefill launched {kernels.launch_counts()}")
         dcaches = dapi.init_decode_cache(1, DECODE_S, cuda)
 
@@ -1168,51 +1248,98 @@ def serving_phase(cuda, smi, profile: bool = False):
     report["launcher"] = {"argv": argv, "runs": runs}
     log(f"[8f] both runs: the same {len(runs[0]['tokens'])} x {len(runs[0]['tokens'][0])} greedy tokens")
 
-    # (g) the kernel's time at the serving shape
-    B, Sq, H, dh = q.shape
-    flops = 4 * B * H * dh * Sq * (Sq + 1) / 2  # QK^T and PV over the causal triangle
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES_S
-    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # (g) the kernels' times: both bf16 kernels at the serving shape, the
+    # float32 kernel at 8e's float32 prefill shape
+    source = {
+        "flash_attention_wgmma": "src/repro_torch/kernels/csrc/flash_attention_hopper.cu",
+        "flash_attention_mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "flash_attention_f32": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    }
+    # launches on each kernel's own path: the serving prefill (8c), the
+    # reduced prefill in bf16 (8d, head_dim 32) and in float32 (8d)
+    path_launches = {
+        "flash_attention_wgmma": (launches["flash_attention_wgmma"], "8c serving prefill"),
+        "flash_attention_mma": (mma_launches, "8d reduced prefill, bf16"),
+        "flash_attention_f32": (small_launches, "8d reduced prefill, float32"),
+    }
+    max_err = {**serving_err, "flash_attention_f32": f32_err}
+    entries, report["timing"] = [], {}
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
+    def attention_bound(q_, k_, dtype):
+        B_, Sq_, H_, dh_ = q_.shape
+        flops = 4 * B_ * H_ * dh_ * Sq_ * (Sq_ + 1) / 2  # QK^T and PV over the causal triangle
+        nbytes = q_.element_size() * (2 * q_.numel() + 2 * k_.numel())
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
+        return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+    def sdpa_of(q_, k_, v_):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True
         )
 
+    def entry(name_, ms, plain_ms, lib_ms, paced_ms, plain_paced_ms, bound_ms, bound_by):
+        n_launch, where = path_launches[name_]
+        return {
+            "name": name_, "route": "cuda", "source": source[name_],
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+            "launches": n_launch, "launches_path": where, "max_abs_err": max_err[name_],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "paced_ms": paced_ms, "plain_paced_ms": plain_paced_ms,
+        }
+
+    (B, Sq, H, dh), KV = q.shape, k.shape[2]
+    flops, nbytes, bound_ms, bound_by = attention_bound(q, k, "bfloat16")
+    sdpa = sdpa_of(q, k, v)
     # the yardstick computes the same function: both within 2^-7 of float32
     sdpa_err = _row_err(sdpa().transpose(1, 2), fk.flash_attention(q, k, v))
     if not sdpa_err <= 2 * FLASH_TOL_VS_F32:
         raise AssertionError(f"[8g] scaled_dot_product_attention disagrees with the kernel: {sdpa_err:.3e}")
-
-    def kernel():
-        return fk.flash_attention(q, k, v)
-
-    def plain():
-        return attention_ref(q, k, v)
-
-    # plain, kernel, kernel, plain: the later of each pair is kept
-    time_calls(plain)
-    time_calls(kernel)
-    ms, paced_ms = time_calls(kernel)
-    plain_ms, plain_paced_ms = time_calls(plain)
-    lib_ms = time_calls(sdpa)[0]
-    log(f"[8g] flash_attention at B={B} Sq=Sk={Sq} H={H} KV={k.shape[2]} dh={dh} bf16 causal on "
-        f"{smi}: {ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s useful), plain {plain_ms:.4f} "
-        f"ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{flops:.3e} flops, {nbytes / 1e6:.1f} MB); kernel / SDPA {ms / lib_ms:.2f}, kernel / "
-        f"bound {ms / bound_ms:.2f}")
-    report["timing"] = {"flops": flops, "bytes": nbytes, "sdpa_rel_err": sdpa_err}
-    entry = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": launches["flash_attention"], "max_abs_err": rows[0]["max_abs"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms, "paced_ms": paced_ms, "plain_paced_ms": plain_paced_ms,
+    calls = {
+        "plain": lambda: attention_ref(q, k, v),
+        "flash_attention_wgmma": lambda: fk.flash_attention(q, k, v),
+        "flash_attention_mma": lambda: fk._flash_attention_mma(q, k, v),
     }
-    return entry, report
+    # plain, Hopper, mma.sync, Hopper, mma.sync, plain: the later of each pair is kept
+    times = {}
+    for name_ in ("plain", "flash_attention_wgmma", "flash_attention_mma",
+                  "flash_attention_wgmma", "flash_attention_mma", "plain"):
+        times[name_] = time_calls(calls[name_])
+    lib_ms = time_calls(sdpa)[0]
+    plain_ms, plain_paced = times["plain"]
+    log(f"[8g] B={B} Sq=Sk={Sq} H={H} KV={KV} dh={dh} bf16 causal on {smi}: plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {flops:.3e} flops, {nbytes / 1e6:.1f} MB)")
+    for name_ in ("flash_attention_wgmma", "flash_attention_mma"):
+        ms, paced = times[name_]
+        log(f"[8g]   {name_}: {ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s useful), "
+            f"/ SDPA {ms / lib_ms:.2f}, / bound {ms / bound_ms:.2f}; on {smi}")
+        entries.append(entry(name_, ms, plain_ms, lib_ms, paced, plain_paced, bound_ms, bound_by))
+    if not times["flash_attention_wgmma"][0] < times["flash_attention_mma"][0]:
+        raise AssertionError("[8g] the Hopper kernel is not faster than the mma.sync kernel")
+    report["timing"]["serving"] = {"flops": flops, "bytes": nbytes, "sdpa_rel_err": sdpa_err,
+                                   "ms": {k_: t[0] for k_, t in times.items()}, "sdpa_ms": lib_ms}
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q32, k32, v32 = (
+        torch.randn(1, DECODE_S, n, dh, generator=gen, device=cuda) for n in (H, KV, KV)
+    )
+    flops, nbytes, bound_ms, bound_by = attention_bound(q32, k32, "float32")
+    # plain, kernel, kernel, plain
+    time_calls(lambda: attention_ref(q32, k32, v32))
+    time_calls(lambda: fk.flash_attention(q32, k32, v32))
+    ms, paced = time_calls(lambda: fk.flash_attention(q32, k32, v32))
+    plain_ms, plain_paced = time_calls(lambda: attention_ref(q32, k32, v32))
+    lib_ms = time_calls(sdpa_of(q32, k32, v32))[0]
+    log(f"[8g] B=1 Sq=Sk={DECODE_S} H={H} KV={KV} dh={dh} float32 causal on {smi}: "
+        f"flash_attention_f32 {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"float32 outside the tensor cores)")
+    entries.append(entry("flash_attention_f32", ms, plain_ms, lib_ms, paced, plain_paced,
+                         bound_ms, bound_by))
+    report["timing"]["float32"] = {"flops": flops, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+                                   "sdpa_ms": lib_ms}
+    return entries, report
 
 
 def profiled(tag: str, step) -> dict:

@@ -4,8 +4,10 @@ Every source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
 them in parallel, and linked into one shared library with a plain C
 interface, loaded with :mod:`ctypes`.  The library lands in
 ``build/repro_torch/`` at the repository root, named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one is
-reused.  The ``nvcc`` log and build time are kept beside the library (same
+sources, the headers they share (``csrc/*.cuh``) and the flags, so a
+changed source rebuilds and an unchanged one is reused.  Nothing links
+against ``libcuda``: the one driver call (``cuTensorMapEncodeTiled``, for
+the TMA tensor maps) is reached through the runtime's entry-point query.  The ``nvcc`` log and build time are kept beside the library (same
 name, ``.json``) so a reused build still reports them.  Nothing here runs at
 import time: the first kernel launch builds.
 """
@@ -46,13 +48,14 @@ _F32 = ctypes.c_float
 _F64 = ctypes.c_double
 
 _SOLVER = ("f64", "f32")  # the allocator's kernels: float64 and float32 twins
-_ATTENTION = ("bf16", "f32")  # flash attention: bfloat16 and float32 twins
+# flash attention: the Hopper (TMA + wgmma) and mma.sync bfloat16 kernels and
+# the float32 one
+_ATTENTION = ("wgmma", "mma", "f32")
 
 # argument types of every exported function, by name stem, and the type
 # suffixes of its twins
 _SIGNATURES = {
     "tree_matvec": ([_INT] + [_PTR] * 7 + [_I64, _I64, _PTR], _SOLVER),
-    "tree_rmatvec": ([_INT] + [_PTR] * 8 + [_I64, _PTR], _SOLVER),
     "primal_update": ([_INT] + [_PTR] * 8 + [_I64, _I64, _PTR, _PTR, _PTR], _SOLVER),
     "dual_prox": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR], _SOLVER),
     "segment_sums": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
@@ -94,7 +97,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -23,98 +23,48 @@
 // 4 B H dh Sq (Sq + 1) / 2 = 1.37e11 useful flops, 0.139 ms at 989.4 TFLOP/s
 // (dense bf16), against 168 MB of q, k, v and out, 0.050 ms at 3.35 TB/s.
 //
-// Design (bfloat16): one CTA of 4 warps per (batch x head, 64-row query
-// tile), 16 rows per warp, query tiles issued last-first so the longest
-// causal tiles start first.  Each warp keeps its Q fragments in registers
-// for the whole sweep.  Per 64-key tile the CTA stages K and V in shared
-// memory (rows padded by 16 bytes so ldmatrix reads are conflict-free; keys
-// past Sk are zero), each warp computes S = Q K^T with mma.sync m16n8k16
-// (bf16 in, f32 accumulate; K fragments by ldmatrix), applies the mask only
-// on tiles that cross the diagonal or the ragged end, updates (m, l) with
-// quad shuffles, converts P to bf16 A fragments in registers (the C layout
-// of two n-tiles is the A layout of one k-step) and accumulates P V with
-// mma.sync (V fragments by ldmatrix.trans).  Causal tiles above the
-// diagonal are not visited unless a row of the tile sees no key at all.
-// Loads are synchronous, one tile at a time: no cp.async or TMA pipeline and
-// no wgmma yet, so the tensor cores wait on each tile's loads.
+// Three kernels compute it; the wrapper picks one from the shapes and strides
+// before the launch (kernels/flash_attention/kernel.py: variant):
+//   fa_wgmma_kernel (flash_attention_hopper.cu), bfloat16, dh 64 and 128,
+//     inputs a TMA tensor map can describe: the fast path, see that file;
+//   fa_bf16_kernel (here), bfloat16, every built dh (32 and 160 need it);
+//   fa_f32_kernel (here), float32.
+//
+// Design (fa_bf16_kernel, mma.sync): one CTA of 4 warps per (batch x head,
+// 64-row query tile), 16 rows per warp, query tiles issued last-first so the
+// longest causal tiles start first.  Each warp keeps its Q fragments in
+// registers for the whole sweep.  Per 64-key tile the CTA stages K and V in
+// shared memory (rows padded by 16 bytes so ldmatrix reads are
+// conflict-free; keys past Sk are zero), each warp computes S = Q K^T with
+// mma.sync m16n8k16 (bf16 in, f32 accumulate; K fragments by ldmatrix),
+// applies the mask only on tiles that cross the diagonal or the ragged end,
+// updates (m, l) with quad shuffles, converts P to bf16 A fragments in
+// registers (the C layout of two n-tiles is the A layout of one k-step) and
+// accumulates P V with mma.sync (V fragments by ldmatrix.trans).  Causal
+// tiles above the diagonal are not visited unless a row of the tile sees no
+// key at all.  What holds it back: its loads are synchronous, one tile at a
+// time, so the tensor cores wait on each tile's loads, and mma.sync runs
+// below wgmma's rate on this card (1.319 ms at the serving shape, 9.5x the
+// bound, measured on an H100 80GB HBM3 at 700 W by chip_smoke.py).
 //
 // Design (float32, no tensor cores, so the arithmetic stays float32 as the
 // Pallas kernel's does): one CTA of 4 warps per (batch x head, 16-row query
 // tile), 4 rows per warp, 32-key tiles in shared memory; lane j computes the
 // logit of key j (the query broadcast by shuffles), the warp reduces m and l,
 // and each lane accumulates dh / 32 output columns.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cstdint>
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr float kMasked = -1e30f;  // the reference's NEG_INF for masked logits
-constexpr int kThreads = 128;      // 4 warps
+using namespace fa;
 
-struct FaArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int64_t sq_b, sq_s, sq_h;  // strides in elements: batch, sequence, head
-  int64_t sk_b, sk_s, sk_h;
-  int64_t sv_b, sv_s, sv_h;
-  int64_t so_b, so_s, so_h;
-  int64_t Sq, Sk;
-  int H, rep;  // query heads, query heads per key/value head
-  int bh;      // B * H
-  int n_q_tiles;
-  float scale;
-  int causal;
-};
-
-struct Tile {
-  int b, h, kvh;
-  int64_t q0;
-};
-
-// The CTA's (batch, head, kv head, first query row); the last query tiles
-// (the longest causal sweeps) get the lowest block indices.
-__device__ __forceinline__ Tile tile_of(const FaArgs& a, int rows) {
-  const int idx = blockIdx.x;
-  const int qt = a.n_q_tiles - 1 - idx / a.bh;
-  const int bh = idx % a.bh;
-  const int h = bh % a.H;
-  return {bh / a.H, h, h / a.rep, static_cast<int64_t>(qt) * rows};
-}
-
-// One past the last key the query rows [q0, q0 + rows) visit.  A causal row
-// i sees keys j <= i + Sk - Sq; if the tile holds a row that sees none, the
-// whole tile visits every key (that row weighs them all alike, the others
-// give the keys past their limit exactly zero weight).
-__device__ __forceinline__ int64_t kv_end(const FaArgs& a, int64_t q0, int rows) {
-  const int64_t off = a.Sk - a.Sq;
-  if (!a.causal || q0 + off < 0) return a.Sk;
-  const int64_t end = q0 + rows + off;
-  return end < a.Sk ? end : a.Sk;
-}
-
-// The logit of (row, key) from its scaled product: keys past the ragged end
-// take no weight at all, causally hidden keys the reference's -1e30.
-__device__ __forceinline__ float masked(float x, int64_t row, int64_t key, const FaArgs& a) {
-  if (key >= a.Sk) return -INFINITY;
-  if (a.causal && key > row + (a.Sk - a.Sq)) return kMasked;
-  return x;
-}
+constexpr int kThreads = 128;  // 4 warps
 
 // ---------------------------------------------------------------- bfloat16
 
 constexpr int kBq = 64;   // query rows per CTA, 16 per warp
 constexpr int kBk = 64;   // keys per tile
 constexpr int kPad = 8;   // bf16 elements (16 bytes) of padding per shared row
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -428,39 +378,21 @@ int flash_attention_impl(int device, const void* q, const void* k, const void* v
                          int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t dh,
                          const int64_t* strides, float scale, int causal, int rows,
                          cudaStream_t stream) {
-  if (B <= 0 || Sq <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sk < 0)
+  FaArgs a;
+  if (!make_args(a, q, k, v, o, B, Sq, Sk, H, KV, strides, scale, causal, rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_q_tiles = (Sq + rows - 1) / rows;
-  if (B * H > INT_MAX || n_q_tiles * B * H > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  FaArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  a.sq_b = strides[0], a.sq_s = strides[1], a.sq_h = strides[2];
-  a.sk_b = strides[3], a.sk_s = strides[4], a.sk_h = strides[5];
-  a.sv_b = strides[6], a.sv_s = strides[7], a.sv_h = strides[8];
-  a.so_b = strides[9], a.so_s = strides[10], a.so_h = strides[11];
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.H = static_cast<int>(H);
-  a.rep = static_cast<int>(H / KV);
-  a.bh = static_cast<int>(B * H);
-  a.n_q_tiles = static_cast<int>(n_q_tiles);
-  a.scale = scale;
-  a.causal = causal;
-  return dispatch_head_dim<Launch>(dh, a, static_cast<unsigned>(n_q_tiles * B * H), stream);
+  return dispatch_head_dim<Launch>(dh, a, static_cast<unsigned>(a.n_q_tiles) * a.bh, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int flash_attention_bf16(int device, const void* q, const void* k, const void* v, void* o,
-                         int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t dh,
-                         const int64_t* strides, float scale, int causal, cudaStream_t stream) {
+int flash_attention_mma(int device, const void* q, const void* k, const void* v, void* o,
+                        int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t dh,
+                        const int64_t* strides, float scale, int causal, cudaStream_t stream) {
   return flash_attention_impl<LaunchBf16>(device, q, k, v, o, B, Sq, Sk, H, KV, dh, strides,
                                           scale, causal, kBq, stream);
 }

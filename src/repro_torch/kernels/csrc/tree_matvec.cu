@@ -3,44 +3,49 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tree_matvec/kernel.py:
 //   tree_matvec  (_blocked_prefix + _gather_kernel)   out[j] = csum[end_j] - csum[start_j]
-//   tree_rmatvec (_scatter_diff_kernel + _blocked_prefix)   the adjoint
+//   tree_rmatvec (_scatter_diff_kernel + _blocked_prefix)   the adjoint:
+//                out[i] = sum of y[j] over the rows j with start_j <= i < end_j
 //   sla_matvec   (_sla_matvec_kernel)    out[t] = sum over edges e of tenant t of x[dev_e]
 //   sla_rmatvec  (_sla_rmatvec_kernel)   out[d] = sum over edges e of device d of y[ten_e]
 //
-// What bounds it on this card: memory traffic and launch latency.  At the
-// paper's fleet (n = 12,288 devices, m = 1,637 tree rows) each call moves
-// about 0.1-0.2 MB, well under a microsecond at 3.35 TB/s, so the three
-// launches of a call cost more than the bytes.
+// What bounds them on this card: launch latency and chains of dependent
+// loads, not bytes.  At the paper's fleet (n = 12,288 devices, m = 1,637
+// tree rows) each call moves about 0.1-0.2 MB, well under a microsecond at
+// 3.35 TB/s, so every launch of a call and every load that waits on another
+// costs more than the bytes.
 //
-// Design.  The TPU version carries a prefix sum across a sequential grid.
-// Hopper blocks run in no order, so the scan is written as three passes:
-//   1. scan_tiles: each block scans a tile of kTile positions (kItems per
-//      thread sequentially, then warp shuffles, then the warp totals through
-//      shared memory) and writes the tile's inclusive prefix and its total;
+// tree_matvec.  The TPU version carries a prefix sum across a sequential
+// grid.  Hopper blocks run in no order, so the scan is three passes:
+//   1. scan_tiles: each block scans a tile of kTile positions of x (kItems
+//      per thread sequentially, then warp shuffles, then the warp totals
+//      through shared memory) and writes the tile's inclusive prefix and its
+//      total;
 //   2. scan_totals: one block scans the per-tile totals into per-tile
 //      offsets, looping over them with a carry, so any n is covered;
-//   3. gather_rows (matvec) reads csum at both ends of every row, adding the
-//      tile offset on the fly; add_offsets (rmatvec) adds the tile offset to
-//      every position.
-// The adjoint does no atomics.  Its difference array is never stored: once
-// per topology the host sorts the rows into CSR lists "rows starting at p"
-// and "rows ending at p" (row order kept), and scan_tiles sums each
-// position's lists in that fixed order while loading it.  That is the order
-// a sequential index_add_ adds in, so the difference array is exact and the
-// result is the same from run to run.
+//   3. gather_rows reads csum at both ends of every row, adding the tile
+//      offset on the fly.
 //
-// The tenant pair is one segmented-sum kernel.  The TPU version scatters
+// tree_rmatvec, and the tenant pair, are one segmented-sum kernel
+// (segment_sums): one thread per output sums a CSR list that the host builds
+// once per topology, in list order, with no atomics, so the same bits come
+// back on every launch.  For the adjoint, position i's list holds the rows
+// covering it (start_j <= i < end_j) in ascending row order: its ancestors
+// in the power tree, 4 of them at the paper's fleet, so 49,152 entries in
+// all (n x depth for a tree).  One launch with one load chain per position
+// (list pointer, row id, dual) replaces the TPU's scatter of a difference
+// array and its prefix sum, which here took three launches (measured 9.30 us
+// against 2.67 us for sla_rmatvec's segment_sums at the same n, H100 80GB
+// HBM3, 700 W, chip_smoke.py).  For the tenant pair the TPU version scatters
 // each chunk of incidence edges into the output with `.at[].add`; on this
-// card that would be fp64 atomics, whose order changes from run to run, and
-// the feasibility repair and saturation tests compare these sums against
-// thresholds.  Once per tenant topology the host sorts the edges into CSR
-// lists (by tenant for the forward sum, by device for the adjoint; a stable
-// sort, so each list keeps edge order), and one thread per output sums its
-// list in that order -- the order a sequential index_add_ adds in -- so the
-// kernel returns the bits of the plain version, every time.  At the paper's
-// Appendix B fleet (k = 100 tenants, E = 10,000 edges, n = 12,288 devices)
-// a call moves 0.16-0.26 MB; a thread walks at most ~100 edges, so latency
-// of the dependent adds, not bytes, bounds it.
+// card that would be fp64 atomics, whose order changes from run to run,
+// and the feasibility repair and saturation tests compare these sums
+// against thresholds.  The host sorts the edges into CSR lists (by tenant
+// for the forward sum, by device for the adjoint; a stable sort, so each
+// list keeps edge order), the order a sequential index_add_ adds in, so
+// these kernels return the bits of the plain version.  At the paper's
+// Appendix B fleet (k = 100 tenants, E = 10,000 edges, n = 12,288 devices) a
+// call moves 0.16-0.26 MB; a thread walks at most ~100 edges, so latency of
+// the dependent adds, not bytes, bounds it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -90,35 +95,11 @@ __device__ T block_exclusive_scan(T v, T* sums, T& total) {
   return out;
 }
 
-// Value at position p for tree_matvec: the device vector itself.
+// Pass 1: tile-local inclusive prefix of x over positions [0, n) into
+// `local`, the tile's sum into totals[blockIdx.x].
 template <typename T>
-struct DenseLoad {
-  const T* x;
-  __device__ T operator()(int64_t p) const { return x[p]; }
-};
-
-// Value at position p for tree_rmatvec: the difference array entry
-// +sum(y of rows starting at p) - sum(y of rows ending at p), in row order.
-template <typename T>
-struct DiffLoad {
-  const T* y;
-  const int32_t* start_ptr;
-  const int32_t* start_rows;
-  const int32_t* end_ptr;
-  const int32_t* end_rows;
-  __device__ T operator()(int64_t p) const {
-    T acc = T(0);
-    for (int32_t k = start_ptr[p]; k < start_ptr[p + 1]; ++k) acc += y[start_rows[k]];
-    for (int32_t k = end_ptr[p]; k < end_ptr[p + 1]; ++k) acc -= y[end_rows[k]];
-    return acc;
-  }
-};
-
-// Pass 1: tile-local inclusive prefix of positions [0, n) into `local`,
-// the tile's sum into totals[blockIdx.x].
-template <typename T, typename Load>
 __global__ void __launch_bounds__(kThreads)
-    scan_tiles(Load load, int64_t n, T* local, T* totals) {
+    scan_tiles(const T* x, int64_t n, T* local, T* totals) {
   __shared__ T sums[kWarps + 1];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile +
                        static_cast<int64_t>(threadIdx.x) * kItems;
@@ -127,7 +108,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int64_t p = base + i;
-    if (p < n) acc += load(p);
+    if (p < n) acc += x[p];
     run[i] = acc;
   }
   T total;
@@ -163,21 +144,13 @@ __device__ __forceinline__ T prefix_at(const T* local, const T* offsets, int64_t
   return local[p - 1] + offsets[(p - 1) / kTile];
 }
 
-// Pass 3 of tree_matvec: out[j] = csum[end_j] - csum[start_j].
+// Pass 3: out[j] = csum[end_j] - csum[start_j].
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
     gather_rows(const T* local, const T* offsets, const int32_t* start, const int32_t* end,
                 int64_t m, T* out) {
   const int64_t j = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
   if (j < m) out[j] = prefix_at(local, offsets, end[j]) - prefix_at(local, offsets, start[j]);
-}
-
-// Pass 3 of tree_rmatvec: out[i] += offset of i's tile (out holds the tile prefix).
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-    add_offsets(const T* offsets, int64_t n, T* out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
-  if (i < n) out[i] += offsets[i / kTile];
 }
 
 // out[s] = sum of v[idx[e]] for e in [ptr[s], ptr[s + 1]), added in list
@@ -223,30 +196,12 @@ int tree_matvec_impl(int device, const T* x, const int32_t* start, const int32_t
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t nb = ceil_div(n, kTile);
   if (nb > 0) {
-    scan_tiles<T><<<static_cast<unsigned>(nb), kThreads, 0, stream>>>(DenseLoad<T>{x}, n, local,
-                                                                      totals);
+    scan_tiles<T><<<static_cast<unsigned>(nb), kThreads, 0, stream>>>(x, n, local, totals);
     scan_totals<T><<<1, kThreads, 0, stream>>>(totals, nb, offsets);
   }
   if (m > 0) {
     gather_rows<T><<<static_cast<unsigned>(ceil_div(m, kRowThreads)), kRowThreads, 0, stream>>>(
         local, offsets, start, end, m, out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int tree_rmatvec_impl(int device, const T* y, const int32_t* start_ptr, const int32_t* start_rows,
-                      const int32_t* end_ptr, const int32_t* end_rows, T* totals, T* offsets,
-                      T* out, int64_t n, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t nb = ceil_div(n, kTile);
-  if (nb > 0) {
-    const DiffLoad<T> load{y, start_ptr, start_rows, end_ptr, end_rows};
-    scan_tiles<T><<<static_cast<unsigned>(nb), kThreads, 0, stream>>>(load, n, out, totals);
-    scan_totals<T><<<1, kThreads, 0, stream>>>(totals, nb, offsets);
-    add_offsets<T><<<static_cast<unsigned>(ceil_div(n, kRowThreads)), kRowThreads, 0, stream>>>(
-        offsets, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -272,23 +227,10 @@ int tree_matvec_f32(int device, const float* x, const int32_t* start, const int3
                                  static_cast<cudaStream_t>(stream));
 }
 
-int tree_rmatvec_f64(int device, const double* y, const int32_t* start_ptr,
-                     const int32_t* start_rows, const int32_t* end_ptr, const int32_t* end_rows,
-                     double* totals, double* offsets, double* out, int64_t n, void* stream) {
-  return tree_rmatvec_impl<double>(device, y, start_ptr, start_rows, end_ptr, end_rows, totals,
-                                   offsets, out, n, static_cast<cudaStream_t>(stream));
-}
-
-int tree_rmatvec_f32(int device, const float* y, const int32_t* start_ptr,
-                     const int32_t* start_rows, const int32_t* end_ptr, const int32_t* end_rows,
-                     float* totals, float* offsets, float* out, int64_t n, void* stream) {
-  return tree_rmatvec_impl<float>(device, y, start_ptr, start_rows, end_ptr, end_rows, totals,
-                                  offsets, out, n, static_cast<cudaStream_t>(stream));
-}
-
-// Tenant sums: out[s] = sum of v[idx[e]] over the CSR list of segment s.
-// sla_matvec passes (x, tenant lists of device ids, k); sla_rmatvec passes
-// (y, device lists of tenant ids, n).
+// Segmented sums: out[s] = sum of v[idx[e]] over the CSR list of segment s.
+// tree_rmatvec passes (y, position lists of covering rows, n); sla_matvec
+// (x, tenant lists of device ids, k); sla_rmatvec (y, device lists of
+// tenant ids, n).
 int segment_sums_f64(int device, const double* v, const int32_t* ptr, const int32_t* idx,
                      int64_t nseg, double* out, void* stream) {
   return segment_sums_impl<double>(device, v, ptr, idx, nseg, out,

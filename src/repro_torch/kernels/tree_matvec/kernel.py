@@ -2,8 +2,10 @@
 (``csrc/tree_matvec.cu``).
 
 Replace ``repro/kernels/tree_matvec/kernel.py:tree_matvec``,
-``:tree_rmatvec``, ``:sla_matvec`` and ``:sla_rmatvec`` (Pallas, TPU).  The source's header comment gives the
-design and what bounds it.  Each wrapper checks its inputs, allocates its
+``:tree_rmatvec``, ``:sla_matvec`` and ``:sla_rmatvec`` (Pallas, TPU).  The
+source's header comment gives the design and what bounds it; the adjoint and
+the tenant pair are one segmented-sum kernel over CSR lists built here once
+per topology.  Each wrapper checks its inputs, allocates its
 output and scratch with ``torch.empty``, launches on the current stream,
 raises on a non-zero ``cudaGetLastError``, and counts its launches in
 :data:`LAUNCHES`.
@@ -36,26 +38,32 @@ LAUNCHES = {"tree_matvec": 0, "tree_rmatvec": 0, "sla_matvec": 0, "sla_rmatvec":
 class TreeIndex(NamedTuple):
     """Kernel-ready tree rows, made once per topology by :func:`tree_index`.
 
-    ``start``/``end`` are int32 copies of the row ranges.  The CSR lists
-    drive the adjoint without atomics: the rows whose range starts at
-    position ``p < n`` are ``start_rows[start_ptr[p]:start_ptr[p + 1]]`` in
-    row order, and likewise for the rows ending at ``p``.
+    ``start``/``end`` are int32 copies of the row ranges.  The covering-rows
+    CSR drives the adjoint as one segmented sum without atomics: the rows
+    with ``start_j <= i < end_j`` are ``cover_rows[cover_ptr[i]:cover_ptr[i + 1]]``,
+    in ascending row order.
     """
 
     start: torch.Tensor  # [m] int32
     end: torch.Tensor  # [m] int32
-    start_ptr: torch.Tensor  # [n + 1] int32
-    start_rows: torch.Tensor  # int32
-    end_ptr: torch.Tensor  # [n + 1] int32
-    end_rows: torch.Tensor  # int32
+    cover_ptr: torch.Tensor  # [n + 1] int32
+    cover_rows: torch.Tensor  # [sum(end - start)] int32
     n: int
 
 
-def _csr(pos: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
-    rows = np.nonzero(pos < n)[0]
-    rows = rows[np.argsort(pos[rows], kind="stable")]
-    counts = np.bincount(pos[rows], minlength=n)
-    return np.concatenate([[0], np.cumsum(counts)]), rows
+def _cover(start: np.ndarray, end: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """CSR of the rows covering each position, each list in ascending row
+    order: a counting sort, rows written in order into their positions'
+    slots."""
+    counts = np.cumsum(np.bincount(start, minlength=n + 1) - np.bincount(end, minlength=n + 1))
+    ptr = np.concatenate([[0], np.cumsum(counts[:n])])
+    cursor = ptr[:-1].copy()
+    rows = np.empty(int(ptr[-1]), np.int32)
+    for j in np.nonzero(end > start)[0]:
+        s, e = start[j], end[j]
+        rows[cursor[s:e]] = j
+        cursor[s:e] += 1
+    return ptr, rows
 
 
 def _host_index(v) -> np.ndarray:
@@ -64,23 +72,30 @@ def _host_index(v) -> np.ndarray:
 
 
 def tree_index(start, end, n: int, device) -> TreeIndex:
-    """Validate ``0 <= start <= end <= n`` and build the kernel index."""
+    """Validate ``0 <= start <= end <= n`` and build the kernel index.
+
+    The covering-rows list has ``sum(end - start)`` entries: ``n x depth``
+    for the rows of a tree (49,152 for the paper's fleet), but up to ``m x n``
+    for rows that overlap at will.  Raises if it does not fit int32."""
     start, end = _host_index(start), _host_index(end)
     if start.shape != end.shape or start.ndim != 1:
         raise ValueError(f"start/end shapes {start.shape}/{end.shape} differ")
     if ((start < 0) | (start > end) | (end > n)).any():
         raise ValueError(f"tree rows must satisfy 0 <= start <= end <= n={n}")
-    if n >= 2**31:
+    if n >= 2**31 or start.shape[0] >= 2**31:
         raise ValueError(f"n={n} does not fit the kernels' int32 positions")
-    s_ptr, s_rows = _csr(start, n)
-    e_ptr, e_rows = _csr(end, n)
+    total = int((end - start).sum())
+    if total >= 2**31:
+        raise ValueError(
+            f"the rows cover {total} (position, row) pairs, more than the kernels' int32 "
+            "covering-rows index holds"
+        )
+    c_ptr, c_rows = _cover(start, end, n)
 
     def i32(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    return TreeIndex(
-        i32(start), i32(end), i32(s_ptr), i32(s_rows), i32(e_ptr), i32(e_rows), int(n)
-    )
+    return TreeIndex(i32(start), i32(end), i32(c_ptr), i32(c_rows), int(n))
 
 
 class SlaIndex(NamedTuple):
@@ -146,7 +161,7 @@ def _check_vec(name: str, v: torch.Tensor, size: int) -> None:
 
 
 def _check_index(idx: TreeIndex, device: torch.device) -> None:
-    for name in ("start", "end", "start_ptr", "start_rows", "end_ptr", "end_rows"):
+    for name in ("start", "end", "cover_ptr", "cover_rows"):
         t = getattr(idx, name)
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"index.{name} must be contiguous int32 on {device}")
@@ -199,31 +214,12 @@ def tree_matvec(x: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
 
 
 def tree_rmatvec(y: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
-    """Adjoint: out[i] = sum of y over the rows covering position i.  Each
-    position sums its CSR lists in row order, then the same scan runs."""
-    n = idx.n
+    """Adjoint: out[i] = sum of y over the rows covering position i, in
+    ascending row order: one segmented-sum launch over the covering-rows
+    CSR."""
     _check_vec("y", y, idx.start.shape[0])
     _check_index(idx, y.device)
-    lib = _build.library()
-    totals, offsets = _scratch(n, y, lib.tree_scan_tile())
-    out = torch.empty(n, dtype=y.dtype, device=y.device)
-    fn = getattr(lib, f"tree_rmatvec_{_suffix(y.dtype)}")
-    err = fn(
-        y.device.index,
-        y.data_ptr(),
-        idx.start_ptr.data_ptr(),
-        idx.start_rows.data_ptr(),
-        idx.end_ptr.data_ptr(),
-        idx.end_rows.data_ptr(),
-        totals.data_ptr(),
-        offsets.data_ptr(),
-        out.data_ptr(),
-        n,
-        torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    _raise_on(err, "tree_rmatvec")
-    LAUNCHES["tree_rmatvec"] += 1
-    return out
+    return _segment_sums("tree_rmatvec", y, idx.cover_ptr, idx.cover_rows, idx.n)
 
 
 def _check_sla_index(idx: SlaIndex, device: torch.device) -> None:

@@ -64,7 +64,8 @@ def test_flash_attention_matches_the_reference(B, Sq, Sk, H, KV, dh, causal, dty
     (jq, jk, jv), (q, k, v) = _both(_inputs(B * Sq + H + Sk, B, Sq, Sk, H, KV, dh), dtype)
     reset_launch_counts()
     got = _f32(flash_attention(q, k, v, causal=causal))
-    assert launch_counts()["flash_attention"] == 0  # the CPU runs the plain version
+    counts = launch_counts()  # the CPU runs the plain version: no kernel variant launched
+    assert [counts[f"flash_attention_{kind}"] for kind in ("wgmma", "mma", "f32")] == [0, 0, 0]
     tol = TOL[dtype]
     pallas = _f32(pallas_flash(jq, jk, jv, causal=causal, bq=64, bk=64))
     ref = _f32(jax_attention_ref(jq, jk, jv, causal=causal))
@@ -97,3 +98,69 @@ def test_plain_version_is_exact_where_only_the_order_differs():
     (jq, jk, jv), (q, k, v) = _both(arrays, "float32")
     got = attention_ref(q, k, v, causal=True).numpy()
     np.testing.assert_allclose(got, np.asarray(jax_attention_ref(jq, jk, jv)), rtol=0, atol=2e-6)
+
+
+def _variant_inputs(case):
+    """(q, k, v) on the CPU for one layout the wrapper must classify."""
+    bf16 = torch.bfloat16
+    B, S, H, KV = 2, 48, 8, 2
+
+    def qkv(dh, dtype=bf16):
+        return (
+            torch.zeros(B, S, H, dh, dtype=dtype),
+            torch.zeros(B, S, KV, dh, dtype=dtype),
+            torch.zeros(B, S, KV, dh, dtype=dtype),
+        )
+
+    if case == "packed projection":  # views of one [B, S, H + 2 KV, dh] tensor
+        packed = torch.zeros(B, S, H + 2 * KV, 128, dtype=bf16)
+        return packed[:, :, :H], packed[:, :, H : H + KV], packed[:, :, H + KV :]
+    if case == "one batch of a larger tensor":
+        return tuple(t[1:] for t in qkv(128))
+    if case == "unaligned sequence stride":  # 65 columns: 130-byte rows
+        q, k, v = qkv(65)
+        return q[..., :64], k[..., :64], v[..., :64]
+    if case == "unaligned base":
+        flat = torch.zeros(B * S * H * 64 + 1, dtype=bf16)
+        q = flat[1:].view(B, S, H, 64)
+        return q, q[:, :, :KV], q[:, :, :KV]
+    if case == "strided head dim":
+        q, k, v = qkv(128)
+        return q[..., ::2], k[..., ::2], v[..., ::2]
+    if case == "heads outside sequence":  # [B, H, S, dh] seen as [B, S, H, dh]
+        return tuple(t.transpose(1, 2).contiguous().transpose(1, 2) for t in qkv(128))
+    if case == "no keys":
+        q, k, v = qkv(128)
+        return q, k[:, :0], v[:, :0]
+    dtype, dh = case
+    return qkv(dh, dtype)
+
+
+@pytest.mark.parametrize(
+    "case,want",
+    [
+        ((torch.bfloat16, 128), "wgmma"),
+        ((torch.bfloat16, 64), "wgmma"),
+        ((torch.bfloat16, 32), "mma"),
+        ((torch.bfloat16, 160), "mma"),
+        ((torch.float32, 128), "f32"),
+        ((torch.float32, 64), "f32"),
+        ("packed projection", "wgmma"),
+        ("one batch of a larger tensor", "wgmma"),
+        ("unaligned sequence stride", "mma"),
+        ("unaligned base", "mma"),
+        ("strided head dim", "mma"),
+        ("heads outside sequence", "mma"),
+        ("no keys", "mma"),
+    ],
+)
+def test_kernel_variant_is_chosen_from_dtype_head_dim_and_strides(case, want):
+    """The wrapper picks the Hopper kernel (TMA + wgmma) only for bfloat16
+    at head dim 64 or 128 whose q, k and v tensor maps can read in place
+    (head dim contiguous, 16-byte strides and base, dimensions nested as
+    (head, sequence, batch)); other bfloat16 inputs go to the mma.sync
+    kernel and float32 to the float32 one.  Decided from the inputs alone,
+    with no card and no launch."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    assert fk.variant(*_variant_inputs(case)) == want

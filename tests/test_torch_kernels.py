@@ -169,11 +169,14 @@ def test_tree_matvecs_match_multi_block_reference(block):
 
 
 @pytest.mark.parametrize("n", [1, 37, 1025])
-def test_tree_index_csr_reproduces_difference_array(n):
-    """The adjoint kernel loads each position's difference-array entry from
-    the CSR lists, summing in row order.  Emulated here on the host, that
-    load followed by a prefix sum equals the plain adjoint bit for bit, for
-    random (also empty and end-of-range) rows."""
+def test_tree_index_cover_lists_the_covering_rows(n):
+    """The adjoint kernel sums, for each position, the duals of the rows
+    listed for it in the covering-rows CSR, in list order.  Each list must be
+    exactly the rows with start <= i < end, ascending, for random (also
+    empty and end-of-range) rows.  That ordered sum, emulated here on the
+    host, matches the plain adjoint to 1e-12 of sum|y| but not bit for bit:
+    the plain version scatters a difference array and takes its prefix
+    sum, which adds in another order."""
     rng = np.random.default_rng(n)
     m = 2 * n + 4
     s = rng.integers(0, n + 1, m)
@@ -181,19 +184,27 @@ def test_tree_index_csr_reproduces_difference_array(n):
     s, e = np.minimum(s, e), np.maximum(s, e)
     s[:3], e[:3] = [0, n, 0], [n, n, 0]
     idx = tk.tree_index(s, e, n, "cpu")
+    ptr, rows = idx.cover_ptr.numpy(), idx.cover_rows.numpy()
+    assert ptr[0] == 0 and ptr[-1] == rows.size == int((e - s).sum())
     y = rng.normal(size=m)
-    sp, sr = idx.start_ptr.numpy(), idx.start_rows.numpy()
-    ep, er = idx.end_ptr.numpy(), idx.end_rows.numpy()
-    diff = np.zeros(n)
+    ordered = np.zeros(n)
     for p in range(n):
+        listed = rows[ptr[p] : ptr[p + 1]]
+        np.testing.assert_array_equal(listed, np.nonzero((s <= p) & (p < e))[0])
         acc = 0.0
-        for r in sr[sp[p] : sp[p + 1]]:
+        for r in listed:
             acc += y[r]
-        for r in er[ep[p] : ep[p + 1]]:
-            acc -= y[r]
-        diff[p] = acc
+        ordered[p] = acc
     want = tk.tree_rmatvec(torch.as_tensor(y), idx).numpy()
-    np.testing.assert_array_equal(np.cumsum(diff), want)
+    np.testing.assert_allclose(ordered, want, rtol=0, atol=1e-12 * np.abs(y).sum())
+
+
+def test_tree_index_refuses_a_cover_past_int32():
+    """Rows that overlap at will can cover more (position, row) pairs than
+    the int32 index holds; a tree covers n x depth."""
+    n = 2**20
+    with pytest.raises(ValueError, match="int32 covering-rows index"):
+        tk.tree_index(np.zeros(2100, np.int64), np.full(2100, n), n, "cpu")
 
 
 def test_tree_index_rejects_malformed_rows():

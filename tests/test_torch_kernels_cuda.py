@@ -10,12 +10,15 @@ the elementwise kernels round every operation as the plain expression does,
 |d| <= 1e-13 * max(1, |ref|) in float64 and 4 ulp of max(1, |ref|) in
 float32; the tree kernels scan in another order than ``torch.cumsum``,
 |d| <= 1e-12 * sum|input| in float64 and 4 unit roundoffs of sum|input| in
-float32 (about 7x the float32 error measured on the H100).  The tenant
+float32 (about 7x the float32 error measured on the H100); past the
+paper's n their rows nest as a tree's do, whose covering-rows index fits
+int32 (rows that overlap at will need up to m x n entries).  The tenant
 kernels sum each CSR list in edge order: they equal the CPU plain version
 bit for bit.  The chunk statistics' accumulator and maxima are exact; their
 sums are held to 8 unit roundoffs of the sum (all terms are squares).
 Flash attention is held to its plain version (``attention_ref``) row by
-row, |d| <= tol * max|ref row|.  Float32: 1e-5 (both keep float32
+row, |d| <= tol * max|ref row|: the kernel the wrapper picks and, where that
+is the Hopper (TMA + wgmma) kernel, the mma.sync kernel too.  Float32: 1e-5 (both keep float32
 throughout, summing in other orders).  Bfloat16: 2^-7 against the plain
 version run in float32 on the same values (the kernel rounds P and the
 output to bfloat16, one unit roundoff 2^-8 each), and 2^-5 against the plain
@@ -64,11 +67,33 @@ def _vec(rng, n, dtype, device, scale=100.0):
     return torch.as_tensor(rng.normal(size=n) * scale, dtype=dtype, device=device)
 
 
+def _nested_rows(rng, n, m):
+    """At most m rows of a random tree over [0, n), in random order: three
+    levels, each splitting the one above at random cut points (repeated cuts
+    give empty rows)."""
+    cuts = np.array([0, n])
+    starts, ends = [], []
+    for size in (m // 16, m // 4, m // 2):
+        cuts = np.sort(np.concatenate([cuts, rng.integers(0, n + 1, size)]))
+        starts.append(cuts[:-1])
+        ends.append(cuts[1:])
+    s, e = np.concatenate(starts), np.concatenate(ends)
+    keep = rng.permutation(s.size)[:m]
+    return s[keep], e[keep]
+
+
 def _rows(rng, n):
+    """Rows that overlap at will up to the paper's n = 12,288; past it the
+    rows of a random tree, so that the adjoint's covering-rows index (the
+    rows' total length, n x depth for a tree) fits int32.  Either way the
+    whole range, empty rows and rows at both ends."""
     m = min(2 * n, 5000) + 4
-    s = rng.integers(0, n + 1, m)
-    e = rng.integers(0, n + 1, m)
-    s, e = np.minimum(s, e), np.maximum(s, e)
+    if n > 12_288:
+        s, e = _nested_rows(rng, n, m)
+    else:
+        s = rng.integers(0, n + 1, m)
+        e = rng.integers(0, n + 1, m)
+        s, e = np.minimum(s, e), np.maximum(s, e)
     s[:4], e[:4] = [0, 0, n, n // 2], [n, 0, n, n]
     return s, e
 
@@ -136,6 +161,23 @@ def test_tree_rmatvec_is_deterministic(cuda):
     first = tk.tree_rmatvec(y, idx)
     for _ in range(5):
         assert torch.equal(tk.tree_rmatvec(y, idx), first)
+
+
+def test_tree_rmatvec_is_one_launch_of_the_ordered_sum(cuda):
+    """One segment_sums launch per call, summing each position's covering
+    rows in ascending row order: the bits of that ordered sum on the CPU."""
+    pdn = build_datacenter()
+    idx = tk.tree_index(pdn.node_start, pdn.node_end, pdn.n, cuda)
+    y = _vec(np.random.default_rng(2), pdn.m, torch.float64, cuda)
+    reset_launch_counts()
+    got = tk.tree_rmatvec(y, idx)
+    assert launch_counts()["tree_rmatvec"] == 1
+    ptr, rows, yh = idx.cover_ptr.cpu().numpy(), idx.cover_rows.cpu().numpy(), y.cpu().numpy()
+    want = np.zeros(pdn.n)
+    for i in range(pdn.n):
+        for r in rows[ptr[i] : ptr[i + 1]]:
+            want[i] += yh[r]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -355,18 +397,40 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, KV, dh, causal, dtype
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     q, k, v = _flash_inputs(np.random.default_rng(Sq + Sk + dh), B, Sq, Sk, H, KV, dh, dtype, cuda)
+    kind = "f32" if dtype == torch.float32 else "wgmma" if dh in (64, 128) else "mma"
+    assert fk.variant(q, k, v) == kind
+    runs = [(kind, fk.flash_attention)]
+    if kind == "wgmma":  # the mma.sync kernel at the same shape, through its private entry
+        runs.append(("mma", fk._flash_attention_mma))
+    plain = attention_ref(q, k, v, causal=causal)
+    for name, fn in runs:
+        reset_launch_counts()
+        got = fn(q, k, v, causal=causal)
+        assert launch_counts()[f"flash_attention_{name}"] == 1
+        assert sum(n for key, n in launch_counts().items() if key.startswith("flash")) == 1
+        assert got.dtype == dtype and got.shape == q.shape
+        _assert_rows_close(got, plain, FLASH_TOL[dtype])
+        if dtype == torch.bfloat16:
+            exact = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+            _assert_rows_close(got, exact, FLASH_TOL_VS_F32)
+        if causal and Sq > Sk:  # rows that see no key return the mean of V
+            blind = got[:, : Sq - Sk].float()
+            mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None]
+            _assert_rows_close(blind, mean_v.expand_as(blind), FLASH_TOL[dtype])
+
+
+def test_a_prefill_sequence_launches_only_the_hopper_kernel(cuda):
+    """36 layers' worth of bf16 calls at head dim 128 (qwen3-4b's shapes,
+    a shorter prompt) go to the Hopper kernel every time."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    q, k, v = _flash_inputs(np.random.default_rng(36), 2, 256, 256, 32, 8, 128, torch.bfloat16, cuda)
     reset_launch_counts()
-    got = fk.flash_attention(q, k, v, causal=causal)
-    assert launch_counts()["flash_attention"] == 1
-    assert got.dtype == dtype and got.shape == q.shape
-    _assert_rows_close(got, attention_ref(q, k, v, causal=causal), FLASH_TOL[dtype])
-    if dtype == torch.bfloat16:
-        exact = attention_ref(q.float(), k.float(), v.float(), causal=causal)
-        _assert_rows_close(got, exact, FLASH_TOL_VS_F32)
-    if causal and Sq > Sk:  # rows that see no key return the mean of V
-        blind = got[:, : Sq - Sk].float()
-        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None]
-        _assert_rows_close(blind, mean_v.expand_as(blind), FLASH_TOL[dtype])
+    for _ in range(36):
+        fk.flash_attention(q, k, v)
+    counts = launch_counts()
+    assert counts["flash_attention_wgmma"] == 36
+    assert counts["flash_attention_mma"] == counts["flash_attention_f32"] == 0
 
 
 def test_flash_attention_reads_strided_inputs(cuda):
@@ -379,9 +443,13 @@ def test_flash_attention_reads_strided_inputs(cuda):
     qkv = torch.as_tensor(rng.normal(size=(B, S, H + 2 * KV, dh)), dtype=torch.bfloat16).to(cuda)
     q, k, v = qkv[:, :, :H], qkv[:, :, H : H + KV], qkv[:, :, H + KV :]
     assert not q.is_contiguous()
+    assert fk.variant(q, k, v) == "wgmma"  # the tensor maps read the views in place
     got = fk.flash_attention(q, k, v)
     want = fk.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     assert torch.equal(got, want)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    _assert_rows_close(got, attention_ref(q, k, v), FLASH_TOL[torch.bfloat16])
 
 
 def test_flash_attention_rejects_what_it_has_no_kernel_for(cuda):
@@ -411,12 +479,12 @@ def test_prefill_runs_the_flash_kernel_and_matches_the_cpu(cuda):
     tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 192)))
     reset_launch_counts()
     logits, caches = api.prefill(params, tokens.to(cuda))
-    assert launch_counts()["flash_attention"] == cfg.n_layers
+    assert launch_counts()["flash_attention_f32"] == cfg.n_layers
     cpu_logits, _ = api.prefill(params.to("cpu"), tokens)
     params.to(cuda)
     torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=0, atol=2e-5)
     blocked = build(dataclasses.replace(cfg, flash_vjp=False))
     reset_launch_counts()
     plain_logits, _ = blocked.prefill(params, tokens.to(cuda))
-    assert launch_counts()["flash_attention"] == 0
+    assert not any(n for key, n in launch_counts().items() if key.startswith("flash")), launch_counts()
     torch.testing.assert_close(logits, plain_logits, rtol=0, atol=2e-5)
