@@ -4,7 +4,8 @@
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py                 # exits non-zero on any failure
-    python3 chip_smoke.py --profile       # also profiles two control steps, a prefill and a decode step
+    python3 chip_smoke.py --profile       # also profiles a warm control step, a cold tenant step,
+                                          # a prefill and a decode step (launches per step)
     python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
     python3 chip_smoke.py --out DIR       # where the details go
 
@@ -17,8 +18,13 @@ Phases, each of which raises on failure:
    paths' shapes (the paper's fleet: n = 12,288 devices, m = 1,637 tree
    rows; Appendix B: k = 100 tenants, E = 10,000 edges) and at block edges,
    in float64 and float32 (tree rows that overlap at will up to the paper's
-   n, the rows of a random tree past it); the tenant pair also against its
-   CPU plain version bit for bit, and over repeated launches;
+   n, the rows of a random tree past it; ``tree_matvec`` also on both sides
+   of its one-cluster path's last size);
+   the tenant pair also against its CPU plain version bit for bit, and over
+   repeated launches, ``sla_matvec`` also on lists of 0 to 1,000 edges and
+   one list holding every edge; the chunk statistics on extra draws
+   (several seeds at n = 1, 31, 32 and the paper's n); ``tree_matvec`` and
+   ``sla_matvec`` each one kernel on the card per call (torch.profiler);
 4. the main path: five warm-started control steps of
    ``repro_torch.core.nvpax.optimize`` on ``build_datacenter()`` with
    telemetry requests, through the kernels
@@ -29,7 +35,9 @@ Phases, each of which raises on failure:
    1,536-device fleet, with the same checks;
 6. each kernel's time on the card (CUDA events; see :func:`time_calls`)
    beside its plain version's, its bound and, for the tree and tenant
-   pairs, a CSR sparse matrix-vector product on the same incidence;
+   pairs, a CSR sparse matrix-vector product on the same incidence; the
+   per-launch floor (``dual_prox`` on one row) and ``tree_matvec``'s two
+   paths at their boundary;
 7. the serving path on a tenant fleet: ``PowerController.step`` on the
    paper's fleet with the Appendix B tenants (100 x 100 devices), every
    kernel flag on, three cold steps, each checked for certification,
@@ -133,6 +141,11 @@ TREE_TOL = {"float64": 1e-12, "float32": 4 * 2.0**-24}
 # to 8 unit roundoffs of the sum (all terms are squares), 4x the largest
 # |d| / sum measured on an NVIDIA H100 80GB HBM3 (2 unit roundoffs).
 STATS_TOL = {"float64": 8 * 2.0**-53, "float32": 8 * 2.0**-24}
+# extra chunk-stats draws at n = 1, where one term's rounding shows undamped
+STATS_DRAWS = 64
+# sla_matvec list lengths around a warp (32 lanes) and past the kernel's
+# 128-edge chunk; "all": one tenant holds every edge
+LIST_LENGTHS = (0, 1, 31, 32, 33, 1000, "all")
 LIMITS = {
     "tree_matvec": TREE_TOL,
     "tree_rmatvec": TREE_TOL,
@@ -220,6 +233,33 @@ def nested_rows(rng, n: int, m: int):
     s, e = np.concatenate(starts), np.concatenate(ends)
     keep = rng.permutation(s.size)[:m]
     return s[keep], e[keep]
+
+
+def long_list_edges(rng, n: int, length):
+    """Edges of 4 tenants in random edge order: tenant 1 holds ``length``
+    edges, tenants 0 and 3 a few, tenant 2 none; or tenant 2 holds all
+    300,000 edges.  Devices repeat within a list."""
+    if length == "all":
+        ten = np.full(300_000, 2)
+    else:
+        ten = np.concatenate([np.zeros(5), np.ones(length), np.full(3, 3)])
+        ten = ten[rng.permutation(ten.size)]
+    return rng.integers(0, n, ten.size), ten.astype(np.int64)
+
+
+def device_kernels(fn, calls: int) -> list[str]:
+    """Names of the kernels the card ran during ``calls`` calls of ``fn``
+    (warmed first), from torch.profiler's CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def sync(device) -> None:
@@ -371,7 +411,7 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--profile", action="store_true",
-        help="profile a warm step, a cold tenant step, a prefill and a decode step"
+        help="profile a warm control step, a cold tenant step, a prefill and a decode step"
     )
     parser.add_argument(
         "--warm-tenants",
@@ -424,6 +464,8 @@ def main(argv: list[str]) -> int:
     # past the elementwise grid, the grid-stride loop takes a second pass
     grid = _build.library().elementwise_grid_threads()
     edge_sizes = [1, 31, 32, tile - 1, tile, tile + 1, 3 * tile + 7, 1_000_003, 2 * grid + 1]
+    one_cluster = _build.library().tree_cluster_tiles() * tile
+    tree_sizes = [one_cluster, one_cluster + 1]
     rng = np.random.default_rng(0)
     max_err: dict[str, float] = {}
     worst: dict[str, dict[str, float]] = {"float64": {}, "float32": {}}
@@ -475,15 +517,22 @@ def main(argv: list[str]) -> int:
         if not torch.equal(got.cpu(), want):
             raise AssertionError(f"{name_} (n={got.numel()}) differs from the CPU plain version")
 
-    def check_sla(n, k, e, dtype, main_shape, dev=None, ten=None):
-        """Tenant sums over e edges: devices may sit in several tenants."""
+    def check_sla(n, k, e, dtype, main_shape, dev=None, ten=None, gen=None, cpu_only=False):
+        """Tenant sums over e edges: devices may sit in several tenants.
+        Draws from ``gen`` (by default the phase's generator).  With
+        ``cpu_only`` the kernels are held to the CPU plain version's bits
+        alone: the card's plain version adds with atomics, in a new order
+        every run, so its distance from the ordered sum on a list of
+        300,000 float32 terms changes from run to run; equal bits are the
+        stronger check."""
+        gen = rng if gen is None else gen
         key = str(dtype).split(".")[-1]
         if dev is None:
-            dev, ten = rng.integers(0, n, e), rng.integers(0, k, e)
+            dev, ten = gen.integers(0, n, e), gen.integers(0, k, e)
         idx = tk.sla_index(dev, ten, k, n, cuda)
         dev64, ten64 = idx.dev.long(), idx.ten.long()
-        x = on_card(rng.normal(size=n), dtype)
-        y = on_card(rng.normal(size=k), dtype)
+        x = on_card(gen.normal(size=n), dtype)
+        y = on_card(gen.normal(size=k), dtype)
         for name_, fn, ref, v, gather in (
             ("sla_matvec", tk.sla_matvec, lambda v_, d, t: tref.sla_matvec_ref(v_, d, t, k),
              x, dev64),
@@ -496,21 +545,24 @@ def main(argv: list[str]) -> int:
                 if bool(got.any()):
                     raise AssertionError(f"{name_} without edges is not zero")
                 continue
-            check(name_, key, got, ref(v, dev64, ten64), float(v[gather].abs().sum()), main_shape)
+            if not cpu_only:
+                check(name_, key, got, ref(v, dev64, ten64), float(v[gather].abs().sum()),
+                      main_shape)
             same_bits(name_, got, ref(v.cpu(), dev64.cpu(), ten64.cpu()))
             for _ in range(3):  # no atomics: every launch gives the same bits
                 n_checks[0] += 1
                 if not torch.equal(fn(v, idx), got):
                     raise AssertionError(f"{name_} (n={n}) differs between launches")
 
-    def check_stats(n, dtype, main_shape):
+    def check_stats(n, dtype, main_shape, gen=None, cnt=3.0):
+        gen = rng if gen is None else gen
         key = str(dtype).split(".")[-1]
-        vecs = [on_card(rng.normal(size=n) * 100.0, dtype) for _ in range(4)]
+        vecs = [on_card(gen.normal(size=n) * 100.0, dtype) for _ in range(4)]
         for name_, fn, ref, args, n_max in (
             ("primal_chunk_stats", pk.primal_chunk_stats, pref.primal_chunk_stats_ref, vecs, 2),
             ("dual_chunk_stats", pk.dual_chunk_stats, pref.dual_chunk_stats_ref, vecs[:3], 0),
         ):
-            got, want = fn(*args, 3.0), ref(*args, 3.0)
+            got, want = fn(*args, cnt), ref(*args, cnt)
             # accumulator and maxima exact, sums to STATS_TOL of the sum
             for i, (g, r) in enumerate(zip(got, want)):
                 if i <= n_max:
@@ -518,14 +570,15 @@ def main(argv: list[str]) -> int:
                 else:
                     check(f"{name_} sums", key, g, r, r.clamp_min(1e-300), main_shape)
 
-    def check_tree(n, start, end, dtype, main_shape):
+    def check_tree(n, start, end, dtype, main_shape, gen=None):
+        gen = rng if gen is None else gen
         key = str(dtype).split(".")[-1]
         idx = tk.tree_index(start, end, n, cuda)
-        x = on_card(rng.normal(size=n), dtype)
+        x = on_card(gen.normal(size=n), dtype)
         check("tree_matvec", key, tk.tree_matvec(x, idx),
               tref.tree_matvec_ref(x, idx.start.long(), idx.end.long()),
               float(x.abs().sum()), main_shape)
-        y = on_card(rng.normal(size=len(start)), dtype)
+        y = on_card(gen.normal(size=len(start)), dtype)
         check("tree_rmatvec", key, tk.tree_rmatvec(y, idx),
               tref.tree_rmatvec_ref(y, idx.start.long(), idx.end.long(), n),
               float(y.abs().sum()), main_shape)
@@ -557,6 +610,9 @@ def main(argv: list[str]) -> int:
     layout = appendix_b_layout(pdn, seed=0)
     b_dev = np.nonzero(layout.tenant_of >= 0)[0]
     b_ten = layout.tenant_of[b_dev]
+    idx_main = tk.tree_index(pdn.node_start, pdn.node_end, n_main, cuda)
+    sidx_main = tk.sla_index(b_dev, b_ten, layout.n_tenants, n_main, cuda)
+    x_main = on_card(np.random.default_rng(12_288).normal(size=n_main), torch.float64)
     t0 = time.perf_counter()
     for dtype in (torch.float64, torch.float32):
         main = dtype == torch.float64
@@ -573,8 +629,29 @@ def main(argv: list[str]) -> int:
             check_elementwise(n, dtype, False)
             check_sla(n, max(1, n // 50), min(3 * n, 300_000), dtype, False)
             check_stats(n, dtype, False)
+        # Added checks, each from a generator of its own, so that the draws
+        # above stay as they were.  sla_matvec's warp per tenant on lists
+        # around a warp and past its chunk, and one tenant holding every
+        # edge: the CPU's bits (check_sla), the same bits on every launch.
+        for length in LIST_LENGTHS:
+            gen = np.random.default_rng(7 if length == "all" else length)
+            dev, ten = long_list_edges(gen, n_main, length)
+            check_sla(n_main, 4, dev.size, dtype, False, dev, ten, gen, cpu_only=True)
+        # the chunk statistics over several draws, one term per sum at n = 1
+        for n in (1, 31, 32, n_main):
+            for seed in range(STATS_DRAWS if n == 1 else 3):
+                gen = np.random.default_rng(10_000 * n + seed)
+                check_stats(n, dtype, False, gen, cnt=float(1 + seed % 7))
+        # tree_matvec on both sides of its one-cluster path's last size
+        for n in tree_sizes:
+            gen = np.random.default_rng(n)
+            s, e = nested_rows(gen, n, 5004)
+            s[:4], e[:4] = [0, 0, n, n // 2], [n, 0, n, n]
+            check_tree(n, s, e, dtype, False, gen)
     log(f"[3] {n_checks[0]} kernel-vs-plain checks passed in {time.perf_counter() - t0:.1f} s "
-        f"(tile {tile}, elementwise grid {grid} threads; n in {edge_sizes}); max |d| at "
+        f"(tile {tile}, elementwise grid {grid} threads; n in {edge_sizes} and "
+        f"{tree_sizes} for tree_matvec; sla_matvec lists of {LIST_LENGTHS} edges; "
+        f"{STATS_DRAWS} chunk-stats draws at n=1); max |d| at "
         f"n={n_main}, m={m_main}, float64: "
         + ", ".join(f"{k} {v:.3e}" for k, v in sorted(max_err.items())))
     for key, per_kernel in worst.items():
@@ -582,8 +659,20 @@ def main(argv: list[str]) -> int:
             + ", ".join(
                 f"{k} {v:.3e} ({LIMITS[k][key]:.3e})" for k, v in sorted(per_kernel.items())
             ))
+    # the redesigned kernels: one kernel on the card per call, nothing else
+    one_launch = {}
+    for name_, fn in (
+        ("tree_matvec", lambda: tk.tree_matvec(x_main, idx_main)),
+        ("sla_matvec", lambda: tk.sla_matvec(x_main, sidx_main)),
+    ):
+        ran = device_kernels(fn, 5)
+        if len(ran) != 5:
+            raise AssertionError(f"{name_}: 5 calls ran {len(ran)} kernels on the card: {ran}")
+        one_launch[name_] = sorted(set(ran))
+    log(f"[3] one kernel on the card per call (torch.profiler, 5 calls): {one_launch}")
     report["kernel_checks"] = {
         "count": n_checks[0],
+        "device_kernels_per_call": one_launch,
         "max_abs_err_f64": max_err,
         "max_rel_err": worst,
         "limits": LIMITS,
@@ -756,8 +845,28 @@ def main(argv: list[str]) -> int:
     log(f"[6]   dual_chunk_stats at r=m={m_b}: {sm_ms * 1e3:.2f} / {sm_plain * 1e3:.2f} us "
         f"({sm_paced * 1e3:.2f} / {sm_plain_paced * 1e3:.2f} us) | "
         f"{bound(4 * 8 * m_b + 3 * 8, 10 * m_b)[0] * 1e3:.3f} us")
+    # the per-launch floor: dual_prox on one row does no work to speak of
+    d_1 = [v[:1].contiguous() for v in args_d]
+    floor_ms, floor_paced = time_calls(lambda: pk.dual_prox(*d_1))
+    log(f"[6]   per-launch floor, dual_prox at r=1: {floor_ms * 1e3:.2f} us "
+        f"({floor_paced * 1e3:.2f} us host-paced)")
+    # tree_matvec's two paths at their boundary, m rows of a random tree
+    # each: one cluster of its largest size, the cooperative grid one tile on
+    tree_paths = {}
+    for n_p in tree_sizes:
+        gen = np.random.default_rng(n_p)
+        s_p, e_p = nested_rows(gen, n_p, m_b)
+        idx_p = tk.tree_index(s_p, e_p, n_p, cuda)
+        x_p = on_card(gen.normal(size=n_p), f64)
+        tree_paths[n_p] = time_calls(lambda: tk.tree_matvec(x_p, idx_p))[0]
+    log(f"[6]   tree_matvec at its paths' boundary, m<={m_b}: one cluster (n={tree_sizes[0]}) "
+        f"{tree_paths[tree_sizes[0]] * 1e3:.2f} us, cooperative grid (n={tree_sizes[1]}) "
+        f"{tree_paths[tree_sizes[1]] * 1e3:.2f} us")
     report["timing"] = {
         "kernels": entries,
+        "floor_dual_prox_r1": {"ms": floor_ms, "paced_ms": floor_paced},
+        "tree_matvec_paths_ms": {"cluster": tree_paths[tree_sizes[0]],
+                                 "cooperative": tree_paths[tree_sizes[1]]},
         "dual_prox_rows_m": {"ms": dm_ms, "plain_ms": dm_plain, "paced_ms": dm_paced,
                              "plain_paced_ms": dm_plain_paced},
         "dual_chunk_stats_rows_m": {"ms": sm_ms, "plain_ms": sm_plain, "paced_ms": sm_paced,
@@ -1349,11 +1458,13 @@ def profiled(tag: str, step) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    calls = {k: v for k, v in kernels.launch_counts().items() if v}
 
     def dev_us(e):
         us = getattr(e, "self_device_time_total", None)
@@ -1365,10 +1476,12 @@ def profiled(tag: str, step) -> dict:
     top = sorted(events, key=dev_us, reverse=True)[:12]
     rows = [{"name": e.key, "calls": e.count, "device_us": dev_us(e)} for e in top]
     log(f"[profile] {tag}: wall {wall_us:.0f} us, device busy {device_us:.0f} us "
-        f"({100.0 * device_us / wall_us:.1f}%), {launches} kernel launches")
+        f"({100.0 * device_us / wall_us:.1f}%), {launches} device launches; "
+        f"the port's kernels' calls {calls}")
     for r in rows:
         log(f"[profile]   {r['device_us']:9.0f} us  {r['calls']:6d}x  {r['name'][:70]}")
-    return {"wall_us": wall_us, "device_us": device_us, "launches": launches, "top": rows}
+    return {"wall_us": wall_us, "device_us": device_us, "launches": launches,
+            "kernel_calls": calls, "top": rows}
 
 
 def profile_step(pdn, kernel_opts) -> dict:
@@ -1380,7 +1493,7 @@ def profile_step(pdn, kernel_opts) -> dict:
     warm = optimize(AllocProblem.build(pdn, sim.power(0), priority=priority, topology=topo),
                     opts).warm_state
     ap = AllocProblem.build(pdn, sim.power(1), priority=priority, topology=topo)
-    return profiled("one warm step", lambda: optimize(ap, opts, warm))
+    return profiled("one warm phase-4 step", lambda: optimize(ap, opts, warm))
 
 
 def profile_tenant_step(pdn, layout, solver_opts) -> dict:

@@ -55,10 +55,11 @@ _ATTENTION = ("wgmma", "mma", "f32")
 # argument types of every exported function, by name stem, and the type
 # suffixes of its twins
 _SIGNATURES = {
-    "tree_matvec": ([_INT] + [_PTR] * 7 + [_I64, _I64, _PTR], _SOLVER),
+    "tree_matvec": ([_INT] + [_PTR] * 5 + [_I64, _I64, _PTR], _SOLVER),
     "primal_update": ([_INT] + [_PTR] * 8 + [_I64, _I64, _PTR, _PTR, _PTR], _SOLVER),
     "dual_prox": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR], _SOLVER),
     "segment_sums": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
+    "sla_matvec": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
     "primal_chunk_stats": ([_INT] + [_PTR] * 4 + [_F64, _I64] + [_PTR] * 4, _SOLVER),
     "dual_chunk_stats": ([_INT] + [_PTR] * 3 + [_F64, _I64] + [_PTR] * 4, _SOLVER),
     "flash_attention": (
@@ -163,6 +164,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.tree_scan_tile.argtypes = []
     lib.tree_scan_tile.restype = ctypes.c_int
+    lib.tree_cluster_tiles.argtypes = []
+    lib.tree_cluster_tiles.restype = ctypes.c_int
     lib.elementwise_grid_threads.argtypes = []
     lib.elementwise_grid_threads.restype = ctypes.c_int64
     lib.chunk_stats_blocks.argtypes = [_I64]

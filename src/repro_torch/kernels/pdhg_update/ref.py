@@ -35,6 +35,12 @@ def _max_abs(v):
     return torch.max(torch.abs(v)) if v.shape[0] else v.new_zeros(())
 
 
+def _true_div(v, cnt):
+    # a 0-d tensor on v's device: torch's CUDA division by a host number
+    # multiplies by its reciprocal, the kernels and the reference divide
+    return v / v.new_full((), cnt)
+
+
 def primal_chunk_stats_ref(x, px, rx, ax, cnt):
     """Chunk-boundary primal bookkeeping: average accumulation + move norms
     + current/average restart-candidate travel (squared)."""
@@ -44,7 +50,7 @@ def primal_chunk_stats_ref(x, px, rx, ax, cnt):
         _max_abs(x - px),
         _max_abs(x),
         torch.sum((x - rx) ** 2),
-        torch.sum((axn / cnt - rx) ** 2),
+        torch.sum((_true_div(axn, cnt) - rx) ** 2),
     )
 
 
@@ -55,6 +61,6 @@ def dual_chunk_stats_ref(y, ry, ay, cnt):
     return (
         ayn,
         torch.sum((y - ry) ** 2),
-        torch.sum((ayn / cnt - ry) ** 2),
+        torch.sum((_true_div(ayn, cnt) - ry) ** 2),
         torch.sum(ry * ry),
     )

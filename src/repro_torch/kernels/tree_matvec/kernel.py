@@ -3,10 +3,13 @@
 
 Replace ``repro/kernels/tree_matvec/kernel.py:tree_matvec``,
 ``:tree_rmatvec``, ``:sla_matvec`` and ``:sla_rmatvec`` (Pallas, TPU).  The
-source's header comment gives the design and what bounds it; the adjoint and
-the tenant pair are one segmented-sum kernel over CSR lists built here once
-per topology.  Each wrapper checks its inputs, allocates its
-output and scratch with ``torch.empty``, launches on the current stream,
+source's header comment gives the design and what bounds it: the forward
+tree sums are one launch (tile scans, a wait for every tile, the row
+gather; a thread block cluster up to 16 tiles, a cooperative grid past
+that), the adjoint and the tenant pair are segmented sums over CSR lists
+built here once per topology, a warp per list for ``sla_matvec``'s long
+tenant lists.  Each wrapper checks its inputs, allocates its output and
+scratch with ``torch.empty``, launches one kernel on the current stream,
 raises on a non-zero ``cudaGetLastError``, and counts its launches in
 :data:`LAUNCHES`.
 """
@@ -171,38 +174,34 @@ def _suffix(dtype: torch.dtype) -> str:
     return "f64" if dtype == torch.float64 else "f32"
 
 
-def _scratch(n: int, like: torch.Tensor, tile: int) -> tuple[torch.Tensor, torch.Tensor]:
-    nb = (n + tile - 1) // tile
-    return (
-        torch.empty(nb, dtype=like.dtype, device=like.device),
-        torch.empty(nb, dtype=like.dtype, device=like.device),
-    )
-
-
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
 def tree_matvec(x: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
-    """out[j] = sum x[start_j:end_j]: tile scan, offset scan, row gather."""
+    """out[j] = sum x[start_j:end_j]: one launch scans the tiles, waits for
+    all of them, and gathers the rows."""
     n = idx.n
     m = idx.start.shape[0]
     _check_vec("x", x, n)
     _check_index(idx, x.device)
-    lib = _build.library()
-    totals, offsets = _scratch(n, x, lib.tree_scan_tile())
-    local = torch.empty(n, dtype=x.dtype, device=x.device)
     out = torch.empty(m, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    lib = _build.library()
+    nb = (n + lib.tree_scan_tile() - 1) // lib.tree_scan_tile()
+    # the cooperative path's tile prefixes, totals and offsets; the cluster
+    # path keeps them on chip
+    size = n + 2 * nb if nb > lib.tree_cluster_tiles() else 0
+    scratch = torch.empty(size, dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"tree_matvec_{_suffix(x.dtype)}")
     err = fn(
         x.device.index,
         x.data_ptr(),
         idx.start.data_ptr(),
         idx.end.data_ptr(),
-        local.data_ptr(),
-        totals.data_ptr(),
-        offsets.data_ptr(),
+        scratch.data_ptr(),
         out.data_ptr(),
         n,
         m,
@@ -229,11 +228,13 @@ def _check_sla_index(idx: SlaIndex, device: torch.device) -> None:
             raise ValueError(f"index.{name} must be contiguous int32 on {device}")
 
 
-def _segment_sums(name, v, ptr, ids, nseg):
+def _segment_sums(name, v, ptr, ids, nseg, entry="segment_sums"):
+    """Sums over CSR lists through ``entry``: ``segment_sums`` (a thread per
+    list) or ``sla_matvec`` (a warp per list)."""
     out = torch.empty(nseg, dtype=v.dtype, device=v.device)
     if ids.shape[0] == 0:
         return out.zero_()  # no edges: zeros without a launch
-    fn = getattr(_build.library(), f"segment_sums_{_suffix(v.dtype)}")
+    fn = getattr(_build.library(), f"{entry}_{_suffix(v.dtype)}")
     err = fn(
         v.device.index,
         v.data_ptr(),
@@ -249,10 +250,11 @@ def _segment_sums(name, v, ptr, ids, nseg):
 
 
 def sla_matvec(x: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
-    """out[t] = sum of x over tenant t's devices, in edge order."""
+    """out[t] = sum of x over tenant t's devices, in edge order: a warp per
+    tenant gathers, one lane adds."""
     _check_vec("x", x, idx.n)
     _check_sla_index(idx, x.device)
-    return _segment_sums("sla_matvec", x, idx.ten_ptr, idx.ten_dev, idx.k)
+    return _segment_sums("sla_matvec", x, idx.ten_ptr, idx.ten_dev, idx.k, entry="sla_matvec")
 
 
 def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:

@@ -264,6 +264,55 @@ def test_sla_matvecs_without_tenants():
                                        jnp.zeros(0, jnp.int32), 0)).shape == (0,)
 
 
+# tenant list lengths around the CUDA kernel's warp (32 lanes) and past its
+# 128-edge chunk; "all": one tenant holds every edge
+LIST_LENGTHS = [0, 1, 31, 32, 33, 1000, "all"]
+
+
+def _long_list_edges(rng, n, length):
+    """Edges of 4 tenants in random edge order: tenant 1 holds ``length``
+    edges, tenants 0 and 3 a few, tenant 2 none; or tenant 2 holds all 700
+    edges.  Devices repeat within a list."""
+    if length == "all":
+        ten = np.full(700, 2)
+    else:
+        ten = np.concatenate([np.zeros(5), np.ones(length), np.full(3, 3)])
+        ten = ten[rng.permutation(ten.size)]
+    return rng.integers(0, n, ten.size).astype(np.int32), ten.astype(np.int32)
+
+
+@pytest.mark.parametrize("length", LIST_LENGTHS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sla_matvecs_on_long_lists_match_reference(length, dtype):
+    """The warp-per-tenant kernel's cases: empty, short and long tenant
+    lists and one tenant holding every edge.  The plain versions (the CPU
+    path) against the reference's chunked Pallas kernels (interpret mode)
+    and its jnp oracles, and equal bit for bit to the in-order sum of each
+    CSR list that the CUDA kernels compute."""
+    rng = np.random.default_rng(7 if length == "all" else length)
+    n, k = 300, 4
+    dev, ten = _long_list_edges(rng, n, length)
+    x = rng.normal(size=n).astype(dtype)
+    y = rng.normal(size=k).astype(dtype)
+    with enable_x64(dtype == np.float64):
+        jx, jy = jnp.asarray(x, JNP[dtype]), jnp.asarray(y, JNP[dtype])
+        jdev, jten = jnp.asarray(dev), jnp.asarray(ten)
+        jk = j_sla_matvec(jx, jdev, jten, k, edge_block=EDGE_BLOCK)
+        jr = j_sla_matvec_ref(jx, jdev, jten, k)
+        jkt = j_sla_rmatvec(jy, jdev, jten, n, edge_block=EDGE_BLOCK)
+        jrt = j_sla_rmatvec_ref(jy, jdev, jten, n)
+    idx = tk.sla_index(dev, ten, k, n, "cpu")
+    got = tk.sla_matvec(torch.as_tensor(x), idx)
+    _close(got, jk, jr, dtype=dtype)
+    _close(tk.sla_rmatvec(torch.as_tensor(y), idx), jkt, jrt, dtype=dtype)
+    ptr, ids = idx.ten_ptr.numpy(), idx.ten_dev.numpy()
+    ordered = np.zeros(k, dtype)
+    for t in range(k):
+        for d in ids[ptr[t] : ptr[t + 1]]:
+            ordered[t] = ordered[t] + x[d]
+    np.testing.assert_array_equal(got.numpy(), ordered)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_sla_index_csr_reproduces_index_add(seed):
     """The kernels sum each CSR list in its stored order.  Emulated here on
@@ -348,6 +397,30 @@ def test_chunk_stats_match_reference(n, dtype):
     for g, a, b in zip(got_d[1:], jd[1:], jdr[1:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(a), rtol=tol)
         np.testing.assert_allclose(g.numpy(), np.asarray(b), rtol=tol)
+
+
+@pytest.mark.parametrize("cnt", [3.0, 7.0])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chunk_stats_plain_versions_divide_exactly(cnt, dtype):
+    """The average's travel divides the accumulator by ``cnt`` as the CUDA
+    kernels and the reference do, not by a multiply with the reciprocal
+    (what torch's CUDA division by a host number does).  One term per draw,
+    so the sum is the term: equal to numpy's true division bit for bit, on
+    draws where the reciprocal gives other bits."""
+    rng = np.random.default_rng(int(cnt))
+    by_reciprocal_differs = False
+    for _ in range(200):
+        x, px, rx, ax = (rng.normal(size=1).astype(dtype) * dtype(100) for _ in range(4))
+        want_p = ((ax + x) / dtype(cnt) - rx) ** 2
+        want_d = ((ax + x) / dtype(cnt) - px) ** 2
+        recip = ((ax + x) * (dtype(1) / dtype(cnt)) - rx) ** 2
+        by_reciprocal_differs |= bool(recip[0] != want_p[0])
+        got_p = pk.primal_chunk_stats(*(torch.as_tensor(v) for v in (x, px, rx, ax)), cnt)
+        got_d = pk.dual_chunk_stats(*(torch.as_tensor(v) for v in (x, px, ax)), cnt)
+        assert got_p[4].dtype == torch.from_numpy(x).dtype
+        np.testing.assert_array_equal(got_p[4].numpy(), want_p[0])
+        np.testing.assert_array_equal(got_d[2].numpy(), want_d[0])
+    assert by_reciprocal_differs
 
 
 def test_chunk_stats_of_an_empty_vector_are_zero():

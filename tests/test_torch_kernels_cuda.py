@@ -12,7 +12,10 @@ float32; the tree kernels scan in another order than ``torch.cumsum``,
 |d| <= 1e-12 * sum|input| in float64 and 4 unit roundoffs of sum|input| in
 float32 (about 7x the float32 error measured on the H100); past the
 paper's n their rows nest as a tree's do, whose covering-rows index fits
-int32 (rows that overlap at will need up to m x n entries).  The tenant
+int32 (rows that overlap at will need up to m x n entries).  The forward tree sums are one launch (a thread block cluster up to
+16 tiles, a cooperative grid past that) whose adds are those of the
+three-pass scan it replaced: they equal a host emulation of that arithmetic
+bit for bit.  The tenant
 kernels sum each CSR list in edge order: they equal the CPU plain version
 bit for bit.  The chunk statistics' accumulator and maxima are exact; their
 sums are held to 8 unit roundoffs of the sum (all terms are squares).
@@ -278,6 +281,196 @@ def test_sla_kernels_on_the_appendix_b_fleet_are_deterministic(cuda):
     reset_launch_counts()
     assert not tk.sla_matvec(x, empty).any() and not tk.sla_rmatvec(y[:3], empty).any()
     assert launch_counts()["sla_matvec"] == launch_counts()["sla_rmatvec"] == 0
+
+
+# tenant list lengths around a warp (32 lanes) and past the 128-edge chunk
+# of sla_matvec's kernel; "all": one tenant holds every edge
+LIST_LENGTHS = [0, 1, 31, 32, 33, 1000, "all"]
+
+
+def _long_list_edges(rng, n, length):
+    """Edges of 4 tenants in random edge order: tenant 1 holds ``length``
+    edges, tenants 0 and 3 a few, tenant 2 none; or tenant 2 holds all
+    300,000 edges.  Devices repeat within a list."""
+    if length == "all":
+        ten = np.full(300_000, 2)
+    else:
+        ten = np.concatenate([np.zeros(5), np.ones(length), np.full(3, 3)])
+        ten = ten[rng.permutation(ten.size)]
+    return rng.integers(0, n, ten.size), ten.astype(np.int64)
+
+
+@pytest.mark.parametrize("length", LIST_LENGTHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sla_matvec_long_lists_equal_the_cpu_plain_version(cuda, length, dtype):
+    """The warp-per-tenant kernel adds each list in edge order, chunk after
+    chunk with the carry: the CPU plain version's bits, at every length."""
+    rng = np.random.default_rng(7 if length == "all" else length)
+    n = 12_288
+    dev, ten = _long_list_edges(rng, n, length)
+    idx = tk.sla_index(dev, ten, 4, n, cuda)
+    x = _vec(rng, n, dtype, cuda, 1.0)
+    got = tk.sla_matvec(x, idx)
+    want = tref.sla_matvec_ref(x.cpu(), idx.dev.long().cpu(), idx.ten.long().cpu(), 4)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tk.sla_matvec(x, idx), got)
+
+
+def _device_kernels(fn, calls):
+    """Kernels the card ran during ``calls`` calls of ``fn``, by
+    torch.profiler's CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _redesigned(cuda):
+    """tree_matvec on the paper fleet and sla_matvec on its Appendix B
+    tenants, each as (name, call, input it reads)."""
+    from repro_torch.pdn.tenants import appendix_b_layout
+
+    pdn = build_datacenter()
+    idx = tk.tree_index(pdn.node_start, pdn.node_end, pdn.n, cuda)
+    sla = appendix_b_layout(pdn, seed=0).sla_topo(device=cuda)
+    x = _vec(np.random.default_rng(9), pdn.n, torch.float64, cuda)
+    return [
+        ("tree_matvec", lambda: tk.tree_matvec(x, idx), x),
+        ("sla_matvec", lambda: tk.sla_matvec(x, sla.index), x),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_redesigned_kernels_are_one_device_launch_per_call(cuda, which):
+    """LAUNCHES counts wrapper calls; the profiler counts what the card ran:
+    one kernel per call, nothing else (no memset, no copy)."""
+    name, fn, _ = _redesigned(cuda)[which]
+    reset_launch_counts()
+    ran = _device_kernels(fn, 5)
+    assert len(ran) == 5, ran
+    assert launch_counts()[name] == 6
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_redesigned_kernels_repeat_their_bits_and_replay_in_a_graph(cuda, which):
+    """The same bits on every launch and from a CUDA graph replay, also after
+    the graph's input changes in place."""
+    _, fn, x = _redesigned(cuda)[which]
+    first = fn()
+    for _ in range(5):
+        assert torch.equal(fn(), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    x.mul_(-0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn())
+    x.mul_(-2.0)
+
+
+def _block_scan(v):
+    """The kernel's block scan of [B, 256] values: Hillis-Steele shuffles in
+    each warp, then warp 0's scan of the 8 warp totals.  Returns the
+    exclusive scans and the block totals."""
+    w = v.reshape(v.shape[0], 8, 32).copy()
+    for d in (1, 2, 4, 8, 16):
+        w[..., d:] = w[..., d:] + w[..., :-d].copy()
+    excl = np.concatenate([np.zeros_like(w[..., :1]), w[..., :-1]], axis=-1)
+    wt = w[..., 31].copy()
+    for d in (1, 2, 4):
+        wt[:, d:] = wt[:, d:] + wt[:, :-d].copy()
+    we = np.concatenate([np.zeros_like(wt[:, :1]), wt[:, :-1]], axis=-1)
+    return (excl + we[..., None]).reshape(v.shape), wt[:, 7]
+
+
+def _emulated_tree_matvec(x, start, end):
+    """tree_matvec's arithmetic on the host, add for add: tiles of 256
+    threads x 4 items, the block scan, tile offsets scanned 256 at a time
+    with a carry, the offset added at the gather."""
+    n = x.size
+    nb = -(-n // 1024)
+    xp = np.zeros(nb * 1024, x.dtype)
+    xp[:n] = x
+    run = xp.reshape(nb, 256, 4).copy()
+    for i in range(1, 4):
+        run[..., i] = run[..., i - 1] + run[..., i]
+    off, totals = _block_scan(run[..., 3])
+    local = (off[..., None] + run).reshape(-1)
+    offsets = np.zeros(nb, x.dtype)
+    carry = x.dtype.type(0)
+    for b0 in range(0, nb, 256):
+        chunk = np.zeros(256, x.dtype)
+        chunk[: min(256, nb - b0)] = totals[b0 : b0 + 256]
+        excl, total = _block_scan(chunk[None])
+        offsets[b0 : b0 + 256] = (carry + excl[0])[: min(256, nb - b0)]
+        carry = carry + total[0]
+
+    def csum(p):
+        q = np.maximum(p - 1, 0)
+        return np.where(p > 0, local[q] + offsets[q // 1024], x.dtype.type(0))
+
+    return csum(end) - csum(start)
+
+
+@pytest.mark.parametrize(
+    "n", [1, 1025, 12_288, "one_cluster", "past_one_cluster", 1_000_003, 2_162_689]
+)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tree_matvec_keeps_the_three_pass_bits(cuda, n, dtype):
+    """One launch, the arithmetic of the three launches it replaced: equal
+    bit for bit to their host emulation, on both sides of the one-cluster
+    path's last size (a thread block cluster, then a cooperative grid)."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    n = {
+        "one_cluster": lib.tree_cluster_tiles() * lib.tree_scan_tile(),
+        "past_one_cluster": lib.tree_cluster_tiles() * lib.tree_scan_tile() + 1,
+    }.get(n, n)
+    rng = np.random.default_rng(n + 5)
+    s, e = _rows(rng, n)
+    idx = tk.tree_index(s, e, n, cuda)
+    x = _vec(rng, n, dtype, cuda, 1.0)
+    reset_launch_counts()
+    got = tk.tree_matvec(x, idx)
+    assert launch_counts()["tree_matvec"] == 1
+    want = _emulated_tree_matvec(x.cpu().numpy(), s.astype(np.int64), e.astype(np.int64))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    _assert_within(got, tref.tree_matvec_ref(x, idx.start.long(), idx.end.long()),
+                   TREE_TOL[dtype] * float(x.abs().sum()))
+
+
+def test_float32_chunk_stats_at_one_element_over_many_seeds(cuda):
+    """One term per sum, where a rounding of the division shows undamped:
+    the kernels and the plain versions both divide by cnt, within
+    STATS_TOL on every draw."""
+    tol = STATS_TOL[torch.float32]
+    for seed in range(200):
+        rng = np.random.default_rng(seed)
+        x, px, rx, ax = (_vec(rng, 1, torch.float32, cuda) for _ in range(4))
+        for cnt in (3.0, 7.0):
+            for fn, ref, args in (
+                (pk.primal_chunk_stats, pref.primal_chunk_stats_ref, (x, px, rx, ax)),
+                (pk.dual_chunk_stats, pref.dual_chunk_stats_ref, (x, px, rx)),
+            ):
+                got, want = fn(*args, cnt), ref(*args, cnt)
+                for g, r in zip(got[-3:], want[-3:]):
+                    _assert_within(g, r, tol * float(r))
 
 
 @pytest.mark.parametrize("n", SIZES)
