@@ -5,7 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py                 # exits non-zero on any failure
     python3 chip_smoke.py --profile       # also profiles a warm control step, a cold tenant step,
-                                          # a prefill and a decode step (launches per step)
+                                          # a qwen3-4b prefill and decode step and a
+                                          # stablelm-12b prefill (launches per step)
     python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
     python3 chip_smoke.py --out DIR       # where the details go
 
@@ -52,21 +53,29 @@ Phases, each of which raises on failure:
    on the card), see :func:`serving_phase`: (a) parameters and peak memory;
    (b) the flash-attention kernels against their plain version at the
    serving shape (layer 0's q/k/v of a 4 x 2,048-token prompt), at edge
-   shapes and on views of a packed projection: the one the wrapper picks,
-   and the mma.sync kernel too wherever that is the Hopper kernel;
+   shapes (head dims 32, 64, 128 and 160) and on views of a packed
+   projection: the one the wrapper picks, and the mma.sync kernel too
+   wherever that is the Hopper kernel;
    (c) ``make_serve_steps`` prefill of that prompt through the Hopper kernel
    (36 launches, no other flash kernel) and through the plain blocked scan
-   (``flash_vjp=False``), logits and KV caches held against each other;
+   (``flash_vjp=False``), logits and KV caches held against each other
+   (:func:`prefill_against_plain`);
    (d) the reduced config in float32 on the card (the float32 kernel)
-   against the CPU (plain version), and in bf16 (head_dim 32: the mma.sync
+   against the CPU (plain version), and in bf16 (head_dim 32: the Hopper
    kernel) against the card's plain blocked scan; (e) token by token decode
    against the prefill, 4 layers, one 1,152-token request; (f) the launcher
    ``repro_torch.launch.serve.run`` twice with ``--cap 450`` (same greedy
    tokens; it prefills token by token and so runs no flash-attention
-   kernel); (g) the kernels' times beside their plain version's, their
-   bound and ``scaled_dot_product_attention``'s: plain, Hopper, mma.sync,
-   Hopper, mma.sync, plain at the serving shape, the float32 kernel at
-   (e)'s float32 prefill shape.
+   kernel); (h) stablelm-12b at full width (40 layers, d_model 5,120, 32
+   heads / 8 KV of head_dim 160, 12.1 B parameters, 48.6 GB in float32; a
+   peak of about 55 GB), see :func:`stablelm_phase`: its build, layer 0's
+   q/k/v through the Hopper kernel against the plain version, and the
+   4 x 2,048-token prefill (40 ``flash_attention_wgmma`` launches) against
+   the plain blocked scan at (c)'s bars; (g) the kernels' times beside
+   their plain version's, their bound and ``scaled_dot_product_attention``'s:
+   plain, Hopper, mma.sync, Hopper, mma.sync, plain at both serving shapes
+   (qwen3-4b's dh 128, stablelm-12b's dh 160), the float32 kernel at (e)'s
+   float32 prefill shape.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -179,6 +188,7 @@ FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_mma", "flash_attentio
 # logit; 1.6e-2 measured on the H100 at the serving shape with N(0, 1)
 # inputs).
 SERVE_ARCH = "qwen3-4b"
+STABLELM_ARCH = "stablelm-12b"  # phase 8h: head dim 160 at full width
 SERVE_B, SERVE_S = 4, 2_048  # the serving prefill: 4 requests of 2,048 tokens
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2.0**-5}
 FLASH_TOL_VS_F32 = 2.0**-7
@@ -191,9 +201,21 @@ FLASH_EDGES = [
     (2, 1_000, 1_000, 16, 4, 64, True, torch.bfloat16),  # dh = 64
     (2, 1_537, 1_000, 32, 8, 128, False, torch.bfloat16),  # non-causal
     (2, 192, 192, 4, 2, 32, True, torch.bfloat16),  # the reduced configs' head_dim
+    (2, 1_000, 300, 8, 2, 32, True, torch.bfloat16),  # dh = 32, Sq > Sk
+    # stablelm-12b's head_dim 160 (the Hopper kernel's 64-byte swizzle path)
+    (2, 300, 1_000, 32, 8, 160, True, torch.bfloat16),  # Sq < Sk
+    (2, 1_000, 300, 32, 8, 160, True, torch.bfloat16),  # Sq > Sk: 700 rows see no key
+    (2, 1_000, 1_537, 32, 8, 160, True, torch.bfloat16),  # ragged tiles
+    (2, 1_537, 1_537, 32, 1, 160, True, torch.bfloat16),  # MQA
+    (2, 1_537, 1_000, 32, 8, 160, False, torch.bfloat16),  # non-causal
     (2, 1_000, 1_537, 32, 8, 128, True, torch.float32),
     (2, 1_537, 1_000, 16, 4, 64, False, torch.float32),
     (2, 192, 192, 4, 2, 32, True, torch.float32),
+    (2, 300, 1_000, 32, 8, 160, True, torch.float32),  # Sq < Sk
+    (2, 1_000, 300, 32, 8, 160, True, torch.float32),  # Sq > Sk
+    (2, 1_000, 1_537, 32, 8, 160, True, torch.float32),  # ragged tiles
+    (2, 1_537, 1_537, 32, 1, 160, True, torch.float32),  # MQA
+    (2, 1_537, 1_000, 32, 8, 160, False, torch.float32),  # non-causal
 ]
 # reduced qwen3-4b in float32, prefill logits, card (kernel) vs CPU (plain
 # version): about 5x the reference's own blocked-vs-plain gap (3.7e-6)
@@ -411,7 +433,7 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--profile", action="store_true",
-        help="profile a warm control step, a cold tenant step, a prefill and a decode step"
+        help="profile a warm control step, a cold tenant step, prefills and a decode step"
     )
     parser.add_argument(
         "--warm-tenants",
@@ -1129,6 +1151,72 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def prefill_against_plain(tag, cfg, params, tokens):
+    """Phases 8c and 8h-c: ``make_serve_steps`` prefill of ``tokens``
+    through the Hopper kernel (one ``flash_attention_wgmma`` launch per
+    layer, no other kernel of the port) and through the plain blocked scan
+    (``flash_vjp=False``) on the same weights: where the top-2 margin
+    exceeds twice the logits' gap the greedy tokens agree, each layer's K/V
+    caches are within ``PATH_TOL`` in relative Frobenius norm and layer 0's
+    are identical.  Returns (report, the kernel's launches)."""
+    B, S = tokens.shape
+    prefill, _ = make_serve_steps(cfg, build(cfg))
+    batch = {"tokens": tokens}
+    prefill(params, batch)  # warm-up: cuBLAS handles, the caching allocator
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (logits, caches), wall = _timed(lambda: prefill(params, batch))
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if (launches["flash_attention_wgmma"] != cfg.n_layers
+            or any(launches[k] for k in ALLOCATOR_KERNELS + FLASH_KERNELS[1:])):
+        raise AssertionError(
+            f"[{tag}] prefill launched {launches}, not {cfg.n_layers} flash_attention_wgmma")
+    if logits.shape != (B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[{tag}] prefill logits {tuple(logits.shape)}, finite {torch.isfinite(logits).all()}")
+    plain_cfg = dataclasses.replace(cfg, flash_vjp=False)
+    plain_prefill, _ = make_serve_steps(plain_cfg, build(plain_cfg))
+    kernels.reset_launch_counts()
+    (logits_p, caches_p), wall_p = _timed(lambda: plain_prefill(params, batch))
+    if any(kernels.launch_counts()[k] for k in FLASH_KERNELS):
+        raise AssertionError(f"[{tag}] the plain blocked prefill launched a flash kernel")
+    gap = float((logits - logits_p).abs().max())
+    top = logits[:, 0].topk(2, dim=-1).values
+    same_top1 = logits.argmax(-1) == logits_p.argmax(-1)
+    # where the top-2 margin exceeds twice the gap, the greedy token must agree
+    decided = (top[:, 0] - top[:, 1]) > 2 * gap
+    if not bool(same_top1[:, 0][decided].all()):
+        raise AssertionError(f"[{tag}] greedy tokens differ where the margin exceeds 2x the gap {gap:.3e}")
+    cache_rel, cache_gap = [], 0.0
+    for layer, (c, cp) in enumerate(zip(caches, caches_p)):
+        for name_, a, b in (("k", c.k, cp.k), ("v", c.v, cp.v)):
+            if layer == 0 and not torch.equal(a, b):
+                raise AssertionError(f"[{tag}] layer 0's {name_} cache differs (same input, same projection)")
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            if not rel <= PATH_TOL:
+                raise AssertionError(f"[{tag}] layer {layer} {name_} cache: relative |d| {rel:.3e} > {PATH_TOL:.3e}")
+            cache_rel.append(rel)
+            cache_gap = max(cache_gap, float((a.float() - b.float()).abs().max()))
+    report = {
+        "arch": cfg.name, "batch": B, "seq": S, "wall_ms": wall * 1e3, "tokens_per_s": B * S / wall,
+        "peak_gb": peak, "launches": launches["flash_attention_wgmma"],
+        "plain_blocked_wall_ms": wall_p * 1e3, "logit_gap": gap,
+        "logit_scale": float(logits.abs().max()), "top1_agree": float(same_top1.float().mean()),
+        "top1_decided": int(decided.sum()), "cache_gap": cache_gap,
+        "cache_rel_by_layer": cache_rel,  # k, v of layer 0, then of layer 1, ...
+        "logit_rel": float((logits - logits_p).norm() / logits_p.norm()),
+    }
+    log(f"[{tag}] {cfg.name} prefill B={B} S={S}: {wall * 1e3:.1f} ms "
+        f"({B * S / wall:,.0f} tokens/s), {launches['flash_attention_wgmma']} "
+        f"flash_attention_wgmma launches (no other flash kernel), peak device memory {peak:.2f} GB; plain blocked scan {wall_p * 1e3:.1f} ms; "
+        f"last-position logits gap {gap:.3e} (scale {report['logit_scale']:.2f}), top-1 "
+        f"agreement {int(same_top1.sum())}/{B} ({int(decided.sum())} decided by the margin); "
+        f"KV caches: layer 0 identical, relative |d| per layer at most {max(cache_rel):.3e} "
+        f"(limit {PATH_TOL:.3e}; layer {cfg.n_layers - 1}: k {cache_rel[-2]:.3e}, v "
+        f"{cache_rel[-1]:.3e}), largest elementwise |d| {cache_gap:.3e}")
+    return report, launches["flash_attention_wgmma"]
+
+
 def serving_phase(cuda, smi, profile: bool = False):
     """Phase 8: the data plane's serving path on qwen3-4b at full width.
     Returns (the ``kernels`` line's flash-attention entries, report).  With
@@ -1172,73 +1260,22 @@ def serving_phase(cuda, smi, profile: bool = False):
             for S, n in ((Sq, H), (Sk, KV), (Sk, KV))
         )
         rows += check_flash("edge", qe, ke, ve, causal)
-    # q, k and v as views of one packed [B, S, H + 2 KV, dh] projection
+    # q, k and v as views of one packed [B, S, H + 2 KV, dh] projection, at
+    # qwen3-4b's and stablelm-12b's head dims
     B, S, H, KV = 2, 1_000, 32, 8
-    packed = torch.randn(B, S, H + 2 * KV, 128, generator=gen, device=cuda).bfloat16()
-    qe, ke, ve = packed[:, :, :H], packed[:, :, H : H + KV], packed[:, :, H + KV :]
-    rows += check_flash("packed qkv views", qe, ke, ve, True)
+    for dh in (128, 160):
+        packed = torch.randn(B, S, H + 2 * KV, dh, generator=gen, device=cuda).bfloat16()
+        qe, ke, ve = packed[:, :, :H], packed[:, :, H : H + KV], packed[:, :, H + KV :]
+        rows += check_flash("packed qkv views", qe, ke, ve, True)
     del qe, ke, ve, packed
-    report["flash_checks"] = rows
-    serving_err = {r["kernel"]: r["max_abs"] for r in rows if r["tag"] == "serving shape"}
     # the float32 kernel's largest |d| over its shapes (the serving shape is bf16)
     f32_err = max(r["max_abs"] for r in rows if r["kernel"] == "flash_attention_f32")
 
     # (c) the prefill of the serving prompt, through the kernel and through
     # the plain blocked scan (flash_vjp=False), on the same weights
-    batch = {"tokens": tokens}
-    prefill(params, batch)  # warm-up: cuBLAS handles, the caching allocator
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    (logits, caches), wall = _timed(lambda: prefill(params, batch))
-    launches = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    if (launches["flash_attention_wgmma"] != cfg.n_layers
-            or any(launches[k] for k in ALLOCATOR_KERNELS + FLASH_KERNELS[1:])):
-        raise AssertionError(
-            f"[8c] prefill launched {launches}, not {cfg.n_layers} flash_attention_wgmma")
-    if logits.shape != (SERVE_B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"[8c] prefill logits {tuple(logits.shape)}, finite {torch.isfinite(logits).all()}")
-    plain_cfg = dataclasses.replace(cfg, flash_vjp=False)
-    plain_prefill, _ = make_serve_steps(plain_cfg, build(plain_cfg))
-    kernels.reset_launch_counts()
-    (logits_p, caches_p), wall_p = _timed(lambda: plain_prefill(params, batch))
-    if any(kernels.launch_counts()[k] for k in FLASH_KERNELS):
-        raise AssertionError("[8c] the plain blocked prefill launched a flash kernel")
-    gap = float((logits - logits_p).abs().max())
-    top = logits[:, 0].topk(2, dim=-1).values
-    same_top1 = logits.argmax(-1) == logits_p.argmax(-1)
-    # where the top-2 margin exceeds twice the gap, the greedy token must agree
-    decided = (top[:, 0] - top[:, 1]) > 2 * gap
-    if not bool(same_top1[:, 0][decided].all()):
-        raise AssertionError(f"[8c] greedy tokens differ where the margin exceeds 2x the gap {gap:.3e}")
-    cache_rel, cache_gap = [], 0.0
-    for layer, (c, cp) in enumerate(zip(caches, caches_p)):
-        for name_, a, b in (("k", c.k, cp.k), ("v", c.v, cp.v)):
-            if layer == 0 and not torch.equal(a, b):
-                raise AssertionError(f"[8c] layer 0's {name_} cache differs (same input, same projection)")
-            rel = float((a.float() - b.float()).norm() / b.float().norm())
-            if not rel <= PATH_TOL:
-                raise AssertionError(f"[8c] layer {layer} {name_} cache: relative |d| {rel:.3e} > {PATH_TOL:.3e}")
-            cache_rel.append(rel)
-            cache_gap = max(cache_gap, float((a.float() - b.float()).abs().max()))
-    report["prefill"] = {
-        "batch": SERVE_B, "seq": SERVE_S, "wall_ms": wall * 1e3, "tokens_per_s": SERVE_B * SERVE_S / wall,
-        "peak_gb": peak, "launches": launches["flash_attention_wgmma"],
-        "plain_blocked_wall_ms": wall_p * 1e3, "logit_gap": gap,
-        "logit_scale": float(logits.abs().max()), "top1_agree": float(same_top1.float().mean()),
-        "top1_decided": int(decided.sum()), "cache_gap": cache_gap,
-        "cache_rel_by_layer": cache_rel,  # k, v of layer 0, then of layer 1, ...
-        "logit_rel": float((logits - logits_p).norm() / logits_p.norm()),
-    }
-    log(f"[8c] prefill B={SERVE_B} S={SERVE_S}: {wall * 1e3:.1f} ms "
-        f"({SERVE_B * SERVE_S / wall:,.0f} tokens/s), {launches['flash_attention_wgmma']} "
-        f"flash_attention_wgmma launches (no other flash kernel), peak device memory {peak:.2f} GB; plain blocked scan {wall_p * 1e3:.1f} ms; "
-        f"last-position logits gap {gap:.3e} (scale {report['prefill']['logit_scale']:.2f}), top-1 "
-        f"agreement {int(same_top1.sum())}/{SERVE_B} ({int(decided.sum())} decided by the margin); "
-        f"KV caches: layer 0 identical, relative |d| per layer at most {max(cache_rel):.3e} "
-        f"(limit {PATH_TOL:.3e}; layer {cfg.n_layers - 1}: k {cache_rel[-2]:.3e}, v "
-        f"{cache_rel[-1]:.3e}), largest elementwise |d| {cache_gap:.3e}")
+    report["prefill"], launches = prefill_against_plain("8c", cfg, params, tokens)
     if profile:
+        batch = {"tokens": tokens}
         report["profile_prefill"] = profiled(f"one prefill B={SERVE_B} S={SERVE_S}",
                                              lambda: prefill(params, batch))
         step_caches = api.init_decode_cache(SERVE_B, 48, cuda)
@@ -1246,7 +1283,7 @@ def serving_phase(cuda, smi, profile: bool = False):
         report["profile_decode"] = profiled(f"one decode step B={SERVE_B}",
                                             lambda: api.decode_step(params, step_caches, step_tokens, 0))
         del step_caches
-    del logits_p, caches_p, caches, params
+    del params
 
     # (d) reduced, float32: the card (kernel) against the CPU (plain version)
     small = get_arch(SERVE_ARCH).reduced()
@@ -1274,23 +1311,24 @@ def serving_phase(cuda, smi, profile: bool = False):
         f"(flash_attention_f32, {small_launches} launches) vs CPU (plain) logits and caches max |d| "
         f"{small_gap:.3e} (limit {CARD_CPU_TOL}; logits scale "
         f"{report['card_vs_cpu']['logit_scale']:.2f})")
-    # the same in bf16 compute: head_dim 32 goes to the mma.sync kernel; held
-    # to the card's plain blocked scan (flash_vjp=False) as 8c is
+    # the same in bf16 compute: head_dim 32 goes to the Hopper kernel (its
+    # 64-byte swizzle path); held to the card's plain blocked scan
+    # (flash_vjp=False) as 8c is
     bsmall = dataclasses.replace(small, compute_dtype=torch.bfloat16)
     kernels.reset_launch_counts()
     b_logits, _ = build(bsmall).prefill(sparams, stoks.to(cuda))
-    mma_counts = kernels.launch_counts()
-    mma_launches = mma_counts["flash_attention_mma"]
+    b_counts = kernels.launch_counts()
+    b_launches = b_counts["flash_attention_wgmma"]
     kernels.reset_launch_counts()
     bp_logits, _ = build(dataclasses.replace(bsmall, flash_vjp=False)).prefill(sparams, stoks.to(cuda))
     b_rel = float((b_logits.float() - bp_logits.float()).norm() / bp_logits.float().norm())
-    if (mma_launches != small.n_layers or mma_counts["flash_attention_wgmma"]
+    if (b_launches != small.n_layers or any(b_counts[k] for k in FLASH_KERNELS[1:])
             or any(kernels.launch_counts()[k] for k in FLASH_KERNELS) or not b_rel <= PATH_TOL):
         raise AssertionError(f"[8d] bf16: kernel vs plain blocked scan relative |d| {b_rel:.3e} "
-                             f"(limit {PATH_TOL:.3e}), launches {mma_counts}")
+                             f"(limit {PATH_TOL:.3e}), launches {b_counts}")
     report["reduced_bf16"] = {"arch": small.name, "seq": 192, "logit_rel": b_rel,
-                              "launches": mma_launches}
-    log(f"[8d] {small.name} bf16 compute: prefill through flash_attention_mma ({mma_launches} "
+                              "launches": b_launches}
+    log(f"[8d] {small.name} bf16 compute: prefill through flash_attention_wgmma ({b_launches} "
         f"launches, head_dim {small.head_dim}) vs the plain blocked scan on the card, logits "
         f"relative |d| {b_rel:.3e} (limit {PATH_TOL:.3e})")
     del sparams
@@ -1357,19 +1395,38 @@ def serving_phase(cuda, smi, profile: bool = False):
     report["launcher"] = {"argv": argv, "runs": runs}
     log(f"[8f] both runs: the same {len(runs[0]['tokens'])} x {len(runs[0]['tokens'][0])} greedy tokens")
 
-    # (g) the kernels' times: both bf16 kernels at the serving shape, the
-    # float32 kernel at 8e's float32 prefill shape
+    # (h) stablelm-12b at full width: head dim 160 on the Hopper kernel
+    big = stablelm_phase(cuda, profile)
+    report["stablelm"] = big["report"]
+    rows += big["rows"]
+    report["flash_checks"] = rows
+
+    # (g) the kernels' times: both bf16 kernels at the two serving shapes
+    # (qwen3-4b's dh 128, stablelm-12b's dh 160), the float32 kernel at 8e's
+    # float32 prefill shape
     source = {
         "flash_attention_wgmma": "src/repro_torch/kernels/csrc/flash_attention_hopper.cu",
         "flash_attention_mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "flash_attention_f32": "src/repro_torch/kernels/csrc/flash_attention.cu",
     }
-    # launches on each kernel's own path: the serving prefill (8c), the
-    # reduced prefill in bf16 (8d, head_dim 32) and in float32 (8d)
+    # launches on each kernel's own path: the serving prefills (8c, 8h-c)
+    # and the reduced float32 prefill (8d); no main-path input reaches the
+    # mma.sync kernel since every bf16 head dim has the Hopper kernel
     path_launches = {
-        "flash_attention_wgmma": (launches["flash_attention_wgmma"], "8c serving prefill"),
-        "flash_attention_mma": (mma_launches, "8d reduced prefill, bf16"),
+        "flash_attention_wgmma": (
+            launches + big["launches"],
+            f"8c qwen3-4b prefill {launches} + 8h-c stablelm-12b prefill {big['launches']}"),
+        "flash_attention_mma": (
+            0, "no main-path input: it takes only bf16 inputs no tensor map can read (a strided "
+               "head dim, strides or base not in 16-byte steps, heads outside sequence); 8b runs "
+               "it through its private entry beside the Hopper kernel"),
         "flash_attention_f32": (small_launches, "8d reduced prefill, float32"),
+    }
+    # the bf16 kernels' largest |d| over both serving shapes (8b, 8h-b)
+    serving_err = {
+        name_: max(r["max_abs"] for r in rows if r["kernel"] == name_
+                   and r["tag"] in ("serving shape", f"{STABLELM_ARCH} serving shape"))
+        for name_ in FLASH_KERNELS[:2]
     }
     max_err = {**serving_err, "flash_attention_f32": f32_err}
     entries, report["timing"] = [], {}
@@ -1381,54 +1438,75 @@ def serving_phase(cuda, smi, profile: bool = False):
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
         return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
-    def sdpa_of(q_, k_, v_):
-        qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True
-        )
-
-    def entry(name_, ms, plain_ms, lib_ms, paced_ms, plain_paced_ms, bound_ms, bound_by):
+    def entry(name_, ms, plain_ms, lib_ms, paced_ms, plain_paced_ms, bound_ms, bound_by, **extra):
         n_launch, where = path_launches[name_]
         return {
             "name": name_, "route": "cuda", "source": source[name_],
             "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
             "launches": n_launch, "launches_path": where, "max_abs_err": max_err[name_],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "paced_ms": paced_ms, "plain_paced_ms": plain_paced_ms,
+            "library_ms": lib_ms, "paced_ms": paced_ms, "plain_paced_ms": plain_paced_ms, **extra,
         }
 
-    (B, Sq, H, dh), KV = q.shape, k.shape[2]
-    flops, nbytes, bound_ms, bound_by = attention_bound(q, k, "bfloat16")
-    sdpa = sdpa_of(q, k, v)
-    # the yardstick computes the same function: both within 2^-7 of float32
-    sdpa_err = _row_err(sdpa().transpose(1, 2), fk.flash_attention(q, k, v))
-    if not sdpa_err <= 2 * FLASH_TOL_VS_F32:
-        raise AssertionError(f"[8g] scaled_dot_product_attention disagrees with the kernel: {sdpa_err:.3e}")
-    calls = {
-        "plain": lambda: attention_ref(q, k, v),
-        "flash_attention_wgmma": lambda: fk.flash_attention(q, k, v),
-        "flash_attention_mma": lambda: fk._flash_attention_mma(q, k, v),
-    }
-    # plain, Hopper, mma.sync, Hopper, mma.sync, plain: the later of each pair is kept
-    times = {}
-    for name_ in ("plain", "flash_attention_wgmma", "flash_attention_mma",
-                  "flash_attention_wgmma", "flash_attention_mma", "plain"):
-        times[name_] = time_calls(calls[name_])
-    lib_ms = time_calls(sdpa)[0]
-    plain_ms, plain_paced = times["plain"]
-    log(f"[8g] B={B} Sq=Sk={Sq} H={H} KV={KV} dh={dh} bf16 causal on {smi}: plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {flops:.3e} flops, {nbytes / 1e6:.1f} MB)")
-    for name_ in ("flash_attention_wgmma", "flash_attention_mma"):
-        ms, paced = times[name_]
-        log(f"[8g]   {name_}: {ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s useful), "
-            f"/ SDPA {ms / lib_ms:.2f}, / bound {ms / bound_ms:.2f}; on {smi}")
-        entries.append(entry(name_, ms, plain_ms, lib_ms, paced, plain_paced, bound_ms, bound_by))
-    if not times["flash_attention_wgmma"][0] < times["flash_attention_mma"][0]:
-        raise AssertionError("[8g] the Hopper kernel is not faster than the mma.sync kernel")
-    report["timing"]["serving"] = {"flops": flops, "bytes": nbytes, "sdpa_rel_err": sdpa_err,
-                                   "ms": {k_: t[0] for k_, t in times.items()}, "sdpa_ms": lib_ms}
+    def sdpa_of(q_, k_, v_):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True
+        )
 
+    def time_bf16(tag, q_, k_, v_):
+        """plain, Hopper, mma.sync, Hopper, mma.sync, plain (the later of each
+        pair is kept) and SDPA at one bf16 serving shape; the Hopper kernel
+        must beat the mma.sync kernel"""
+        (B_, Sq_, H_, dh_), KV_ = q_.shape, k_.shape[2]
+        flops, nbytes, bound_ms, bound_by = attention_bound(q_, k_, "bfloat16")
+        sdpa = sdpa_of(q_, k_, v_)
+        # the yardstick computes the same function: both within 2^-7 of float32
+        sdpa_err = _row_err(sdpa().transpose(1, 2), fk.flash_attention(q_, k_, v_))
+        if not sdpa_err <= 2 * FLASH_TOL_VS_F32:
+            raise AssertionError(f"[8g] scaled_dot_product_attention disagrees with the kernel: {sdpa_err:.3e}")
+        calls = {
+            "plain": lambda: attention_ref(q_, k_, v_),
+            "flash_attention_wgmma": lambda: fk.flash_attention(q_, k_, v_),
+            "flash_attention_mma": lambda: fk._flash_attention_mma(q_, k_, v_),
+        }
+        times = {}
+        for name_ in ("plain", "flash_attention_wgmma", "flash_attention_mma",
+                      "flash_attention_wgmma", "flash_attention_mma", "plain"):
+            times[name_] = time_calls(calls[name_])
+        lib_ms = time_calls(sdpa)[0]
+        log(f"[8g] {tag}: B={B_} Sq=Sk={Sq_} H={H_} KV={KV_} dh={dh_} bf16 causal on {smi}: plain "
+            f"{times['plain'][0]:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, {nbytes / 1e6:.1f} MB)")
+        for name_ in ("flash_attention_wgmma", "flash_attention_mma"):
+            ms = times[name_][0]
+            log(f"[8g]   {name_}: {ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s useful), "
+                f"/ SDPA {ms / lib_ms:.2f}, / bound {ms / bound_ms:.2f}; on {smi}")
+        if not times["flash_attention_wgmma"][0] < times["flash_attention_mma"][0]:
+            raise AssertionError(f"[8g] {tag}: the Hopper kernel is not faster than the mma.sync kernel")
+        return {"shape": tag, "B": B_, "Sq": Sq_, "H": H_, "KV": KV_, "dh": dh_, "flops": flops,
+                "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by, "sdpa_ms": lib_ms,
+                "sdpa_rel_err": sdpa_err, "ms": {k_: t[0] for k_, t in times.items()},
+                "paced_ms": {k_: t[1] for k_, t in times.items()}}
+
+    shapes = [time_bf16(f"{SERVE_ARCH} serving shape", q, k, v),
+              time_bf16(f"{STABLELM_ARCH} serving shape", *big["qkv"])]
+    report["timing"]["serving"] = shapes[0]
+    report["timing"]["stablelm"] = shapes[1]
+    del big
+    for name_ in ("flash_attention_wgmma", "flash_attention_mma"):
+        # the qwen3-4b shape's numbers at the top level, each shape's in by_shape
+        t = shapes[0]
+        entries.append(entry(
+            name_, t["ms"][name_], t["ms"]["plain"], t["sdpa_ms"], t["paced_ms"][name_],
+            t["paced_ms"]["plain"], t["bound_ms"], t["bound_by"],
+            by_shape=[{"shape": sh["shape"], "dh": sh["dh"], "ms": sh["ms"][name_],
+                       "plain_ms": sh["ms"]["plain"], "bound_ms": sh["bound_ms"],
+                       "bound_by": sh["bound_by"], "library_ms": sh["sdpa_ms"],
+                       "tflops": sh["flops"] / sh["ms"][name_] / 1e9} for sh in shapes],
+        ))
+
+    (B, Sq, H, dh), KV = q.shape, k.shape[2]
     gen = torch.Generator(device=cuda).manual_seed(3)
     q32, k32, v32 = (
         torch.randn(1, DECODE_S, n, dh, generator=gen, device=cuda) for n in (H, KV, KV)
@@ -1442,13 +1520,65 @@ def serving_phase(cuda, smi, profile: bool = False):
     lib_ms = time_calls(sdpa_of(q32, k32, v32))[0]
     log(f"[8g] B=1 Sq=Sk={DECODE_S} H={H} KV={KV} dh={dh} float32 causal on {smi}: "
         f"flash_attention_f32 {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"float32 outside the tensor cores)")
+        f"scaled_dot_product_attention {lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.2f}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}, float32 outside the tensor cores)")
     entries.append(entry("flash_attention_f32", ms, plain_ms, lib_ms, paced, plain_paced,
                          bound_ms, bound_by))
     report["timing"]["float32"] = {"flops": flops, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
                                    "sdpa_ms": lib_ms}
     return entries, report
+
+
+def stablelm_phase(cuda, profile: bool = False) -> dict:
+    """Phase 8h: stablelm-12b (40 layers, d_model 5,120, 32 heads / 8 KV of
+    160, d_ff 13,824, vocab 100,352) at full width, weights from a seeded
+    generator on the card: (a) the build, its time and peak memory; (b)
+    layer 0's q/k/v of a 4 x 2,048-token prompt go to the Hopper kernel and
+    are held to the plain version (``check_flash``); (c) the prefill through
+    the kernel (40 ``flash_attention_wgmma`` launches, nothing else of the
+    port) against the plain blocked scan, at 8c's bars; with ``profile``, a
+    torch.profiler breakdown of one prefill.  Returns the report, the 8b
+    rows, the prefill's launches and (b)'s q/k/v for 8g's timing."""
+    cfg = get_arch(STABLELM_ARCH)
+    api = build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = _timed(lambda: api.init(torch.Generator(device=cuda).manual_seed(0), cuda))
+    n_params = sum(p.numel() for p in params.parameters())
+    report = {"model": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+        "params": n_params, "init_s": init_s,
+        "peak_gb_after_build": torch.cuda.max_memory_allocated() / 1e9,
+    }}
+    log(f"[8h-a] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads (kv {cfg.n_kv}) of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params:,} parameters ({4 * n_params / 1e9:.2f} GB float32), built in "
+        f"{init_s:.2f} s; peak device memory {report['model']['peak_gb_after_build']:.2f} GB")
+
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_B, SERVE_S)), device=cuda
+    )
+    layer0 = params["layers"][0]
+    h = rms_norm(params["tok_embed"][tokens].to(cfg.compute_dtype), layer0["ln1"], cfg.norm_eps)
+    positions = torch.arange(SERVE_S, device=cuda).expand(SERVE_B, SERVE_S)
+    q, k, v = attention._project_qkv(layer0["attn"], cfg, h, positions)
+    del h
+    if fk.variant(q, k, v) != "wgmma":
+        raise AssertionError(f"[8h-b] {cfg.name}'s q/k/v (head dim {cfg.head_dim}) do not go to the Hopper kernel")
+    rows = check_flash(f"{cfg.name} serving shape", q, k, v, True)
+
+    torch.cuda.reset_peak_memory_stats()
+    report["prefill"], launches = prefill_against_plain("8h-c", cfg, params, tokens)
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[8h] peak device memory over the kernel's and the plain blocked scan's prefills "
+        f"{report['peak_gb']:.2f} GB")
+    if profile:
+        prefill, _ = make_serve_steps(cfg, api)
+        report["profile_prefill"] = profiled(f"one {cfg.name} prefill B={SERVE_B} S={SERVE_S}",
+                                             lambda: prefill(params, {"tokens": tokens}))
+    del params
+    torch.cuda.empty_cache()
+    return {"report": report, "rows": rows, "launches": launches, "qkv": (q, k, v)}
 
 
 def profiled(tag: str, step) -> dict:

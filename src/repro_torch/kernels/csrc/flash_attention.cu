@@ -25,9 +25,11 @@
 //
 // Three kernels compute it; the wrapper picks one from the shapes and strides
 // before the launch (kernels/flash_attention/kernel.py: variant):
-//   fa_wgmma_kernel (flash_attention_hopper.cu), bfloat16, dh 64 and 128,
+//   fa_wgmma_kernel (flash_attention_hopper.cu), bfloat16, every built dh,
 //     inputs a TMA tensor map can describe: the fast path, see that file;
-//   fa_bf16_kernel (here), bfloat16, every built dh (32 and 160 need it);
+//   fa_bf16_kernel (here), bfloat16 inputs no tensor map can read (a strided
+//     head dim, strides or base not in 16-byte steps, heads outside
+//     sequence), copied to a readable layout first;
 //   fa_f32_kernel (here), float32.
 //
 // Design (fa_bf16_kernel, mma.sync): one CTA of 4 warps per (batch x head,
@@ -47,11 +49,32 @@
 // below wgmma's rate on this card (1.319 ms at the serving shape, 9.5x the
 // bound, measured on an H100 80GB HBM3 at 700 W by chip_smoke.py).
 //
-// Design (float32, no tensor cores, so the arithmetic stays float32 as the
-// Pallas kernel's does): one CTA of 4 warps per (batch x head, 16-row query
-// tile), 4 rows per warp, 32-key tiles in shared memory; lane j computes the
-// logit of key j (the query broadcast by shuffles), the warp reduces m and l,
-// and each lane accumulates dh / 32 output columns.
+// Design (fa_f32_kernel).  Float32 products stay float32, outside the tensor
+// cores (no TF32), so the arithmetic is the Pallas kernel's; what bounds it is
+// float32 FMAs, 67 TFLOP/s on this card: 1.09e10 useful flops at B = 1,
+// Sq = Sk = 1,152, H = 32, KV = 8, dh = 128, causal, 0.162 ms.  Its
+// predecessor (a CTA per 16 query rows, 32-key tiles) spent a shuffle and a
+// shared load on every FMA of Q K^T and a shuffle on every key of P V, and
+// fetched each K/V tile for 16 rows only: 1.331 ms there.  Now one CTA of
+// 256 threads (a 16 x 16 grid, ty x tx) per (batch x head, 64-row query
+// tile), 64-key tiles, register blocking:
+//   - Q (once) and K sit in shared memory row-major, rows padded by 4 floats;
+//     thread (ty, tx) computes the 4 x 4 block of S for rows 4 ty .. 4 ty + 3
+//     and keys tx + 16 j: per 4 head-dim columns, four float4 loads of Q (one
+//     address per half warp: a broadcast) and four of K feed 64 FMAs;
+//   - a row's 64 logits lie across the 16 threads of a half warp: its max
+//     and sum take four xor shuffles each; m, l and the rescale of O stay in
+//     registers;
+//   - P goes to shared memory transposed (key-major), so that P V reads the
+//     thread's four rows of one key as one float4; O is 4 rows x dh / 16
+//     columns per thread (column pairs 2 tx + 32 c), per key one float4 of P
+//     and dh / 32 float2 loads of V feed dh / 4 FMAs;
+//   - K and V of the next tile load with cp.async into the other of two
+//     stages while this tile is in use (zero-filled past Sk).
+// Causal tiles past the CTA's last visible key are not visited unless a row
+// of the tile sees no key at all; the mask applies only on tiles that cross
+// the diagonal or the ragged end.  Shared memory: 225 KB at dh 160, one CTA
+// per SM.
 #include "flash_attention.cuh"
 
 namespace {
@@ -241,105 +264,207 @@ __global__ void __launch_bounds__(kThreads) fa_bf16_kernel(const FaArgs a) {
 
 // ---------------------------------------------------------------- float32
 
-constexpr int kRowsF32 = 16;  // query rows per CTA, 4 per warp
-constexpr int kKeysF32 = 32;  // keys per tile: one per lane
+constexpr int kRowsF32 = 64;       // query rows per CTA
+constexpr int kKeysF32 = 64;       // keys per tile
+constexpr int kThreadsF32 = 256;   // a 16 x 16 grid of threads (ty, tx)
+constexpr int kLdP = kKeysF32 + 4;  // a row of P^T, padded: STS.128 across tx without conflicts
 
-__device__ __forceinline__ float warp_max(float x) {
+// Shared memory of the float32 kernel, in floats: Q [64][DH + 4], two K
+// stages [64][DH + 4], two V stages [64][DH], P^T [64 keys][68 rows].  The
+// 4-float pad keeps Q and K rows 16-byte aligned and puts consecutive rows
+// 4 banks apart, so eight threads reading float4s of eight consecutive rows
+// touch 32 different banks.
+template <int DH>
+struct SmemF32 {
+  static constexpr int kLd = DH + 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kRowsF32 * kLd;
+  static constexpr int kV = kK + 2 * kKeysF32 * kLd;
+  static constexpr int kP = kV + 2 * kKeysF32 * DH;
+  static constexpr int kBytes = 4 * (kP + kKeysF32 * kLdP);
+  static_assert(kBytes <= 232448, "a CTA holds at most 227 KB of shared memory");
+};
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0 writes
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + 64) of a [S, DH] slice (row stride ld_g) into a
+// [64][ld_s] shared array; rows past S are zeros
+template <int DH>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld_s, const float* src, int64_t ld_g,
+                                              int64_t row0, int64_t S) {
+  constexpr int kChunks = kRowsF32 * DH / 4;
+  for (int c = threadIdx.x; c < kChunks; c += kThreadsF32) {
+    const int row = c / (DH / 4), col = (c % (DH / 4)) * 4;
+    const bool in = row0 + row < S;
+    cp_async16(dst + row * ld_s + col, in ? src + (row0 + row) * ld_g + col : src, in ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
-  for (int s = 16; s > 0; s /= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
+  for (int s = 8; s > 0; s /= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ float half_warp_sum(float x) {
 #pragma unroll
-  for (int s = 16; s > 0; s /= 2) x += __shfl_xor_sync(0xffffffffu, x, s);
+  for (int s = 8; s > 0; s /= 2) x += __shfl_xor_sync(0xffffffffu, x, s);
   return x;
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads) fa_f32_kernel(const FaArgs a) {
+__global__ void __launch_bounds__(kThreadsF32, 1) fa_f32_kernel(const FaArgs a) {
   static_assert(DH % 32 == 0, "head_dim must be a multiple of 32");
-  constexpr int C = DH / 32;  // head-dim columns per lane
-  constexpr int R = kRowsF32 / 4;
-  __shared__ float ks[kKeysF32][DH + 1];  // +1: lane j reads row j without conflicts
-  __shared__ __align__(16) float vs[kKeysF32][DH];
+  using L = SmemF32<DH>;
+  constexpr int C = DH / 32;  // column pairs per thread in O
+  extern __shared__ __align__(16) float smf[];
+  float* qs = smf + L::kQ;
+  float* pt = smf + L::kP;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // a half warp shares ty
   const Tile tl = tile_of(a, kRowsF32);
   const float* qp = static_cast<const float*>(a.q) + tl.b * a.sq_b + tl.h * a.sq_h;
   const float* kp = static_cast<const float*>(a.k) + tl.b * a.sk_b + tl.kvh * a.sk_h;
   const float* vp = static_cast<const float*>(a.v) + tl.b * a.sv_b + tl.kvh * a.sv_h;
-  const int64_t row0 = tl.q0 + warp * R;
-
-  float qv[R][C], acc[R][C], m[R], l[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int64_t row = row0 + i;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      qv[i][c] = row < a.Sq ? qp[row * a.sq_s + lane + 32 * c] : 0.f;
-      acc[i][c] = 0.f;
-    }
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-
+  const int64_t row0 = tl.q0 + 4 * ty;  // this thread's rows: row0 .. row0 + 3
+  const int64_t off = a.Sk - a.Sq;
   const int64_t end = kv_end(a, tl.q0, kRowsF32);
-  for (int64_t k0 = 0; k0 < end; k0 += kKeysF32) {
-    __syncthreads();
-    constexpr int kChunks = kKeysF32 * DH / 4;  // 16-byte chunks per tile
-    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-      const int row = c / (DH / 4), col = (c % (DH / 4)) * 4;
-      const int64_t key = k0 + row;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (key < a.Sk) {
-        kx = *reinterpret_cast<const float4*>(kp + key * a.sk_s + col);
-        vx = *reinterpret_cast<const float4*>(vp + key * a.sv_s + col);
-      }
-      ks[row][col] = kx.x;
-      ks[row][col + 1] = kx.y;
-      ks[row][col + 2] = kx.z;
-      ks[row][col + 3] = kx.w;
-      *reinterpret_cast<float4*>(&vs[row][col]) = vx;
+  const int n_tiles = static_cast<int>((end + kKeysF32 - 1) / kKeysF32);
+
+  // Q and the first K/V tile in one group
+  load_rows_f32<DH>(qs, L::kLd, qp, a.sq_s, tl.q0, a.Sq);
+  load_rows_f32<DH>(smf + L::kK, L::kLd, kp, a.sk_s, 0, a.Sk);
+  load_rows_f32<DH>(smf + L::kV, DH, vp, a.sv_s, 0, a.Sk);
+  cp_async_commit();
+
+  float o[4][2 * C];  // rows row0 + i, columns 2 tx + 32 c and + 1
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 2 * C; ++c) o[i][c] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    const int64_t k0 = static_cast<int64_t>(t) * kKeysF32;
+    if (t + 1 < n_tiles) {  // the next tile streams in while this one is used
+      const int nb = buf ^ 1;
+      load_rows_f32<DH>(smf + L::kK + nb * kKeysF32 * L::kLd, L::kLd, kp, a.sk_s, k0 + kKeysF32, a.Sk);
+      load_rows_f32<DH>(smf + L::kV + nb * kKeysF32 * DH, DH, vp, a.sv_s, k0 + kKeysF32, a.Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* ks = smf + L::kK + buf * kKeysF32 * L::kLd;
+    const float* vs = smf + L::kV + buf * kKeysF32 * DH;
 
-    const int64_t key = k0 + lane;
+    // S = Q K^T: rows row0 + i, keys k0 + tx + 16 j; per 4 head-dim columns
+    // two sets of four LDS.128 feed 64 FMAs
+    float sc[4][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      float dot = 0.f;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DH; d += 4) {
+      float4 qv[4], kv[4];
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          dot = fmaf(__shfl_sync(0xffffffffu, qv[i][c], j), ks[lane][32 * c + j], dot);
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * L::kLd + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * L::kLd + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].z, kv[j].z, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, sc[i][j]);
         }
+    }
+
+    // online softmax: a row's 64 keys lie across the 16 threads of a half warp
+    const bool edge = k0 + kKeysF32 > a.Sk || (a.causal && k0 + kKeysF32 - 1 > tl.q0 + off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = sc[i][j] * a.scale;
+        if (edge) x = masked(x, row0 + i, k0 + tx + 16 * j, a);
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
       }
-      const float x = masked(dot * a.scale, row0 + i, key, a);
-      const float mx = fmaxf(m[i], warp_max(x));
-      const float p = expf(x - mx);
+      mx = half_warp_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = expf(sc[i][j] - mx);
+        sum += sc[i][j];
+      }
       const float corr = expf(m[i] - mx);
-      l[i] = l[i] * corr + warp_sum(p);
+      l[i] = l[i] * corr + half_warp_sum(sum);
       m[i] = mx;
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= corr;
-#pragma unroll 8
-      for (int j = 0; j < kKeysF32; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
+      for (int c = 0; c < 2 * C; ++c) o[i][c] *= corr;
+    }
+    // P^T: key-major, this thread's four rows side by side
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(pj, vs[j][32 * c + lane], acc[i][c]);
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(pt + (tx + 16 * j) * kLdP + 4 * ty) =
+          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+    __syncthreads();
+
+    // O += P V: per key one LDS.128 of P and C LDS.64 of V feed 8 C FMAs
+#pragma unroll 4
+    for (int j = 0; j < kKeysF32; ++j) {
+      const float4 p = *reinterpret_cast<const float4*>(pt + j * kLdP + 4 * ty);
+      const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float2 v = *reinterpret_cast<const float2*>(vs + j * DH + 2 * tx + 32 * c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][2 * c] = fmaf(pr[i], v.x, o[i][2 * c]);
+          o[i][2 * c + 1] = fmaf(pr[i], v.y, o[i][2 * c + 1]);
+        }
       }
     }
+    __syncthreads();  // K, V and P of this tile are free for the next loads
   }
 
   float* op = static_cast<float*>(a.o) + tl.b * a.so_b + tl.h * a.so_h;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
+  for (int i = 0; i < 4; ++i) {
     const int64_t row = row0 + i;
     if (row >= a.Sq) continue;
     const float d = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < C; ++c) op[row * a.so_s + lane + 32 * c] = acc[i][c] / d;
+    for (int c = 0; c < C; ++c)
+      *reinterpret_cast<float2*>(op + row * a.so_s + 2 * tx + 32 * c) =
+          make_float2(o[i][2 * c] / d, o[i][2 * c + 1] / d);
   }
 }
 
@@ -369,7 +494,12 @@ struct LaunchBf16 {
 template <int DH>
 struct LaunchF32 {
   static void run(const FaArgs& a, unsigned blocks, cudaStream_t s) {
-    fa_f32_kernel<DH><<<blocks, kThreads, 0, s>>>(a);
+    // above 48 KB of dynamic shared memory only once allowed; a refusal is
+    // the runtime's last error, which the caller returns
+    if (cudaFuncSetAttribute(fa_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SmemF32<DH>::kBytes) != cudaSuccess)
+      return;
+    fa_f32_kernel<DH><<<blocks, kThreadsF32, SmemF32<DH>::kBytes, s>>>(a);
   }
 };
 

@@ -8,10 +8,12 @@ one from the inputs' dtype, head dim, strides and alignment alone, before
 any launch:
 
 - ``"wgmma"``: the Hopper kernel (TMA loads, wgmma products, warp
-  specialisation), bfloat16 with head dim 64 or 128, when q, k and v can be
-  described by TMA tensor maps in place;
-- ``"mma"``: the mma.sync kernel, bfloat16 otherwise (head dims 32 and 160);
-- ``"f32"``: the float32 kernel.
+  specialisation), bfloat16 at every built head dim (32, 64, 128, 160), when
+  q, k and v can be described by TMA tensor maps in place;
+- ``"mma"``: the mma.sync kernel, bfloat16 inputs no tensor map can read (a
+  strided head dim, strides or base not in 16-byte steps, heads outside
+  sequence, no keys);
+- ``"f32"``: the float32 kernel (register-tiled SIMT, no tensor cores).
 
 The wrapper checks its inputs, allocates the output with ``torch.empty``,
 launches on the current stream, raises on a non-zero error code (a failed
@@ -42,7 +44,7 @@ LAUNCHES = {"flash_attention_wgmma": 0, "flash_attention_mma": 0, "flash_attenti
 # the head dims ``dispatch_head_dim`` in csrc/flash_attention.cu builds kernels for
 HEAD_DIMS = (32, 64, 128, 160)
 # the head dims csrc/flash_attention_hopper.cu builds its kernel for
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (32, 64, 128, 160)
 _DTYPES = (torch.bfloat16, torch.float32)
 
 

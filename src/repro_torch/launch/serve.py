@@ -10,7 +10,7 @@ On the CPU (reduced config):
 The prompt is fed through decode token by token, as the reference's
 launcher does, so this entry point does not reach the flash-attention
 kernel; ``training.step.make_serve_steps``' bulk prefill does (ROADMAP
-Queue 0 has the launcher prefill in bulk).  Reports prefill and per-token
+Queue 1 item 14a has the launcher prefill in bulk).  Reports prefill and per-token
 decode latency; ``--cap WATTS`` applies the
 DVFS model to show capped throughput (what a datacenter-level nvPAX
 allocation does to this replica).  Weights are drawn from a seeded

@@ -2,7 +2,8 @@
 CPU tensor) against the reference's Pallas kernel in interpret mode and its
 ``attention_ref``, on the sweep of ``tests/test_kernels.py`` and at the
 reference's own tolerances (2e-3 in float32, 3e-2 in bfloat16), plus causal
-rows that see no key (Sq > Sk), which return the mean of V in all three.
+rows that see no key (Sq > Sk), which return the mean of V in all three,
+at every head dim the port builds (32, 64, 128 and 160).
 The CUDA kernel itself is held to this plain version on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py`` phase 8).
 """
@@ -56,6 +57,9 @@ def _f32(x) -> np.ndarray:
         (2, 256, 256, 4, 2, 64),  # GQA
         (1, 128, 256, 2, 1, 128),  # Sq < Sk + MQA
         (1, 128, 64, 4, 2, 64),  # Sq > Sk: causal rows 0..63 see no key
+        (1, 128, 128, 2, 1, 160),  # stablelm-12b's head dim, MQA
+        (1, 128, 64, 4, 2, 160),  # head dim 160, Sq > Sk
+        (1, 128, 192, 4, 2, 32),  # the reduced configs' head dim, Sq < Sk
     ],
 )
 @pytest.mark.parametrize("causal", [True, False])
@@ -141,10 +145,12 @@ def _variant_inputs(case):
     [
         ((torch.bfloat16, 128), "wgmma"),
         ((torch.bfloat16, 64), "wgmma"),
-        ((torch.bfloat16, 32), "mma"),
-        ((torch.bfloat16, 160), "mma"),
+        ((torch.bfloat16, 32), "wgmma"),
+        ((torch.bfloat16, 160), "wgmma"),
         ((torch.float32, 128), "f32"),
         ((torch.float32, 64), "f32"),
+        ((torch.float32, 160), "f32"),
+        ((torch.float32, 32), "f32"),
         ("packed projection", "wgmma"),
         ("one batch of a larger tensor", "wgmma"),
         ("unaligned sequence stride", "mma"),
@@ -155,12 +161,12 @@ def _variant_inputs(case):
     ],
 )
 def test_kernel_variant_is_chosen_from_dtype_head_dim_and_strides(case, want):
-    """The wrapper picks the Hopper kernel (TMA + wgmma) only for bfloat16
-    at head dim 64 or 128 whose q, k and v tensor maps can read in place
-    (head dim contiguous, 16-byte strides and base, dimensions nested as
-    (head, sequence, batch)); other bfloat16 inputs go to the mma.sync
-    kernel and float32 to the float32 one.  Decided from the inputs alone,
-    with no card and no launch."""
+    """The wrapper picks the Hopper kernel (TMA + wgmma) for bfloat16 at
+    every built head dim (32, 64, 128, 160) whose q, k and v tensor maps can
+    read in place (head dim contiguous, 16-byte strides and base, dimensions
+    nested as (head, sequence, batch)); other bfloat16 inputs go to the
+    mma.sync kernel and float32 to the float32 one.  Decided from the inputs
+    alone, with no card and no launch."""
     from repro_torch.kernels.flash_attention import kernel as fk
 
     assert fk.variant(*_variant_inputs(case)) == want

@@ -564,10 +564,27 @@ FLASH_CASES = [
     (1, 257, 257, 4, 2, 32, True, torch.bfloat16),  # the reduced configs' head_dim
     (1, 200, 200, 2, 1, 160, True, torch.bfloat16),
     (1, 1, 77, 4, 2, 128, True, torch.bfloat16),  # one query
+    # head dims 160 (stablelm-12b) and 32 on the Hopper kernel's 64-byte swizzle
+    (2, 2048, 2048, 8, 2, 160, True, torch.bfloat16),  # stablelm-12b's heads, fewer of them
+    (2, 300, 1000, 8, 2, 160, True, torch.bfloat16),  # Sq < Sk
+    (2, 1000, 300, 8, 2, 160, True, torch.bfloat16),  # Sq > Sk: 700 rows see no key
+    (1, 1000, 1537, 4, 4, 160, True, torch.bfloat16),  # ragged tiles
+    (2, 777, 777, 8, 1, 160, True, torch.bfloat16),  # MQA
+    (2, 700, 900, 4, 2, 160, False, torch.bfloat16),
+    (2, 1000, 300, 4, 2, 32, True, torch.bfloat16),  # Sq > Sk
+    (1, 1000, 1537, 8, 2, 32, True, torch.bfloat16),  # ragged tiles, GQA
+    (2, 513, 513, 4, 1, 32, False, torch.bfloat16),  # MQA, non-causal
+    # the float32 kernel at every built head dim
     (2, 1000, 1537, 8, 2, 128, True, torch.float32),
     (2, 1000, 300, 4, 2, 64, True, torch.float32),
     (1, 333, 333, 4, 1, 32, False, torch.float32),
     (1, 100, 100, 2, 2, 160, True, torch.float32),
+    (1, 1152, 1152, 32, 8, 128, True, torch.float32),  # chip_smoke 8g's float32 shape
+    (2, 1000, 300, 4, 2, 160, True, torch.float32),  # Sq > Sk
+    (1, 1000, 1537, 4, 4, 160, True, torch.float32),  # ragged tiles
+    (2, 777, 777, 8, 1, 32, True, torch.float32),  # MQA
+    (2, 700, 900, 4, 2, 160, False, torch.float32),
+    (1, 1, 77, 4, 2, 64, True, torch.float32),  # one query
 ]
 
 
@@ -590,7 +607,7 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, KV, dh, causal, dtype
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     q, k, v = _flash_inputs(np.random.default_rng(Sq + Sk + dh), B, Sq, Sk, H, KV, dh, dtype, cuda)
-    kind = "f32" if dtype == torch.float32 else "wgmma" if dh in (64, 128) else "mma"
+    kind = "f32" if dtype == torch.float32 else "wgmma"  # every built head dim in bf16
     assert fk.variant(q, k, v) == kind
     runs = [(kind, fk.flash_attention)]
     if kind == "wgmma":  # the mma.sync kernel at the same shape, through its private entry
@@ -642,6 +659,45 @@ def test_flash_attention_reads_strided_inputs(cuda):
     assert torch.equal(got, want)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    _assert_rows_close(got, attention_ref(q, k, v), FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attention_reads_a_packed_projection_at_head_dim_160(cuda):
+    """stablelm-12b's head dim: q, k and v as views of one packed
+    [B, S, H + 2 KV, 160] projection go to the Hopper kernel in place and
+    give the contiguous result, within the bars of the plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S, H, KV, dh = 2, 700, 8, 2, 160
+    rng = np.random.default_rng(6)
+    qkv = torch.as_tensor(rng.normal(size=(B, S, H + 2 * KV, dh)), dtype=torch.bfloat16).to(cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H : H + KV], qkv[:, :, H + KV :]
+    assert not q.is_contiguous()
+    assert fk.variant(q, k, v) == "wgmma"
+    reset_launch_counts()
+    got = fk.flash_attention(q, k, v)
+    assert launch_counts()["flash_attention_wgmma"] == 1
+    want = fk.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+    _assert_rows_close(got, attention_ref(q, k, v), FLASH_TOL[torch.bfloat16])
+    exact = attention_ref(q.float(), k.float(), v.float())
+    _assert_rows_close(got, exact, FLASH_TOL_VS_F32)
+
+
+@pytest.mark.parametrize("dh", [32, 160])
+def test_unreadable_bf16_inputs_take_the_mma_kernel(cuda, dh):
+    """A strided head dim leaves no tensor map to read: the mma.sync kernel
+    takes a copy, at the new head dims too, within the bars."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = (t.repeat_interleave(2, dim=-1)[..., ::2] for t in _flash_inputs(
+        np.random.default_rng(dh), 1, 300, 300, 4, 2, dh, torch.bfloat16, cuda))
+    assert fk.variant(q, k, v) == "mma"
+    reset_launch_counts()
+    got = fk.flash_attention(q, k, v)
+    assert launch_counts()["flash_attention_mma"] == 1
     _assert_rows_close(got, attention_ref(q, k, v), FLASH_TOL[torch.bfloat16])
 
 

@@ -1,6 +1,7 @@
 """The port's serving path (configs, models, serve steps, launcher) against
-the reference on ``reduced()`` configs in float32, with the reference's
-weights carried across by ``convert.lm_params_from_numpy``.
+the reference on ``reduced()`` configs in float32 (qwen3-4b, chatglm3-6b,
+and stablelm-12b at its own head dim 160), with the reference's weights
+carried across by ``convert.lm_params_from_numpy``.
 
 Bars: norms and rotary 1e-6; ``lm_prefill`` logits and KV caches 2e-5 on
 both attention branches (S = 32 <= attn_chunk = 64: plain; S = 192: the
@@ -35,12 +36,23 @@ from repro_torch.models import common, mlp  # noqa: E402
 TOL = 2e-5
 
 
-@pytest.fixture(scope="module", params=["qwen3-4b", "chatglm3-6b"])
+# stablelm-12b reduced, but at its own head dim 160 (the reduced configs
+# take 32): the width the Hopper flash kernel's 64-byte swizzle path serves
+STABLELM_DH160 = "stablelm-12b-dh160"
+
+
+def _reduced(package, name):
+    if name == STABLELM_DH160:
+        return dataclasses.replace(package.get_arch("stablelm-12b").reduced(), d_head=160)
+    return package.get_arch(name).reduced()
+
+
+@pytest.fixture(scope="module", params=["qwen3-4b", "chatglm3-6b", STABLELM_DH160])
 def carried(request):
     """(reference cfg, port cfg, reference params, port params): the
     reference's ``init_lm`` weights (key 0) in both packages."""
-    cfg_j = jconfigs.get_arch(request.param).reduced()
-    cfg = configs.get_arch(request.param).reduced()
+    cfg_j = _reduced(jconfigs, request.param)
+    cfg = _reduced(configs, request.param)
     params_j, _ = jmodels.build(cfg_j).init(jax.random.key(0))
     return cfg_j, cfg, params_j, lm_params_from_numpy(jax.tree.map(np.asarray, params_j), cfg, "cpu")
 
@@ -105,7 +117,18 @@ def test_prefill_logits_and_caches_match(carried, S, flash_vjp):
     cfg = dataclasses.replace(cfg, flash_vjp=flash_vjp)
     assert (S > cfg.attn_chunk) == (S == 192)
     toks = _tokens(cfg, 2, S)
-    logits_j, caches_j = jax.jit(jmodels.build(cfg_j).prefill)(params_j, jnp.asarray(toks, jnp.int32))
+    prefill_j = jmodels.build(cfg_j).prefill
+    if cfg.head_dim == 160:
+        # Under jax.jit, XLA folds one rotary inverse frequency of head dim
+        # 160 (theta 1e4) one ulp off the value the reference computes
+        # eagerly, which moves the reference's own layer-0 K cache by up to
+        # 3.8e-5 at positions up to 191 (jit vs eager on the CPU), more than
+        # TOL.  The port computes the frequencies as the eager reference does,
+        # so it is held to the reference run without jit.
+        with jax.disable_jit():
+            logits_j, caches_j = prefill_j(params_j, jnp.asarray(toks, jnp.int32))
+    else:
+        logits_j, caches_j = jax.jit(prefill_j)(params_j, jnp.asarray(toks, jnp.int32))
     logits, caches = models.build(cfg).prefill(params, torch.as_tensor(toks))
     assert logits.shape == (2, 1, cfg.vocab) and logits.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j), rtol=0, atol=TOL)
@@ -232,7 +255,27 @@ def test_the_default_device_is_the_card():
         serve.main(["--reduced"])
 
 
+def dh160_layer0_k_gaps(S=192) -> dict:
+    """Largest |d| of layer 0's K cache, reduced stablelm-12b at head dim
+    160 in float32 on the CPU: the reference under jax.jit against the
+    reference run eagerly, and the port against the eager run."""
+    cfg_j, cfg = _reduced(jconfigs, STABLELM_DH160), _reduced(configs, STABLELM_DH160)
+    params_j, _ = jmodels.build(cfg_j).init(jax.random.key(0))
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, params_j), cfg, "cpu")
+    toks = _tokens(cfg, 2, S)
+    prefill_j = jmodels.build(cfg_j).prefill
+    _, jitted = jax.jit(prefill_j)(params_j, jnp.asarray(toks, jnp.int32))
+    with jax.disable_jit():
+        _, eager = prefill_j(params_j, jnp.asarray(toks, jnp.int32))
+    _, caches = models.build(cfg).prefill(params, torch.as_tensor(toks))
+    k_jit, k_eager = (np.asarray(c["b0"][0][0]) for c in (jitted, eager))
+    return {"reference jit vs eager": float(np.abs(k_jit - k_eager).max()),
+            "port vs eager reference": float(np.abs(caches[0].k.numpy() - k_eager).max())}
+
+
 if __name__ == "__main__":
     # the numbers PERF.md quotes for bf16 decode vs prefill (CPU, both packages)
     for who, row in bf16_decode_vs_prefill().items():
         print(who, row)
+    # and for the reference's own jit-vs-eager gap at head dim 160
+    print("stablelm-12b reduced, head dim 160, layer 0 K cache", dh160_layer0_k_gaps())
