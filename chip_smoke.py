@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py                 # exits non-zero on any failure
     python3 chip_smoke.py --profile       # also profiles a warm control step, a cold tenant step,
                                           # a qwen3-4b prefill and decode step and a
-                                          # stablelm-12b prefill (launches per step)
+                                          # stablelm-12b prefill (launches per step and,
+                                          # for the control steps, per PDHG iteration)
     python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
     python3 chip_smoke.py --out DIR       # where the details go
 
@@ -24,28 +25,36 @@ Phases, each of which raises on failure:
    the tenant pair also against its CPU plain version bit for bit, and over
    repeated launches, ``sla_matvec`` also on lists of 0 to 1,000 edges and
    one list holding every edge; the chunk statistics on extra draws
-   (several seeds at n = 1, 31, 32 and the paper's n); ``tree_matvec`` and
-   ``sla_matvec`` each one kernel on the card per call (torch.profiler);
+   (several seeds at n = 1, 31, 32 and the paper's n); the fused dual step
+   (``dual_update``) and scaled adjoint (``scaled_rmatvec``) against the
+   launches they replace, bit for bit, at the paper's shapes with and
+   without tenants, with scalar step sizes and with every column pinned,
+   and at edge sizes (``dual_update`` also against its CPU plain version);
+   ``tree_matvec``, ``sla_matvec`` and the two fused kernels each one
+   kernel on the card per call (torch.profiler);
 4. the main path: five warm-started control steps of
    ``repro_torch.core.nvpax.optimize`` on ``build_datacenter()`` with
    telemetry requests, through the kernels
    (``SolverOptions(use_pallas=True, use_pallas_tree=True)``), each checked
    for feasibility and KKT certification and against the port's own CPU
-   run of the same steps;
+   run of the same steps; the PDHG loop launches one ``dual_update`` and
+   one ``scaled_rmatvec`` per iteration and no standalone ``dual_prox``,
+   ``tree_rmatvec`` or ``sla_rmatvec``;
 5. the paper's iterated max-min LP path (``use_waterfill=False``) on a
    1,536-device fleet, with the same checks;
 6. each kernel's time on the card (CUDA events; see :func:`time_calls`)
    beside its plain version's, its bound and, for the tree and tenant
-   pairs, a CSR sparse matrix-vector product on the same incidence; the
-   per-launch floor (``dual_prox`` on one row) and ``tree_matvec``'s two
+   pairs and the scaled adjoint, a CSR sparse matrix-vector product on the
+   same incidence; the per-launch floor (``dual_prox`` on one row) and ``tree_matvec``'s two
    paths at their boundary;
 7. the serving path on a tenant fleet: ``PowerController.step`` on the
    paper's fleet with the Appendix B tenants (100 x 100 devices), every
    kernel flag on, three cold steps, each checked for certification,
    breaker caps, tenant contracts, and Phase I and useful power against the
    port's CPU run (the caps' distance from it is measured and reported, see
-   :func:`tenant_engine_phase`); then a repeated step (identical bits) and
-   a supply re-pin (no rebuild).
+   :func:`tenant_engine_phase`), and the PDHG loop's launches held as in
+   phase 4; then a repeated step (identical bits) and a supply re-pin (no
+   rebuild).
    ``--warm-tenants`` adds one warm-carried step (iterations and
    certificate only);
 8. the data plane's serving path on qwen3-4b at full width (36 layers,
@@ -155,6 +164,10 @@ STATS_DRAWS = 64
 # sla_matvec list lengths around a warp (32 lanes) and past the kernel's
 # 128-edge chunk; "all": one tenant holds every edge
 LIST_LENGTHS = (0, 1, 31, 32, 33, 1000, "all")
+# the fused dual step and scaled adjoint at edge sizes beside the paper's
+FUSED_SIZES = (1, 1025, 100_003)
+# their outputs are compared bit for bit, as integers of the same width
+BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
 LIMITS = {
     "tree_matvec": TREE_TOL,
     "tree_rmatvec": TREE_TOL,
@@ -170,10 +183,12 @@ LIMITS = {
 # the serving path on the tenant fleet: telemetry samples of its cold steps
 ENGINE_SAMPLES = (0, 1, 2)
 SLA_FEAS_TOL = 1e-6  # watts: tenant sums inside [b_min, b_max]
-# the allocator's kernels (phases 3-7); flash attention is phase 8's
+# the kernels of the tenant serving path (phase 7); flash attention is
+# phase 8's, and dual_prox stands alone (phase 6) since the fused dual step
+# took its place in the PDHG loop
 ALLOCATOR_KERNELS = (
-    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec",
-    "primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats",
+    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "scaled_rmatvec",
+    "primal_update", "dual_update", "primal_chunk_stats", "dual_chunk_stats",
 )
 # the flash-attention kernels: Hopper (TMA + wgmma) and mma.sync bf16, float32
 FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_mma", "flash_attention_f32")
@@ -269,6 +284,65 @@ def long_list_edges(rng, n: int, length):
     return rng.integers(0, n, ten.size), ten.astype(np.int64)
 
 
+def fused_inputs(tidx, sidx, dtype, gen, vector_sigma=True, pinned=False):
+    """Arguments of the fused dual step and scaled adjoint over a tree index
+    and a tenant index, drawn from ``gen``: (dual_update's, scaled_rmatvec's).
+    About 30% of the columns pinned (mov = 0), all with ``pinned``; every
+    bound vector partly infinite; step sizes vectors or one 0-d tensor."""
+    n, m, k = tidx.n, tidx.start.shape[0], sidx.k
+    dev = tidx.start.device
+    inf = float("inf")
+
+    def vec(size):
+        return torch.as_tensor(gen.normal(size=size), dtype=dtype, device=dev)
+
+    def pos(size):
+        return vec(size).abs() + 0.1
+
+    mov = torch.zeros(n, dtype=dtype, device=dev) if pinned else (vec(n) > -0.5).to(dtype)
+    sm = pos(n) * mov
+    blocks = []
+    for size, a in ((m, vec(m)), (k, vec(k)), (n, sm * vec(n))):
+        sig = pos(size) if vector_sigma else torch.full((), 0.37, dtype=dtype, device=dev)
+        lo = vec(size)
+        hi = lo + pos(size)
+        lo = torch.where(vec(size) > 0.5, -inf, lo)
+        hi = torch.where(vec(size) > 0.5, inf, hi)
+        blocks.append(pref.DualBlock(vec(size), a, pos(size), sig, lo, hi))
+    scalars = [torch.full((), v, dtype=dtype, device=dev) for v in (1.7, 1.0, 0.6)]
+    adjoint = (vec(m), vec(k), vec(n), pos(m), pos(k), pos(n), sm, tidx, sidx)
+    return (*blocks, *scalars), adjoint
+
+
+def on_cpu(args):
+    """The fused dual step's arguments, moved to the CPU."""
+    return [type(a)(*(v.cpu() for v in a)) if isinstance(a, tuple) else a.cpu() for a in args]
+
+
+def scaled_adjoint_csr(adjoint, device):
+    """S K_mov^T D of the scaled adjoint as one CUDA CSR matrix, n x (m + k + n):
+    row i holds s_i mov_i d_j at its covering tree rows j, its tenants and
+    its own improvement row, so that ``torch.mv`` of it by (y_tree, y_sla,
+    y_imp) is ``scaled_rmatvec``'s gx (the library's yardstick)."""
+    _, _, _, d_tree, d_sla, d_imp, sm, tidx, sidx = adjoint
+    n, m, k = tidx.n, tidx.start.shape[0], sidx.k
+    c_ptr, c_rows = tidx.cover_ptr.cpu().numpy(), tidx.cover_rows.cpu().numpy()
+    d_ptr, d_ten = sidx.dev_ptr.cpu().numpy(), sidx.dev_ten.cpu().numpy()
+    own = np.arange(n)
+    rows = np.concatenate([np.repeat(own, np.diff(c_ptr)), np.repeat(own, np.diff(d_ptr)), own])
+    cols = np.concatenate([c_rows, m + d_ten, m + k + own]).astype(np.int64)
+    d = torch.cat([d_tree, d_sla, d_imp]).cpu().numpy()
+    vals = sm.cpu().numpy()[rows] * d[cols]
+    order = np.lexsort((cols, rows))
+    crow = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(crow, dtype=torch.int64), torch.as_tensor(cols[order]),
+            torch.as_tensor(vals[order]), size=(n, m + k + n), check_invariants=True,
+        ).to(device)
+
+
 def device_kernels(fn, calls: int) -> list[str]:
     """Names of the kernels the card ran during ``calls`` calls of ``fn``
     (warmed first), from torch.profiler's CUDA activity."""
@@ -335,7 +409,23 @@ def timed_steps(pdn_, requests, priority, options, device):
 
 
 # the kernels of the tree-only optimize paths (phases 4 and 5)
-OPTIMIZE_KERNELS = ("tree_matvec", "tree_rmatvec", "primal_update", "dual_prox")
+OPTIMIZE_KERNELS = ("tree_matvec", "tree_rmatvec", "scaled_rmatvec", "primal_update", "dual_update")
+
+
+def check_loop_launches(tag, launches, iterations: int) -> None:
+    """The PDHG loop launches one fused dual step and one fused adjoint per
+    iteration and no standalone ``dual_prox``; the standalone adjoints run
+    only outside it (step sizes, KKT checks, repair), so fewer times than
+    the loop iterates."""
+    log(f"[{tag}] PDHG loop: {iterations} iterations, dual_update {launches['dual_update']}, "
+        f"scaled_rmatvec {launches['scaled_rmatvec']}, dual_prox {launches['dual_prox']}; "
+        f"outside it tree_rmatvec {launches['tree_rmatvec']}, "
+        f"sla_rmatvec {launches['sla_rmatvec']}")
+    if not (launches["dual_update"] == launches["scaled_rmatvec"] == iterations
+            and launches["dual_prox"] == 0
+            and launches["tree_rmatvec"] < iterations and launches["sla_rmatvec"] < iterations):
+        raise AssertionError(f"[{tag}] the PDHG loop's launches are not one fused dual step and "
+                             f"one fused adjoint per iteration: {launches}")
 
 
 def run_steps(tag, pdn_, requests, options, seed, device="cuda"):
@@ -376,6 +466,7 @@ def run_steps(tag, pdn_, requests, options, seed, device="cuda"):
     missing = [k for k in OPTIMIZE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    check_loop_launches(tag, launches, sum(sum(r["phase_iterations"]) for r in rows))
     return rows, launches
 
 
@@ -605,6 +696,31 @@ def main(argv: list[str]) -> int:
               tref.tree_rmatvec_ref(y, idx.start.long(), idx.end.long(), n),
               float(y.abs().sum()), main_shape)
 
+    def check_fused(tidx, sidx, dtype, main_shape, gen, vector_sigma=True, pinned=False):
+        """dual_update and scaled_rmatvec against the launches they replace
+        (their plain compositions on the card, whose adjoint sums are the
+        deterministic segment-sum kernels), and dual_update against its CPU
+        plain version: the same bits (max |d| = 0)."""
+        dual, adjoint = fused_inputs(tidx, sidx, dtype, gen, vector_sigma, pinned)
+        got_d = pk.dual_update(*dual)
+        got_a = tk.scaled_rmatvec(*adjoint)
+        for name_, got, want in (
+            ("dual_update", got_d, pref.dual_update_ref(*dual)),
+            ("dual_update", got_d, pref.dual_update_ref(*on_cpu(dual))),
+            ("scaled_rmatvec", got_a, tref.scaled_rmatvec_ref(*adjoint)),
+        ):
+            for g, w in zip(got, want):
+                n_checks[0] += 1
+                g, w = g.cpu(), w.cpu()
+                if not torch.equal(g.view(BITS[dtype]), w.view(BITS[dtype])):
+                    raise AssertionError(
+                        f"{name_} (n={tidx.n}, k={sidx.k}, {dtype}) differs from its plain "
+                        f"composition in {int((g != w).sum())} of {g.numel()} values")
+                if main_shape:
+                    err = torch.where(g == w, 0.0, (g - w).abs())
+                    max_err[name_] = max(max_err.get(name_, 0.0),
+                                         float(err.max()) if err.numel() else 0.0)
+
     def check_elementwise(n, dtype, main_shape):
         key = str(dtype).split(".")[-1]
 
@@ -634,7 +750,10 @@ def main(argv: list[str]) -> int:
     b_ten = layout.tenant_of[b_dev]
     idx_main = tk.tree_index(pdn.node_start, pdn.node_end, n_main, cuda)
     sidx_main = tk.sla_index(b_dev, b_ten, layout.n_tenants, n_main, cuda)
+    sidx_none = tk.sla_index([], [], 0, n_main, cuda)
     x_main = on_card(np.random.default_rng(12_288).normal(size=n_main), torch.float64)
+    dual_main, adjoint_main = fused_inputs(idx_main, sidx_main, torch.float64,
+                                           np.random.default_rng(18))
     t0 = time.perf_counter()
     for dtype in (torch.float64, torch.float32):
         main = dtype == torch.float64
@@ -670,9 +789,28 @@ def main(argv: list[str]) -> int:
             s, e = nested_rows(gen, n, 5004)
             s[:4], e[:4] = [0, 0, n, n // 2], [n, 0, n, n]
             check_tree(n, s, e, dtype, False, gen)
+        # the fused dual step and scaled adjoint: the paper's tenant fleet,
+        # no tenants, scalar step sizes, every column pinned; then edge
+        # sizes with random rows and edges
+        gen = np.random.default_rng(17)
+        check_fused(idx_main, sidx_main, dtype, main, gen)
+        check_fused(idx_main, sidx_none, dtype, False, gen)
+        check_fused(idx_main, sidx_main, dtype, False, gen, vector_sigma=False)
+        check_fused(idx_main, sidx_main, dtype, False, gen, pinned=True)
+        for n in FUSED_SIZES:
+            if n > n_main:
+                s, e = nested_rows(gen, n, 5004)
+            else:
+                s, e = np.sort(gen.integers(0, n + 1, (2, min(2 * n, 5000) + 4)), axis=0)
+            k_n = max(1, n // 50)
+            check_fused(tk.tree_index(s, e, n, cuda),
+                        tk.sla_index(gen.integers(0, n, 3 * n), gen.integers(0, k_n, 3 * n),
+                                     k_n, n, cuda),
+                        dtype, False, gen)
     log(f"[3] {n_checks[0]} kernel-vs-plain checks passed in {time.perf_counter() - t0:.1f} s "
         f"(tile {tile}, elementwise grid {grid} threads; n in {edge_sizes} and "
-        f"{tree_sizes} for tree_matvec; sla_matvec lists of {LIST_LENGTHS} edges; "
+        f"{tree_sizes} for tree_matvec, {FUSED_SIZES} for the fused pair; sla_matvec lists of "
+        f"{LIST_LENGTHS} edges; "
         f"{STATS_DRAWS} chunk-stats draws at n=1); max |d| at "
         f"n={n_main}, m={m_main}, float64: "
         + ", ".join(f"{k} {v:.3e}" for k, v in sorted(max_err.items())))
@@ -686,6 +824,8 @@ def main(argv: list[str]) -> int:
     for name_, fn in (
         ("tree_matvec", lambda: tk.tree_matvec(x_main, idx_main)),
         ("sla_matvec", lambda: tk.sla_matvec(x_main, sidx_main)),
+        ("dual_update", lambda: pk.dual_update(*dual_main)),
+        ("scaled_rmatvec", lambda: tk.scaled_rmatvec(*adjoint_main)),
     ):
         ran = device_kernels(fn, 5)
         if len(ran) != 5:
@@ -772,6 +912,17 @@ def main(argv: list[str]) -> int:
     args_d[2] = args_d[2].abs() + 0.01
     args_d[3] = torch.full_like(args_d[3], -float("inf"))
     n_b, m_b = n_main, m_main
+    # the fused pair at the tenant fleet's shapes (phase 3's main-shape
+    # inputs); the library's yardstick for the adjoint is one CSR product by
+    # S K_mov^T D on the stacked duals
+    rows_b = m_b + k_b + n_b
+    cover_b = idx_main.cover_rows.numel()
+    a_adj = scaled_adjoint_csr(adjoint_main, cuda)
+    y_cat = torch.cat(adjoint_main[:3])
+    gx_main = tk.scaled_rmatvec(*adjoint_main)[0]
+    d = float((torch.mv(a_adj, y_cat) - gx_main).abs().max())
+    if not d <= 1e-9 * max(1.0, float(gx_main.abs().max())):
+        raise AssertionError(f"the CSR product disagrees with scaled_rmatvec: {d:.3e}")
 
     def bound(nbytes, flops, dtype="float64"):
         t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
@@ -827,6 +978,26 @@ def main(argv: list[str]) -> int:
          lambda: pref.dual_chunk_stats_ref(*stat_args[:3], 3.0),
          bound(4 * 8 * n_b + 3 * 8, 10 * n_b),
          None),
+        # the fused dual step over the m + k + n rows: six vectors read and
+        # one written per row (y, a, d, sigma, lo, hi; out) and 3 scalars;
+        # 7 operations a row, one more on the improvement rows
+        ("dual_update", "src/repro_torch/kernels/csrc/pdhg_update.cu",
+         "src/repro/kernels/pdhg_update/kernel.py:101",
+         lambda: pk.dual_update(*dual_main),
+         lambda: pref.dual_update_ref(*dual_main),
+         bound(7 * 8 * rows_b + 3 * 8, 7 * rows_b + n_b),
+         None),
+        # the fused scaled adjoint: both CSR lists (n + 1 pointers each, the
+        # covering rows and the E tenant ids), the m and k duals and row
+        # scales, y_imp, d_imp and s*mov read; gx and yi written; a product
+        # and an add per list entry, four operations per device
+        ("scaled_rmatvec", "src/repro_torch/kernels/csrc/tree_matvec.cu",
+         "src/repro/kernels/tree_matvec/kernel.py:187",
+         lambda: tk.scaled_rmatvec(*adjoint_main),
+         lambda: tref.scaled_rmatvec_ref(*adjoint_main),
+         bound(8 * (n_b + 1) + 4 * (cover_b + e_b) + 16 * (m_b + k_b) + 40 * n_b,
+               2 * (cover_b + e_b) + 4 * n_b),
+         lambda: torch.mv(a_adj, y_cat)),
     ]
     library = {
         "tree_matvec": lambda: torch.mv(a_tree, xv),
@@ -834,7 +1005,8 @@ def main(argv: list[str]) -> int:
     }
     entries = []
     log(f"[6] kernel times on {smi}, float64, n={n_b}, m={m_b}, k={k_b}, E={e_b} "
-        "(dual_prox and dual_chunk_stats at r=n):")
+        "(dual_prox and dual_chunk_stats at r=n; dual_update over m + k + n rows, "
+        "scaled_rmatvec over n devices, each beside the plain composition it replaces):")
     log("[6]   name: device time per call, kernel / plain (host-paced kernel / plain) | bound"
         " | CSR SpMV")
     for kname, source, replaces, fn_kernel, fn_plain, (bound_ms, bound_by), *lib in timing:
@@ -1051,6 +1223,7 @@ def tenant_engine_phase(pdn, layout, kernel_opts, cuda, warm_tenants: bool):
     missing = [k for k in ALLOCATOR_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"[7] kernels never launched: {missing}")
+    check_loop_launches("7", launches, sum(sum(r["phase_iterations"]) for r in rows))
 
     # the same cold step again: the same bits (no atomics on the path)
     card.reset_warm()
@@ -1591,9 +1764,13 @@ def profiled(tag: str, step) -> dict:
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        out = step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a control step's PDHG iterations, over all its solves
+    stats = getattr(out, "stats", None)
+    iterations = sum(stats["phase_iterations"]) if stats is not None else None
+    del out
     calls = {k: v for k, v in kernels.launch_counts().items() if v}
 
     def dev_us(e):
@@ -1606,12 +1783,14 @@ def profiled(tag: str, step) -> dict:
     top = sorted(events, key=dev_us, reverse=True)[:12]
     rows = [{"name": e.key, "calls": e.count, "device_us": dev_us(e)} for e in top]
     log(f"[profile] {tag}: wall {wall_us:.0f} us, device busy {device_us:.0f} us "
-        f"({100.0 * device_us / wall_us:.1f}%), {launches} device launches; "
-        f"the port's kernels' calls {calls}")
+        f"({100.0 * device_us / wall_us:.1f}%), {launches} device launches"
+        + (f" ({launches / iterations:.2f} per PDHG iteration over {iterations})"
+           if iterations else "")
+        + f"; the port's kernels' calls {calls}")
     for r in rows:
         log(f"[profile]   {r['device_us']:9.0f} us  {r['calls']:6d}x  {r['name'][:70]}")
     return {"wall_us": wall_us, "device_us": device_us, "launches": launches,
-            "kernel_calls": calls, "top": rows}
+            "pdhg_iterations": iterations, "kernel_calls": calls, "top": rows}
 
 
 def profile_step(pdn, kernel_opts) -> dict:

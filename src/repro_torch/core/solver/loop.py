@@ -38,6 +38,7 @@ from repro_torch.core.treeops import (
     tree_rmatvec,
 )
 from repro_torch.kernels import pdhg_update as pk
+from repro_torch.kernels import tree_matvec as tk
 
 __all__ = ["solve"]
 
@@ -99,22 +100,28 @@ def solve(
     )
     neg_inf_tree = torch.full((m,), -_INF, dtype=dtype, device=dev)
     pos_inf_imp = torch.full((n,), _INF, dtype=dtype, device=dev)
+    # the column scaling of the scaled operator and the t column's factor in
+    # the adjoint, both constant through the solve
+    sm = sc.s * sc.mov
+    gt_scale = -sc.s_t * sc.t_mov
 
     # per-dual-block primal weights (PDLP multi-block style): the SLA rows
     # get their own omega, and tau_x comes from the omega-weighted per-block
     # column sums so the Pock-Chambolle bound holds for any pair of weights.
     use_blockwise = bool(opts.blockwise_omega and opts.precondition and k > 0)
     if use_blockwise:
-        sm_bw = sc.s * sc.mov
         act_bw = torch.isfinite(prob.imp_lo).to(dtype)
-        col_sla_bw = sm_bw * sla_rmatvec(sc.d_sla, sla, n)
-        col_rest_bw = sm_bw * (tree_rmatvec(sc.d_tree, tree, n) + sc.d_imp * act_bw)
+        col_sla_bw = sm * sla_rmatvec(sc.d_sla, sla, n)
+        col_rest_bw = sm * (tree_rmatvec(sc.d_tree, tree, n) + sc.d_imp * act_bw)
         theta_bw = torch.full((), opts.theta, dtype=dtype, device=dev)
 
     def run_chunk(x, t, y_tree, y_sla, y_imp, omega, om_sla):
         """``opts.check_every`` PDHG iterations, queued without a sync.  The
         step sizes depend only on the primal weights, which change only at
-        checks, so they are formed once per chunk."""
+        checks, so they are formed once per chunk.  With the kernel flags
+        the scaled adjoint is one launch (``use_pallas_tree``) and the whole
+        dual step after the two matvecs another (``use_pallas``); on the
+        CPU both run their plain compositions, the flag-off path's bits."""
         if use_blockwise:
             tau_x = theta_bw / torch.clamp_min(
                 col_rest_bw / omega + col_sla_bw / om_sla, 1e-12
@@ -127,7 +134,15 @@ def solve(
         sig_tree = steps.sig_tree / omega
         sig_imp = steps.sig_imp / omega
         for _ in range(opts.check_every):
-            gx, gt = scaling.scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc, n)
+            if opts.use_pallas_tree:
+                gx, yi = tk.scaled_rmatvec(
+                    y_tree, y_sla, y_imp, sc.d_tree, sc.d_sla, sc.d_imp, sm, tree.index,
+                    sla.index,
+                )
+                # summed by torch, in the flag-off path's order
+                gt = gt_scale * torch.sum(yi)
+            else:
+                gx, gt = scaling.scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc, n)
             if opts.use_pallas:
                 # fused primal prox + extrapolation, one pass over memory
                 x1, xe = pk.primal_update(x, gx, c_s, w_s, target_s, lo_s, hi_s, tau_x)
@@ -143,20 +158,33 @@ def solve(
             t1 = torch.clamp(t - tau_t * (gt + ct_s), tlo_s, thi_s)
             # dual with extrapolation
             te = 2.0 * t1 - t
-            a_tree, a_sla, a_imp = scaling.scaled_matvec(
-                xe, te, tree, sla, sc, use_kernels=opts.use_pallas_tree
-            )
             if opts.use_pallas:
-                y_tree1 = pk.dual_prox(y_tree, a_tree, sig_tree, neg_inf_tree, tree_hi_s)
-                y_imp1 = pk.dual_prox(y_imp, a_imp, sig_imp, imp_lo_s, pos_inf_imp)
+                # scaled_matvec's two matvecs of xm = s * mov * xe, then its
+                # row scaling and the dual prox of all three row blocks in
+                # one launch
+                xm = sm * xe
+                if opts.use_pallas_tree:
+                    kx = tk.tree_matvec(xm, tree.index)
+                else:
+                    kx = tree_matvec(xm, tree)
+                y_tree, y_sla, y_imp = pk.dual_update(
+                    pk.DualBlock(y_tree, kx, sc.d_tree, sig_tree, neg_inf_tree, tree_hi_s),
+                    pk.DualBlock(y_sla, sla_matvec(xm, sla), sc.d_sla, sig_sla, sla_lo_s,
+                                 sla_hi_s),
+                    pk.DualBlock(y_imp, xm, sc.d_imp, sig_imp, imp_lo_s, pos_inf_imp),
+                    sc.s_t, sc.t_mov, te,
+                )
             else:
-                y_tree1 = _dual_prox(
+                a_tree, a_sla, a_imp = scaling.scaled_matvec(
+                    xe, te, tree, sla, sc, use_kernels=opts.use_pallas_tree
+                )
+                y_tree = _dual_prox(
                     y_tree + sig_tree * a_tree, sig_tree, neg_inf_tree, tree_hi_s
                 )
-                y_imp1 = _dual_prox(y_imp + sig_imp * a_imp, sig_imp, imp_lo_s, pos_inf_imp)
-            if k:
-                y_sla = _dual_prox(y_sla + sig_sla * a_sla, sig_sla, sla_lo_s, sla_hi_s)
-            x, t, y_tree, y_imp = x1, t1, y_tree1, y_imp1
+                y_imp = _dual_prox(y_imp + sig_imp * a_imp, sig_imp, imp_lo_s, pos_inf_imp)
+                if k:
+                    y_sla = _dual_prox(y_sla + sig_sla * a_sla, sig_sla, sla_lo_s, sla_hi_s)
+            x, t = x1, t1
         return x, t, y_tree, y_sla, y_imp
 
     def unscale(x, t, yt, ys, yi):

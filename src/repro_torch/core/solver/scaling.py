@@ -39,6 +39,7 @@ from repro_torch.core.treeops import (
     tree_rmatvec,
 )
 from repro_torch.kernels import tree_matvec as tk
+from repro_torch.kernels.tree_matvec.ref import scaled_rmatvec_ref
 
 __all__ = [
     "Scales",
@@ -128,18 +129,20 @@ def scaled_matvec(xs, ts, tree, sla, sc: Scales, *, use_kernels=False):
 
 
 def scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc: Scales, n):
-    """Scaled adjoint S K_mov^T D2 -> (grad on x~, grad on t~).
+    """Scaled adjoint S K_mov^T D2 -> (grad on x~, grad on t~) of ``n``
+    devices (the tree's).
 
-    Both scatter sums take their deterministic kernels on a card and their
+    The plain composition,
+    :func:`repro_torch.kernels.tree_matvec.ref.scaled_rmatvec_ref`: both
+    scatter sums take their deterministic kernels on a card and their
     plain versions on the CPU (see :mod:`repro_torch.core.treeops`), so
-    unlike the reference this needs no kernel switch."""
-    yi = sc.d_imp * y_imp
-    gx = tree_rmatvec(sc.d_tree * y_tree, tree, n)
-    if sla.k:
-        gx = gx + sla_rmatvec(sc.d_sla * y_sla, sla, n)
-    gx = gx + yi
-    gt = -sc.s_t * sc.t_mov * torch.sum(yi)
-    return sc.s * sc.mov * gx, gt
+    unlike the reference this needs no kernel switch.  The solver loop
+    launches the same arithmetic as one kernel with ``use_pallas_tree``."""
+    gx, yi = scaled_rmatvec_ref(
+        y_tree, y_sla, y_imp, sc.d_tree, sc.d_sla, sc.d_imp, sc.s * sc.mov, tree.index,
+        sla.index,
+    )
+    return gx, -sc.s_t * sc.t_mov * torch.sum(yi)
 
 
 def pc_step_sizes(

@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["BuildInfo", "build", "library"]
+__all__ = ["BuildInfo", "DualRows", "DualUpdateArgs", "build", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -52,12 +52,38 @@ _SOLVER = ("f64", "f32")  # the allocator's kernels: float64 and float32 twins
 # the float32 one
 _ATTENTION = ("wgmma", "mma", "f32")
 
+
+
+class DualRows(ctypes.Structure):
+    """One row block of ``dual_update`` (``csrc/pdhg_update.cu``, ``DualRows<T>``):
+    the duals, the matvec's raw output, the row scales, the step sizes (a
+    stride of 1 or 0), the bounds, the output and the row count."""
+
+    _fields_ = [
+        ("y", _PTR), ("a", _PTR), ("d", _PTR), ("sig", _PTR), ("sig_stride", _I64),
+        ("lo", _PTR), ("hi", _PTR), ("out", _PTR), ("count", _I64),
+    ]
+
+
+class DualUpdateArgs(ctypes.Structure):
+    """The fused dual step's arguments, passed by value (``DualUpdateArgs<T>``):
+    the tree, tenant and improvement rows and the 0-d ``s_t``, ``t_mov`` and
+    ``te`` of the improvement rows' t column."""
+
+    _fields_ = [
+        ("tree", DualRows), ("sla", DualRows), ("imp", DualRows),
+        ("s_t", _PTR), ("t_mov", _PTR), ("te", _PTR),
+    ]
+
+
 # argument types of every exported function, by name stem, and the type
 # suffixes of its twins
 _SIGNATURES = {
     "tree_matvec": ([_INT] + [_PTR] * 5 + [_I64, _I64, _PTR], _SOLVER),
     "primal_update": ([_INT] + [_PTR] * 8 + [_I64, _I64, _PTR, _PTR, _PTR], _SOLVER),
     "dual_prox": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR], _SOLVER),
+    "dual_update": ([_INT, DualUpdateArgs, _PTR], _SOLVER),
+    "scaled_rmatvec": ([_INT] + [_PTR] * 11 + [_I64, _I64] + [_PTR] * 3, _SOLVER),
     "segment_sums": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
     "sla_matvec": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
     "primal_chunk_stats": ([_INT] + [_PTR] * 4 + [_F64, _I64] + [_PTR] * 4, _SOLVER),

@@ -14,6 +14,18 @@
 // launch latency.  primal_update streams 8 vectors in and 2 out (0.98 MB in
 // float64 at n = 12,288, about 0.3 us at 3.35 TB/s); dual_prox 5 in and 1 out.
 //
+// dual_update is the whole dual step of one PDHG iteration in one launch,
+// in place of the launches around dual_prox that fed it: the row scaling of
+// the scaled forward operator (core/solver/scaling.py:scaled_matvec)
+//   a_tree = d_tree*kx,  a_sla = d_sla*sx,  a_imp = d_imp*(x - s_t*t_mov*te)
+// and the dual prox of all three row blocks (tree, tenant, improvement),
+// given the two matvec kernels' raw outputs kx and sx and x = s*mov*xe.
+// One grid covers the m + k + n rows: each block's rows start at a CTA
+// boundary, so every CTA runs one block's arithmetic and no warp straddles
+// two; k = 0 leaves the tenant segment empty.  Like dual_prox it is one
+// launch's floor at the paper's sizes (14,025 rows, 0.8 MB in float64, about
+// 0.24 us at 3.35 TB/s): what it saves is the 17 other launches of the step.
+//
 // Design: one grid-stride elementwise pass each, the ragged edge masked by
 // the loop bound, so nothing is padded (the TPU version's tau = 1 and
 // +-finfo.max/2 padding lanes were block artefacts).  A step size is a
@@ -36,6 +48,39 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+// The fused dual step's arguments.  The exported dual_update_* take them by
+// value, so these types live outside the anonymous namespace: a parameter
+// type local to this file would give those functions internal linkage.
+//
+// One row block of the fused dual step: out = prox(y + sig*a') with
+// a' = d*a (tree and tenant rows) or d*(a - s_t*t_mov*te) (improvement rows,
+// a = x).  A step size is read through sig_stride (1: a vector, 0: one
+// scalar).  The layout is the wrapper's ctypes.Structure (_build.DualRows).
+template <typename T>
+struct DualRows {
+  const T* y;
+  const T* a;
+  const T* d;
+  const T* sig;
+  int64_t sig_stride;
+  const T* lo;
+  const T* hi;
+  T* out;
+  int64_t count;
+};
+
+// The three row blocks and the scalars of the improvement rows' t column
+// (_build.DualUpdateArgs).
+template <typename T>
+struct DualUpdateArgs {
+  DualRows<T> tree;
+  DualRows<T> sla;
+  DualRows<T> imp;
+  const T* s_t;
+  const T* t_mov;
+  const T* te;
+};
 
 namespace {
 
@@ -101,6 +146,45 @@ __global__ void __launch_bounds__(kThreads)
     const T z = R::add(y[i], R::mul(s, a[i]));
     out[i] = R::sub(z, R::mul(s, clip(R::div(z, s), lo[i], hi[i])));
   }
+}
+
+// Row i of a block, every operation rounded once in the plain version's
+// order: scaled_matvec's product, then dual_prox's z and prox.
+template <typename T, bool kImp>
+__device__ __forceinline__ void dual_row(const DualRows<T>& r, int64_t i, T shift) {
+  using R = Rn<T>;
+  const T ai = kImp ? R::sub(r.a[i], shift) : r.a[i];
+  const T a = R::mul(r.d[i], ai);
+  const T s = r.sig[i * r.sig_stride];
+  const T z = R::add(r.y[i], R::mul(s, a));
+  r.out[i] = R::sub(z, R::mul(s, clip(R::div(z, s), r.lo[i], r.hi[i])));
+}
+
+// Blocks [0, tree_blocks) take the tree rows, the next sla_blocks the
+// tenant rows, the rest the improvement rows; one row per thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dual_update_kernel(DualUpdateArgs<T> p, int64_t tree_blocks, int64_t sla_blocks) {
+  using R = Rn<T>;
+  int64_t b = blockIdx.x;
+  if (b < tree_blocks) {
+    const DualRows<T> r = p.tree;
+    const int64_t i = b * kThreads + threadIdx.x;
+    if (i < r.count) dual_row<T, false>(r, i, T(0));
+    return;
+  }
+  b -= tree_blocks;
+  if (b < sla_blocks) {
+    const DualRows<T> r = p.sla;
+    const int64_t i = b * kThreads + threadIdx.x;
+    if (i < r.count) dual_row<T, false>(r, i, T(0));
+    return;
+  }
+  b -= sla_blocks;
+  const DualRows<T> r = p.imp;
+  const int64_t i = b * kThreads + threadIdx.x;
+  // s_t * t_mov * te, left to right as torch evaluates it
+  if (i < r.count) dual_row<T, true>(r, i, R::mul(R::mul(*p.s_t, *p.t_mov), *p.te));
 }
 
 constexpr int kStatThreads = 256;
@@ -246,6 +330,23 @@ int dual_prox_impl(int device, const T* y, const T* a, const T* sigma, int64_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+int64_t blocks_of(int64_t rows) { return (rows + kThreads - 1) / kThreads; }
+
+template <typename T>
+int dual_update_impl(int device, const DualUpdateArgs<T>& args, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tree_blocks = blocks_of(args.tree.count);
+  const int64_t sla_blocks = blocks_of(args.sla.count);
+  const int64_t blocks = tree_blocks + sla_blocks + blocks_of(args.imp.count);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0) {
+    dual_update_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        args, tree_blocks, sla_blocks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int primal_chunk_stats_impl(int device, const T* x, const T* px, const T* rx, const T* ax,
                             double cnt, int64_t n, T* axn, T* part, T* out,
@@ -307,6 +408,16 @@ int dual_prox_f32(int device, const float* y, const float* a, const float* sigma
                   void* stream) {
   return dual_prox_impl<float>(device, y, a, sigma, sigma_stride, lo, hi, n, out,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The fused dual step: (y_tree, y_sla, y_imp) -> their outputs, see
+// DualUpdateArgs; the structure is passed by value.
+int dual_update_f64(int device, DualUpdateArgs<double> args, void* stream) {
+  return dual_update_impl<double>(device, args, static_cast<cudaStream_t>(stream));
+}
+
+int dual_update_f32(int device, DualUpdateArgs<float> args, void* stream) {
+  return dual_update_impl<float>(device, args, static_cast<cudaStream_t>(stream));
 }
 
 // (ax + x, [max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2]);

@@ -73,6 +73,18 @@
 // kernel in the same order, so the bits are the plain version's; the chain
 // of ~100 dependent fp64 adds (~1k cycles) is shorter than the loads it
 // replaces.
+//
+// scaled_rmatvec is the whole scaled adjoint of one PDHG iteration in one
+// launch (core/solver/scaling.py:scaled_rmatvec): for each device i
+//   yi[i] = d_imp[i]*y_imp[i],
+//   gx[i] = s[i]*mov[i] * ((sum of d_tree[r]*y_tree[r] over i's covering rows
+//           + sum of d_sla[t]*y_sla[t] over i's tenants) + yi[i]),
+// one thread per device walking the two CSR lists above (the tenant one only
+// when k > 0), each sum from T(0) in list order and every product and sum
+// rounded once, in the order of the 11 launches it replaces (the row scaling
+// of y, tree_rmatvec, sla_rmatvec, the adds and the column scaling), so its
+// bits are theirs.  The solver's gt = -s_t*t_mov*sum(yi) stays a torch
+// reduction on yi: a sum in this launch would add in another order.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -265,6 +277,86 @@ __global__ void __launch_bounds__(kRowThreads)
   out[s] = acc;
 }
 
+template <typename T>
+__device__ __forceinline__ T mul_rn(T a, T b);
+template <>
+__device__ __forceinline__ double mul_rn<double>(double a, double b) { return __dmul_rn(a, b); }
+template <>
+__device__ __forceinline__ float mul_rn<float>(float a, float b) { return __fmul_rn(a, b); }
+
+// List entries a thread of scaled_rmatvec gathers at once: a tree's
+// covering-rows lists hold its depth (4 at the paper's fleet), a device's
+// tenant list 0 or 1 entries under disjoint tenancy.
+constexpr int kWalk = 4;
+
+// The products d[ids[e]] * y[ids[e]] of list entries e = base ... base +
+// kWalk - 1 below stop, each rounded; the loads of all of them go out before
+// any is used.
+template <typename T>
+__device__ __forceinline__ void gather_products(const T* __restrict__ d, const T* __restrict__ y,
+                                                const int32_t* __restrict__ ids, int32_t base,
+                                                int32_t stop, T (&p)[kWalk]) {
+#pragma unroll
+  for (int j = 0; j < kWalk; ++j) {
+    const int32_t e = base + j;
+    p[j] = T(0);
+    if (e < stop) {
+      const int32_t r = ids[e];
+      p[j] = mul_rn(d[r], y[r]);
+    }
+  }
+}
+
+// acc + p[0] + ... + p[count - 1], added in that order
+template <typename T>
+__device__ __forceinline__ T add_in_order(T acc, const T (&p)[kWalk], int32_t count) {
+#pragma unroll
+  for (int j = 0; j < kWalk; ++j) {
+    if (j < count) acc = add_rn(acc, p[j]);
+  }
+  return acc;
+}
+
+// One thread per device i walks its covering-rows list and (k > 0) its
+// tenant list together, kWalk entries of each at a time: the loads of both
+// lists' entries (id, then the dual and its row scale) are in flight at
+// once, and each sum still adds its own list's products d*y in list order
+// from T(0), every product rounded before its add, as segment_sums over the
+// products does.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    scaled_rmatvec_kernel(const T* __restrict__ y_tree, const T* __restrict__ d_tree,
+                          const int32_t* __restrict__ cover_ptr,
+                          const int32_t* __restrict__ cover_rows, const T* __restrict__ y_sla,
+                          const T* __restrict__ d_sla, const int32_t* __restrict__ dev_ptr,
+                          const int32_t* __restrict__ dev_ten, const T* __restrict__ y_imp,
+                          const T* __restrict__ d_imp, const T* __restrict__ sm, int64_t k,
+                          int64_t n, T* __restrict__ gx, T* __restrict__ yi) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (i >= n) return;
+  int32_t a = cover_ptr[i];
+  const int32_t a_stop = cover_ptr[i + 1];
+  int32_t b = 0, b_stop = 0;
+  if (k > 0) {
+    b = dev_ptr[i];
+    b_stop = dev_ptr[i + 1];
+  }
+  const T v = mul_rn(d_imp[i], y_imp[i]);
+  const T scale = sm[i];
+  T tree_sum = T(0);
+  T sla_sum = T(0);
+  for (; a < a_stop || b < b_stop; a += kWalk, b += kWalk) {
+    T pt[kWalk], ps[kWalk];
+    gather_products(d_tree, y_tree, cover_rows, a, a_stop, pt);
+    gather_products(d_sla, y_sla, dev_ten, b, b_stop, ps);
+    tree_sum = add_in_order(tree_sum, pt, a_stop - a);
+    sla_sum = add_in_order(sla_sum, ps, b_stop - b);
+  }
+  const T g = k > 0 ? add_rn(tree_sum, sla_sum) : tree_sum;
+  yi[i] = v;
+  gx[i] = mul_rn(scale, add_rn(g, v));
+}
+
 // The same sums, a warp per list: the lanes gather kSlaChunk values of the
 // list at a time, lane 0 adds them in list order.
 template <typename T>
@@ -327,6 +419,23 @@ int gather_sums_impl(int device, const T* v, const int32_t* ptr, const int32_t* 
   if (nseg > 0) {
     gather_sums<T><<<static_cast<unsigned>(ceil_div(nseg, kSlaWarps)), kSlaWarps * 32, 0, stream>>>(
         v, ptr, idx, nseg, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int scaled_rmatvec_impl(int device, const T* y_tree, const T* d_tree, const int32_t* cover_ptr,
+                        const int32_t* cover_rows, const T* y_sla, const T* d_sla,
+                        const int32_t* dev_ptr, const int32_t* dev_ten, const T* y_imp,
+                        const T* d_imp, const T* sm, int64_t k, int64_t n, T* gx, T* yi,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    scaled_rmatvec_kernel<T>
+        <<<static_cast<unsigned>(ceil_div(n, kRowThreads)), kRowThreads, 0, stream>>>(
+            y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla, dev_ptr, dev_ten, y_imp, d_imp,
+            sm, k, n, gx, yi);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -446,6 +555,29 @@ int segment_sums_f32(int device, const float* v, const int32_t* ptr, const int32
                      int64_t nseg, float* out, void* stream) {
   return segment_sums_impl<float>(device, v, ptr, idx, nseg, out,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// The scaled adjoint: (gx, yi) = (sm * (tree sums + tenant sums + yi),
+// d_imp * y_imp) over the covering-rows and device-tenant CSR lists; the
+// tenant lists are read only when k > 0.
+int scaled_rmatvec_f64(int device, const double* y_tree, const double* d_tree,
+                       const int32_t* cover_ptr, const int32_t* cover_rows, const double* y_sla,
+                       const double* d_sla, const int32_t* dev_ptr, const int32_t* dev_ten,
+                       const double* y_imp, const double* d_imp, const double* sm, int64_t k,
+                       int64_t n, double* gx, double* yi, void* stream) {
+  return scaled_rmatvec_impl<double>(device, y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
+                                     dev_ptr, dev_ten, y_imp, d_imp, sm, k, n, gx, yi,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+int scaled_rmatvec_f32(int device, const float* y_tree, const float* d_tree,
+                       const int32_t* cover_ptr, const int32_t* cover_rows, const float* y_sla,
+                       const float* d_sla, const int32_t* dev_ptr, const int32_t* dev_ten,
+                       const float* y_imp, const float* d_imp, const float* sm, int64_t k,
+                       int64_t n, float* gx, float* yi, void* stream) {
+  return scaled_rmatvec_impl<float>(device, y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
+                                    dev_ptr, dev_ten, y_imp, d_imp, sm, k, n, gx, yi,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // The same sums, a warp per list: sla_matvec passes (x, tenant lists of

@@ -3,10 +3,12 @@
 
 Replace ``repro/kernels/pdhg_update/kernel.py:primal_update``,
 ``:dual_prox``, ``:primal_chunk_stats`` and ``:dual_chunk_stats`` (Pallas,
-TPU).  The source's header comment gives the design
-and what bounds it.  Each wrapper checks its inputs, allocates its outputs
-with ``torch.empty``, launches on the current stream, raises on a non-zero
-``cudaGetLastError``, and counts its launches in :data:`LAUNCHES`.
+TPU); ``dual_update`` is ``dual_prox`` redesigned as the solver's whole dual
+step, with the row scaling before it, in one launch.  The source's header
+comment gives the design and what bounds it.  Each wrapper checks its
+inputs, allocates its outputs with ``torch.empty``, launches on the current
+stream, raises on a non-zero ``cudaGetLastError``, and counts its launches
+in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.pdhg_update.ref import DualBlock
 
 __all__ = [
     "LAUNCHES",
     "dual_chunk_stats",
     "dual_prox",
+    "dual_update",
     "primal_chunk_stats",
     "primal_update",
 ]
@@ -26,6 +30,7 @@ __all__ = [
 LAUNCHES = {
     "primal_update": 0,
     "dual_prox": 0,
+    "dual_update": 0,
     "primal_chunk_stats": 0,
     "dual_chunk_stats": 0,
 }
@@ -118,6 +123,37 @@ def dual_prox(y, a, sigma, lo, hi):
     _raise_on(err, "dual_prox")
     LAUNCHES["dual_prox"] += 1
     return out
+
+
+def _dual_rows(name: str, blk: DualBlock, like: torch.Tensor):
+    """(the block's ``DualRows``, its output, the buffers to keep alive)."""
+    n = blk.y.shape[0]
+    _check(" ".join(f"{name}.{f}" for f in ("y", "a", "d", "lo", "hi")),
+           (blk.y, blk.a, blk.d, blk.lo, blk.hi), n, like)
+    sig, stride = _step(f"{name}.sigma", blk.sigma, n, like)
+    out = torch.empty_like(blk.y)
+    rows = _build.DualRows(
+        blk.y.data_ptr(), blk.a.data_ptr(), blk.d.data_ptr(), sig.data_ptr(), stride,
+        blk.lo.data_ptr(), blk.hi.data_ptr(), out.data_ptr(), n,
+    )
+    return rows, out, sig
+
+
+def dual_update(tree: DualBlock, sla: DualBlock, imp: DualBlock, s_t, t_mov, te):
+    """The fused dual step: each block's ``d * a`` (the improvement rows'
+    ``d * (x - s_t * t_mov * te)``) and dual prox, all rows in one launch.
+    Returns the new (tree, tenant, improvement) duals."""
+    like = imp.y
+    blocks = [_dual_rows(name, blk, like) for name, blk in
+              (("tree", tree), ("sla", sla), ("imp", imp))]
+    scalars = [_step(name, v, 1, like)[0] for name, v in
+               (("s_t", s_t), ("t_mov", t_mov), ("te", te))]
+    args = _build.DualUpdateArgs(*(b[0] for b in blocks), *(v.data_ptr() for v in scalars))
+    fn = getattr(_build.library(), f"dual_update_{_suffix(like.dtype)}")
+    err = fn(like.device.index, args, torch.cuda.current_stream(like.device).cuda_stream)
+    _raise_on(err, "dual_update")
+    LAUNCHES["dual_update"] += 1
+    return tuple(b[1] for b in blocks)
 
 
 def _chunk_stats(name: str, vecs, cnt, n_out: int):

@@ -6,13 +6,22 @@ from __future__ import annotations
 
 from repro_torch.kernels.pdhg_update import kernel
 from repro_torch.kernels.pdhg_update.ref import (
+    DualBlock,
     dual_chunk_stats_ref,
     dual_prox_ref,
+    dual_update_ref,
     primal_chunk_stats_ref,
     primal_update_ref,
 )
 
-__all__ = ["primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats"]
+__all__ = [
+    "DualBlock",
+    "primal_update",
+    "dual_prox",
+    "dual_update",
+    "primal_chunk_stats",
+    "dual_chunk_stats",
+]
 
 
 def primal_update(x, gx, c, w, target, lo, hi, tau):
@@ -25,6 +34,12 @@ def dual_prox(y, a, sigma, lo, hi):
     if y.device.type == "cpu":
         return dual_prox_ref(y, a, sigma, lo, hi)
     return kernel.dual_prox(y, a, sigma, lo, hi)
+
+
+def dual_update(tree: DualBlock, sla: DualBlock, imp: DualBlock, s_t, t_mov, te):
+    if imp.y.device.type == "cpu":
+        return dual_update_ref(tree, sla, imp, s_t, t_mov, te)
+    return kernel.dual_update(tree, sla, imp, s_t, t_mov, te)
 
 
 def primal_chunk_stats(x, px, rx, ax, cnt):

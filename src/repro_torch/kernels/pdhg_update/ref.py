@@ -3,11 +3,15 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = [
+    "DualBlock",
     "primal_update_ref",
     "dual_prox_ref",
+    "dual_update_ref",
     "primal_chunk_stats_ref",
     "dual_chunk_stats_ref",
 ]
@@ -28,6 +32,34 @@ def dual_prox_ref(y, a, sigma, lo, hi):
     z - sigma * clip(z / sigma, lo, hi)."""
     z = y + sigma * a
     return z - sigma * torch.clamp(z / sigma, lo, hi)
+
+
+class DualBlock(NamedTuple):
+    """One row block of the fused dual step: its duals ``y``, the matvec's
+    raw output ``a`` (for the improvement rows, ``x = s * mov * xe``), the
+    row scales ``d``, the step sizes ``sigma`` (a vector, or one 0-d tensor
+    for every row) and the bounds ``lo``/``hi`` (may be infinite)."""
+
+    y: torch.Tensor
+    a: torch.Tensor
+    d: torch.Tensor
+    sigma: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
+def dual_update_ref(tree: DualBlock, sla: DualBlock, imp: DualBlock, s_t, t_mov, te):
+    """The whole dual step of a PDHG iteration: the row scaling of the
+    scaled forward operator (``a_tree = d_tree * kx``, ``a_sla = d_sla * sx``,
+    ``a_imp = d_imp * (x - s_t * t_mov * te)``) and each block's dual prox,
+    in the order of ``core.solver.scaling.scaled_matvec`` and
+    :func:`dual_prox_ref`.  Returns the three blocks' new duals."""
+    a_imp = imp.d * (imp.a - s_t * t_mov * te)
+    return (
+        dual_prox_ref(tree.y, tree.d * tree.a, tree.sigma, tree.lo, tree.hi),
+        dual_prox_ref(sla.y, sla.d * sla.a, sla.sigma, sla.lo, sla.hi),
+        dual_prox_ref(imp.y, a_imp, imp.sigma, imp.lo, imp.hi),
+    )
 
 
 def _max_abs(v):

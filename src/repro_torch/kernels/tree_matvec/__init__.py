@@ -4,6 +4,7 @@ from repro_torch.kernels.tree_matvec.ops import (
     sla_index,
     sla_matvec,
     sla_rmatvec,
+    scaled_rmatvec,
     tree_index,
     tree_matvec,
     tree_rmatvec,
@@ -15,6 +16,7 @@ __all__ = [
     "sla_index",
     "sla_matvec",
     "sla_rmatvec",
+    "scaled_rmatvec",
     "tree_index",
     "tree_matvec",
     "tree_rmatvec",

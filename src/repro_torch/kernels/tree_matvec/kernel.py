@@ -8,7 +8,9 @@ tree sums are one launch (tile scans, a wait for every tile, the row
 gather; a thread block cluster up to 16 tiles, a cooperative grid past
 that), the adjoint and the tenant pair are segmented sums over CSR lists
 built here once per topology, a warp per list for ``sla_matvec``'s long
-tenant lists.  Each wrapper checks its inputs, allocates its output and
+tenant lists.  ``scaled_rmatvec`` is the solver's whole scaled adjoint in
+one launch: both adjoints' list walks with the row and column scaling
+around them.  Each wrapper checks its inputs, allocates its output and
 scratch with ``torch.empty``, launches one kernel on the current stream,
 raises on a non-zero ``cudaGetLastError``, and counts its launches in
 :data:`LAUNCHES`.
@@ -30,12 +32,19 @@ __all__ = [
     "sla_index",
     "sla_matvec",
     "sla_rmatvec",
+    "scaled_rmatvec",
     "tree_index",
     "tree_matvec",
     "tree_rmatvec",
 ]
 
-LAUNCHES = {"tree_matvec": 0, "tree_rmatvec": 0, "sla_matvec": 0, "sla_rmatvec": 0}
+LAUNCHES = {
+    "tree_matvec": 0,
+    "tree_rmatvec": 0,
+    "sla_matvec": 0,
+    "sla_rmatvec": 0,
+    "scaled_rmatvec": 0,
+}
 
 
 class TreeIndex(NamedTuple):
@@ -262,3 +271,48 @@ def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
     _check_vec("y", y, idx.k)
     _check_sla_index(idx, y.device)
     return _segment_sums("sla_rmatvec", y, idx.dev_ptr, idx.dev_ten, idx.n)
+
+
+def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: TreeIndex,
+                   sla_idx: SlaIndex):
+    """(gx, yi) of the scaled adjoint, one thread per device: its covering
+    rows' ``d_tree * y_tree`` summed in list order, then (k > 0) its tenants'
+    ``d_sla * y_sla``, then ``yi = d_imp * y_imp`` added, then the product
+    with ``sm = s * mov``; the bits of :func:`.ref.scaled_rmatvec_ref`."""
+    n, m, k = tree_idx.n, tree_idx.start.shape[0], sla_idx.k
+    for name, v, size in (("y_imp", y_imp, n), ("d_imp", d_imp, n), ("sm", sm, n),
+                          ("y_tree", y_tree, m), ("d_tree", d_tree, m),
+                          ("y_sla", y_sla, k), ("d_sla", d_sla, k)):
+        _check_vec(name, v, size)
+        if v.dtype != y_imp.dtype or v.device != y_imp.device:
+            raise ValueError(f"{name} must be {y_imp.dtype} on {y_imp.device}")
+    _check_index(tree_idx, y_imp.device)
+    if k:
+        if sla_idx.n != n:
+            raise ValueError(f"the tenant index is for n={sla_idx.n} devices, not {n}")
+        _check_sla_index(sla_idx, y_imp.device)
+    gx = torch.empty_like(y_imp)
+    yi = torch.empty_like(y_imp)
+    fn = getattr(_build.library(), f"scaled_rmatvec_{_suffix(y_imp.dtype)}")
+    err = fn(
+        y_imp.device.index,
+        y_tree.data_ptr(),
+        d_tree.data_ptr(),
+        tree_idx.cover_ptr.data_ptr(),
+        tree_idx.cover_rows.data_ptr(),
+        y_sla.data_ptr(),
+        d_sla.data_ptr(),
+        sla_idx.dev_ptr.data_ptr(),
+        sla_idx.dev_ten.data_ptr(),
+        y_imp.data_ptr(),
+        d_imp.data_ptr(),
+        sm.data_ptr(),
+        k,
+        n,
+        gx.data_ptr(),
+        yi.data_ptr(),
+        torch.cuda.current_stream(y_imp.device).cuda_stream,
+    )
+    _raise_on(err, "scaled_rmatvec")
+    LAUNCHES["scaled_rmatvec"] += 1
+    return gx, yi

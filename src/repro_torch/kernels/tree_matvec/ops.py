@@ -9,6 +9,7 @@ import torch
 from repro_torch.kernels.tree_matvec import kernel
 from repro_torch.kernels.tree_matvec.kernel import SlaIndex, TreeIndex, sla_index, tree_index
 from repro_torch.kernels.tree_matvec.ref import (
+    scaled_rmatvec_ref,
     sla_matvec_ref,
     sla_rmatvec_ref,
     tree_matvec_ref,
@@ -21,6 +22,7 @@ __all__ = [
     "sla_index",
     "sla_matvec",
     "sla_rmatvec",
+    "scaled_rmatvec",
     "tree_index",
     "tree_matvec",
     "tree_rmatvec",
@@ -49,3 +51,12 @@ def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
     if y.device.type == "cpu":
         return sla_rmatvec_ref(y, idx.dev, idx.ten, idx.n)
     return kernel.sla_rmatvec(y, idx)
+
+
+def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: TreeIndex,
+                   sla_idx: SlaIndex):
+    if y_imp.device.type == "cpu":
+        return scaled_rmatvec_ref(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx,
+                                  sla_idx)
+    return kernel.scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx,
+                                 sla_idx)

@@ -5,7 +5,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tree_matvec_ref", "tree_rmatvec_ref", "sla_matvec_ref", "sla_rmatvec_ref"]
+__all__ = [
+    "tree_matvec_ref",
+    "tree_rmatvec_ref",
+    "sla_matvec_ref",
+    "sla_rmatvec_ref",
+    "scaled_rmatvec_ref",
+]
 
 
 def tree_matvec_ref(x, start, end):
@@ -35,3 +41,22 @@ def sla_rmatvec_ref(y, dev, ten, n):
     """Adjoint: out[d] = sum_{e: dev_e = d} y[ten_e], added in edge order."""
     out = torch.zeros(n, dtype=y.dtype, device=y.device)
     return out.index_add_(0, dev, y[ten])
+
+
+def scaled_rmatvec_ref(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx, sla_idx):
+    """The scaled adjoint of ``core.solver.scaling.scaled_rmatvec``, composed
+    in its order: ``yi = d_imp * y_imp`` and
+    ``gx = sm * ((tree_rmatvec(d_tree * y_tree) + sla_rmatvec(d_sla * y_sla)) + yi)``
+    with ``sm = s * mov``, the tenant term only when the index has tenants.
+    The two sums dispatch on the device (:mod:`.ops`): the plain versions
+    above on the CPU, on a card the deterministic segment-sum kernels, since
+    ``index_add_`` there adds with atomics in an order that changes from run
+    to run.  Returns ``(gx, yi)``."""
+    from repro_torch.kernels.tree_matvec import ops
+
+    yi = d_imp * y_imp
+    gx = ops.tree_rmatvec(d_tree * y_tree, tree_idx)
+    if sla_idx.k:
+        gx = gx + ops.sla_rmatvec(d_sla * y_sla, sla_idx)
+    gx = gx + yi
+    return sm * gx, yi

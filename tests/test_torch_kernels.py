@@ -45,6 +45,12 @@ from repro.kernels.tree_matvec.ref import tree_matvec_ref as j_tree_matvec_ref  
 from repro.kernels.tree_matvec.ref import (  # noqa: E402
     tree_rmatvec_ref as j_tree_rmatvec_ref,
 )
+from repro.core.solver import loop as j_loop  # noqa: E402
+from repro.core.solver import scaling as j_scaling  # noqa: E402
+from repro.core.treeops import SlaTopo as JSlaTopo  # noqa: E402
+from repro.core.treeops import TreeTopo as JTreeTopo  # noqa: E402
+from repro_torch.core.solver import scaling as t_scaling  # noqa: E402
+from repro_torch.core.treeops import SlaTopo, TreeTopo  # noqa: E402
 from repro_torch.kernels import pdhg_update as pk  # noqa: E402
 from repro_torch.kernels import tree_matvec as tk  # noqa: E402
 from repro_torch.kernels.pdhg_update import kernel as pk_kernel  # noqa: E402
@@ -55,6 +61,7 @@ from repro_torch.pdn.tree import build_from_level_sizes  # noqa: E402
 # reference suite's own bar
 TOL = {np.float64: 1e-12, np.float32: 1e-6}
 JNP = {np.float64: jnp.float64, np.float32: jnp.float32}
+TDT = {np.float64: torch.float64, np.float32: torch.float32}
 
 
 def _close(got, *wants, dtype):
@@ -433,6 +440,161 @@ def test_chunk_stats_of_an_empty_vector_are_zero():
     assert ayn.shape == (0,) and all(float(v) == 0.0 for v in rest)
 
 
+# ---------------------------------------------------------------------------
+# the fused dual step and scaled adjoint of one PDHG iteration
+# ---------------------------------------------------------------------------
+
+# (tenants, vector step sizes, t movable, every column pinned): k = 0 and
+# k > 0, scalar steps, a pinned t column, and all columns pinned; some
+# columns are pinned (mov = 0) in every case
+FUSED_CASES = [
+    pytest.param(0, True, True, False, id="no-tenants"),
+    pytest.param(6, True, True, False, id="tenants"),
+    pytest.param(6, False, True, False, id="scalar-steps"),
+    pytest.param(6, True, False, False, id="pinned-t"),
+    pytest.param(6, True, True, True, id="all-pinned"),
+]
+
+
+def _fused_problem(dtype, k, vector_sigma, t_movable, all_pinned, seed=0):
+    """A 48-device tree with k tenants over random edges, random scales,
+    duals, step sizes and bounds (each bound vector partly infinite), made
+    with numpy from ``seed``: a dict of host arrays."""
+    pdn = build_from_level_sizes([3, 2, 2], gpus_per_server=4)
+    n, m = pdn.n, pdn.m
+    rng = np.random.default_rng(seed)
+
+    def pos(size):
+        return (np.abs(rng.normal(size=size)) + 0.1).astype(dtype)
+
+    def bounds(size):
+        lo = rng.normal(size=size).astype(dtype)
+        hi = lo + pos(size)
+        return (np.where(rng.random(size) < 0.3, -np.inf, lo).astype(dtype),
+                np.where(rng.random(size) < 0.3, np.inf, hi).astype(dtype))
+
+    dev, ten = (rng.integers(0, n, 3 * k), rng.integers(0, k, 3 * k)) if k else ([], [])
+    mov = np.zeros(n) if all_pinned else (rng.random(n) < 0.7)
+    p = dict(
+        pdn=pdn, n=n, m=m, k=k, dev=np.asarray(dev, np.int32), ten=np.asarray(ten, np.int32),
+        s=pos(n), mov=mov.astype(dtype), s_t=dtype(1.7), t_mov=dtype(1.0 if t_movable else 0.0),
+        d_tree=pos(m), d_sla=pos(k), d_imp=pos(n),
+        xs=rng.normal(size=n).astype(dtype), ts=dtype(0.6),
+        y_tree=rng.normal(size=m).astype(dtype), y_sla=rng.normal(size=k).astype(dtype),
+        y_imp=rng.normal(size=n).astype(dtype),
+    )
+    for name, size in (("tree", m), ("sla", k), ("imp", n)):
+        p[f"sig_{name}"] = pos(size) if vector_sigma else dtype(0.37)
+        p[f"lo_{name}"], p[f"hi_{name}"] = bounds(size)
+    return p
+
+
+def _both_topologies(p, dtype):
+    """(reference TreeTopo, SlaTopo, Scales; port TreeTopo, SlaTopo)."""
+    pdn, k = p["pdn"], p["k"]
+    jt = JTreeTopo(jnp.asarray(pdn.node_start), jnp.asarray(pdn.node_end),
+                   jnp.asarray(pdn.node_cap, JNP[dtype]), jnp.asarray(pdn.node_depth))
+    js = JSlaTopo(jnp.asarray(p["dev"]), jnp.asarray(p["ten"]), jnp.zeros(k, JNP[dtype]),
+                  jnp.ones(k, JNP[dtype]))
+    jsc = j_scaling.Scales(*(jnp.asarray(p[f], JNP[dtype]) for f in
+                             ("s", "s_t", "mov", "t_mov", "d_tree", "d_sla", "d_imp")))
+    tt = TreeTopo.make(pdn.node_start, pdn.node_end, pdn.node_cap, pdn.node_depth, p["n"],
+                       dtype=TDT[dtype], device="cpu")
+    ts = SlaTopo.make(p["dev"], p["ten"], np.zeros(k), np.ones(k), n=p["n"], dtype=TDT[dtype],
+                      device="cpu")
+    return jt, js, jsc, tt, ts
+
+
+@pytest.mark.parametrize("k, vector_sigma, t_movable, all_pinned", FUSED_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dual_update_matches_reference(dtype, k, vector_sigma, t_movable, all_pinned):
+    """The fused dual step's plain version (the CPU path of ``dual_update``)
+    against the reference's composition: ``scaled_matvec``, then its Pallas
+    ``dual_prox`` (interpret mode) on the tree and improvement rows and the
+    solver loop's ``_dual_prox`` on the tenant rows."""
+    p = _fused_problem(dtype, k, vector_sigma, t_movable, all_pinned)
+    with enable_x64(dtype == np.float64):
+        jt, js, jsc, tt, ts = _both_topologies(p, dtype)
+        J = {key: jnp.asarray(v, JNP[dtype]) for key, v in p.items()
+             if isinstance(v, (np.ndarray, np.floating)) and key not in ("dev", "ten")}
+        a_tree, a_sla, a_imp = j_scaling.scaled_matvec(J["xs"], J["ts"], jt, js, jsc)
+        want = (
+            j_dual_prox(J["y_tree"], a_tree, J["sig_tree"], J["lo_tree"], J["hi_tree"],
+                        interpret=True),
+            j_loop._dual_prox(J["y_sla"] + J["sig_sla"] * a_sla, J["sig_sla"], J["lo_sla"],
+                              J["hi_sla"]),
+            j_dual_prox(J["y_imp"], a_imp, J["sig_imp"], J["lo_imp"], J["hi_imp"],
+                        interpret=True),
+        )
+    T = {key: torch.as_tensor(v) for key, v in p.items()
+         if isinstance(v, (np.ndarray, np.floating)) and key not in ("dev", "ten")}
+    xm = T["s"] * T["mov"] * T["xs"]
+    blocks = [
+        pk.DualBlock(T[f"y_{b}"], a, T[f"d_{b}"], T[f"sig_{b}"], T[f"lo_{b}"], T[f"hi_{b}"])
+        for b, a in (("tree", tk.tree_matvec(xm, tt.index)),
+                     ("sla", tk.sla_matvec(xm, ts.index)), ("imp", xm))
+    ]
+    got = pk.dual_update(*blocks, T["s_t"], T["t_mov"], T["ts"])
+    assert [g.shape[0] for g in got] == [p["m"], k, p["n"]]
+    for g, w in zip(got, want):
+        assert g.dtype == T["y_imp"].dtype
+        _close(g, w, dtype=dtype)
+
+
+@pytest.mark.parametrize("k, all_pinned", [(0, False), (6, False), (6, True)])
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_scaled_rmatvec_matches_reference(dtype, use_kernels, k, all_pinned):
+    """The fused scaled adjoint's plain version (the CPU path of
+    ``scaled_rmatvec``) against the reference's ``scaled_rmatvec``, through
+    its Pallas adjoints (interpret mode) and its jnp ones; ``gt`` as the
+    solver forms it from the returned ``yi``.  The port's own
+    ``scaling.scaled_rmatvec`` is the same composition, bit for bit."""
+    p = _fused_problem(dtype, k, True, True, all_pinned, seed=1)
+    with enable_x64(dtype == np.float64):
+        jt, js, jsc, tt, ts = _both_topologies(p, dtype)
+        jgx, jgt = j_scaling.scaled_rmatvec(
+            *(jnp.asarray(p[f], JNP[dtype]) for f in ("y_tree", "y_sla", "y_imp")),
+            jt, js, jsc, p["n"], use_kernels=use_kernels,
+        )
+    T = {f: torch.as_tensor(p[f]) for f in
+         ("y_tree", "y_sla", "y_imp", "s", "s_t", "mov", "t_mov", "d_tree", "d_sla", "d_imp")}
+    gx, yi = tk.scaled_rmatvec(T["y_tree"], T["y_sla"], T["y_imp"], T["d_tree"], T["d_sla"],
+                               T["d_imp"], T["s"] * T["mov"], tt.index, ts.index)
+    gt = -T["s_t"] * T["t_mov"] * torch.sum(yi)
+    _close(gx, jgx, dtype=dtype)
+    _close(gt, jgt, dtype=dtype)
+    sc = t_scaling.Scales(*(T[f] for f in ("s", "s_t", "mov", "t_mov", "d_tree", "d_sla",
+                                           "d_imp")))
+    pgx, pgt = t_scaling.scaled_rmatvec(T["y_tree"], T["y_sla"], T["y_imp"], tt, ts, sc, p["n"])
+    assert torch.equal(pgx, gx) and torch.equal(pgt, gt)
+
+
+@pytest.mark.parametrize("with_tenants", [False, True])
+def test_fused_flags_leave_the_cpu_solve_bit_for_bit(with_tenants):
+    """On the CPU the fused dual step and scaled adjoint run their plain
+    compositions: a control step with the two kernel flags on gives the
+    flag-off step's allocation and iterations bit for bit."""
+    from repro_torch.core.engine import AllocEngine
+    from repro_torch.core.nvpax import NvpaxOptions
+    from repro_torch.core.solver import SolverOptions
+    from repro_torch.pdn.tenants import assign_tenants
+
+    pdn = build_from_level_sizes([2, 3, 2], gpus_per_server=4)
+    lay = assign_tenants(pdn, n_tenants=4, devices_per_tenant=8, seed=1)
+    tele = np.random.default_rng(1).uniform(100, 650, pdn.n)
+    runs = []
+    for flags in ({}, dict(use_pallas=True, use_pallas_tree=True)):
+        eng = AllocEngine(
+            pdn, sla=lay.sla_topo(device="cpu") if with_tenants else None,
+            priority=lay.priority, options=NvpaxOptions(solver=SolverOptions(**flags)),
+            device="cpu",
+        )
+        runs.append(eng.step(tele))
+    assert runs[0].stats["phase_iterations"] == runs[1].stats["phase_iterations"]
+    np.testing.assert_array_equal(runs[0].allocation, runs[1].allocation)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper never takes the plain path itself: ops dispatches a CPU
     tensor to ``ref``, and the kernel wrappers only take CUDA tensors."""
@@ -446,6 +608,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pk_kernel.primal_update(*([x] * 8))
     with pytest.raises(ValueError, match="CUDA"):
         pk_kernel.dual_prox(*([x] * 5))
+    blk = pk.DualBlock(x, x, x, x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk_kernel.dual_update(blk, blk, blk, x[0], x[0], x[0])
     with pytest.raises(ValueError, match="CUDA"):
         pk_kernel.primal_chunk_stats(x, x, x, x, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
@@ -455,3 +620,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tk_kernel.sla_matvec(x, sidx)
     with pytest.raises(ValueError, match="CUDA"):
         tk_kernel.sla_rmatvec(torch.zeros(1, dtype=torch.float64), sidx)
+    y = torch.zeros(pdn.m, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk_kernel.scaled_rmatvec(y, x[:1], x, y, x[:1], x, x, idx, sidx)

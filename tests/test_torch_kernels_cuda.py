@@ -17,7 +17,9 @@ int32 (rows that overlap at will need up to m x n entries).  The forward tree su
 three-pass scan it replaced: they equal a host emulation of that arithmetic
 bit for bit.  The tenant
 kernels sum each CSR list in edge order: they equal the CPU plain version
-bit for bit.  The chunk statistics' accumulator and maxima are exact; their
+bit for bit.  The fused dual step (``dual_update``) and scaled adjoint
+(``scaled_rmatvec``) equal the launches they replace bit for bit.  The
+chunk statistics' accumulator and maxima are exact; their
 sums are held to 8 unit roundoffs of the sum (all terms are squares).
 Flash attention is held to its plain version (``attention_ref``) row by
 row, |d| <= tol * max|ref row|: the kernel the wrapper picks and, where that
@@ -52,10 +54,11 @@ STATS_TOL = {torch.float64: 8 * 2.0**-53, torch.float32: 8 * 2.0**-24}
 # 2,162,689 is past the elementwise grid (see test_sizes_cover_a_second_grid_pass)
 SIZES = [1, 31, 1023, 1024, 1025, 3079, 12288, 100_003, 2_162_689]
 DTYPES = [torch.float64, torch.float32]
-# the kernels of the allocator's paths (flash attention is the data plane's)
+# the kernels of the allocator's paths (flash attention is the data plane's;
+# dual_prox stands alone since the fused dual step took its place in the loop)
 ALLOCATOR_KERNELS = (
-    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec",
-    "primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats",
+    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "scaled_rmatvec",
+    "primal_update", "dual_update", "primal_chunk_stats", "dual_chunk_stats",
 )
 
 
@@ -213,8 +216,8 @@ def test_elementwise_kernels_match_plain(cuda, n, dtype, vector_step):
 
 def test_solver_runs_through_the_kernels(cuda):
     """A control step with the tree and update kernel flags on a tree-only
-    fleet launches the four kernels of that path and lands on the plain
-    path's allocation."""
+    fleet launches the five kernels of that path (not the standalone
+    ``dual_prox``) and lands on the plain path's allocation."""
     from repro_torch.core.nvpax import NvpaxOptions, optimize
     from repro_torch.core.problem import AllocProblem
     from repro_torch.core.solver import SolverOptions
@@ -229,8 +232,9 @@ def test_solver_runs_through_the_kernels(cuda):
     plain = optimize(ap, NvpaxOptions(use_waterfill=False))
     reset_launch_counts()
     res = optimize(ap, opts)
-    path = ("tree_matvec", "tree_rmatvec", "primal_update", "dual_prox")
+    path = ("tree_matvec", "tree_rmatvec", "scaled_rmatvec", "primal_update", "dual_update")
     assert all(launch_counts()[k] > 0 for k in path), launch_counts()
+    assert launch_counts()["dual_prox"] == 0
     np.testing.assert_allclose(res.allocation, plain.allocation, rtol=0, atol=1e-6)
     assert res.stats["phase_iterations"] == plain.stats["phase_iterations"]
 
@@ -331,22 +335,114 @@ def _device_kernels(fn, calls):
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def _paper_fused(cuda, dtype, tenants=True, vector_sigma=True, pinned=False, seed=0):
+    """Inputs of the two fused kernels at the paper's shapes (n = 12,288,
+    m = 1,637; with ``tenants`` the Appendix B k = 100, E = 10,000, else
+    k = 0): (dual_update's arguments, scaled_rmatvec's arguments).  About
+    30% of the columns pinned (mov = 0), all with ``pinned``; every bound
+    vector partly infinite; step sizes vectors or one 0-d tensor."""
+    from repro_torch.kernels.pdhg_update.ref import DualBlock
+    from repro_torch.pdn.tenants import appendix_b_layout
+
+    pdn = build_datacenter()
+    n, m = pdn.n, pdn.m
+    tidx = tk.tree_index(pdn.node_start, pdn.node_end, n, cuda)
+    if tenants:
+        lay = appendix_b_layout(pdn, seed=0)
+        dev = np.nonzero(lay.tenant_of >= 0)[0]
+        ten, k = lay.tenant_of[dev], lay.n_tenants
+    else:
+        dev = ten = np.zeros(0, np.int64)
+        k = 0
+    sidx = tk.sla_index(dev, ten, k, n, cuda)
+    rng = np.random.default_rng(seed)
+    inf = float("inf")
+
+    def vec(size):
+        return _vec(rng, size, dtype, cuda, 1.0)
+
+    def pos(size):
+        return vec(size).abs() + 0.1
+
+    mov = torch.zeros(n, dtype=dtype, device=cuda) if pinned else (vec(n) > -0.5).to(dtype)
+    sm = pos(n) * mov
+    blocks = []
+    for size, a in ((m, vec(m)), (k, vec(k)), (n, sm * vec(n))):
+        sig = pos(size) if vector_sigma else torch.full((), 0.37, dtype=dtype, device=cuda)
+        lo = vec(size)
+        hi = lo + pos(size)
+        lo = torch.where(vec(size) > 0.5, -inf, lo)
+        hi = torch.where(vec(size) > 0.5, inf, hi)
+        blocks.append(DualBlock(vec(size), a, pos(size), sig, lo, hi))
+    scalars = [torch.full((), v, dtype=dtype, device=cuda) for v in (1.7, 1.0, 0.6)]
+    adjoint = (vec(m), vec(k), vec(n), pos(m), pos(k), pos(n), sm, tidx, sidx)
+    return (*blocks, *scalars), adjoint
+
+
+def _bits(v):
+    return v.view(torch.int64 if v.dtype == torch.float64 else torch.int32)
+
+
+# (tenants, vector step sizes, every column pinned)
+FUSED_CASES = [
+    pytest.param(True, True, False, id="tenants"),
+    pytest.param(False, True, False, id="no-tenants"),
+    pytest.param(True, False, False, id="scalar-steps"),
+    pytest.param(True, True, True, id="all-pinned"),
+]
+
+
+@pytest.mark.parametrize("tenants, vector_sigma, pinned", FUSED_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_kernels_equal_their_plain_composition(cuda, dtype, tenants, vector_sigma, pinned):
+    """dual_update and scaled_rmatvec at the paper's shapes, one launch per
+    call, give the bits of the launches they replace (max |d| = 0): the
+    plain compositions on the card, whose adjoint sums are the
+    deterministic segment-sum kernels.  dual_update also gives the CPU plain
+    version's bits."""
+    from repro_torch.kernels.pdhg_update.ref import dual_update_ref
+
+    dual, adjoint = _paper_fused(cuda, dtype, tenants, vector_sigma, pinned)
+    reset_launch_counts()
+    got = pk.dual_update(*dual)
+    gx, yi = tk.scaled_rmatvec(*adjoint)
+    assert launch_counts()["dual_update"] == launch_counts()["scaled_rmatvec"] == 1
+    want = dual_update_ref(*dual)
+    cpu = dual_update_ref(*(
+        type(b)(*(v.cpu() for v in b)) if isinstance(b, tuple) else b.cpu() for b in dual
+    ))
+    torch.cuda.synchronize()
+    for g, w, c in zip(got, want, cpu):
+        assert torch.equal(_bits(g), _bits(w)) and torch.equal(_bits(g.cpu()), _bits(c))
+    wgx, wyi = tref.scaled_rmatvec_ref(*adjoint)
+    assert torch.equal(_bits(gx), _bits(wgx)) and torch.equal(_bits(yi), _bits(wyi))
+
+
 def _redesigned(cuda):
-    """tree_matvec on the paper fleet and sla_matvec on its Appendix B
-    tenants, each as (name, call, input it reads)."""
+    """tree_matvec on the paper fleet, sla_matvec on its Appendix B tenants
+    and the two fused kernels at those shapes, each as (name, call, input
+    it reads)."""
     from repro_torch.pdn.tenants import appendix_b_layout
 
     pdn = build_datacenter()
     idx = tk.tree_index(pdn.node_start, pdn.node_end, pdn.n, cuda)
     sla = appendix_b_layout(pdn, seed=0).sla_topo(device=cuda)
     x = _vec(np.random.default_rng(9), pdn.n, torch.float64, cuda)
+    dual, adjoint = _paper_fused(cuda, torch.float64)
     return [
         ("tree_matvec", lambda: tk.tree_matvec(x, idx), x),
         ("sla_matvec", lambda: tk.sla_matvec(x, sla.index), x),
+        ("dual_update", lambda: pk.dual_update(*dual), dual[0].a),
+        ("scaled_rmatvec", lambda: tk.scaled_rmatvec(*adjoint), adjoint[0]),
     ]
 
 
-@pytest.mark.parametrize("which", [0, 1])
+def _first(out):
+    """A call's output, or the first of its outputs."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
 def test_redesigned_kernels_are_one_device_launch_per_call(cuda, which):
     """LAUNCHES counts wrapper calls; the profiler counts what the card ran:
     one kernel per call, nothing else (no memset, no copy)."""
@@ -357,11 +453,15 @@ def test_redesigned_kernels_are_one_device_launch_per_call(cuda, which):
     assert launch_counts()[name] == 6
 
 
-@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
 def test_redesigned_kernels_repeat_their_bits_and_replay_in_a_graph(cuda, which):
     """The same bits on every launch and from a CUDA graph replay, also after
     the graph's input changes in place."""
-    _, fn, x = _redesigned(cuda)[which]
+    _, call, x = _redesigned(cuda)[which]
+
+    def fn():
+        return _first(call())
+
     first = fn()
     for _ in range(5):
         assert torch.equal(fn(), first)
@@ -494,7 +594,7 @@ def test_chunk_stats_kernels_match_plain(cuda, n, dtype):
 
 def test_tenant_engine_step_runs_through_every_kernel(cuda):
     """A cold engine step on a tenant fleet with every kernel flag launches
-    all eight kernels, certifies, keeps the contracts, lands on the CPU
+    all nine kernels of the path, certifies, keeps the contracts, lands on the CPU
     run's iterations, and repeats bit for bit."""
     from repro_torch.core.engine import AllocEngine
     from repro_torch.core.nvpax import NvpaxOptions
@@ -515,7 +615,14 @@ def test_tenant_engine_step_runs_through_every_kernel(cuda):
     eng = engine(cuda)
     reset_launch_counts()
     res = eng.step(tele)
-    assert all(launch_counts()[k] > 0 for k in ALLOCATOR_KERNELS), launch_counts()
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ALLOCATOR_KERNELS), counts
+    # the PDHG loop: one fused dual step and one fused adjoint per iteration;
+    # the standalone adjoints run only outside it (step sizes, KKT checks)
+    iterations = sum(res.stats["phase_iterations"])
+    assert counts["dual_update"] == counts["scaled_rmatvec"] == iterations, counts
+    assert counts["dual_prox"] == 0, counts
+    assert counts["tree_rmatvec"] < iterations and counts["sla_rmatvec"] < iterations, counts
     cpu = engine("cpu").step(tele)
     assert res.stats["kkt_certified"]
     assert res.stats["phase_iterations"] == cpu.stats["phase_iterations"]

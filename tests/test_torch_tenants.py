@@ -196,7 +196,68 @@ def test_appendix_b_cold_step_matches_reference():
     assert (res.allocation >= pdn.dev_l - 1e-9).all() and (res.allocation <= pdn.dev_u + 1e-9).all()
 
 
+def _appendix_b_repin(scale=0.9):
+    """Both packages' CPU ``PowerController`` on the Appendix B fleet with
+    every kernel flag on (``chip_smoke.py`` phase 7's options): a cold step
+    on telemetry sample 0, then ``set_supply_scale(scale)``, which re-pins
+    the engine and drops the warm state, and the same sample again.
+    Returns (requests, reference result, port result) of the re-pinned
+    step."""
+    from repro.power.controller import ControllerConfig as JControllerConfig
+    from repro.power.controller import PowerController as JPowerController
+    from repro_torch.power import ControllerConfig, PowerController
+
+    jpdn = j_build_datacenter()
+    jlay = j_tenants.appendix_b_layout(jpdn, seed=0)
+    jctl = JPowerController(
+        jpdn, sla=jlay.sla_topo(), priority=jlay.priority,
+        config=JControllerConfig(options=JNvpaxOptions(solver=JSolverOptions(**KERNEL_FLAGS))),
+    )
+    pdn = build_datacenter()
+    lay = t_tenants.appendix_b_layout(pdn, seed=0)
+    ctl = PowerController(
+        pdn, sla=lay.sla_topo(device="cpu"), priority=lay.priority,
+        config=ControllerConfig(options=NvpaxOptions(solver=SolverOptions(**KERNEL_FLAGS))),
+        device="cpu",
+    )
+    tele = TelemetrySim(TraceConfig(n_devices=jpdn.n, seed=0)).power(0)
+    out = []
+    for c in (jctl, ctl):
+        c.step(tele)
+        c.set_supply_scale(scale)
+        out.append(c.step(tele))
+    return tele * 1.05, out[0], out[1]
+
+
 if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:] == ["repin"]:
+        # ROADMAP Queue 3's re-pin check: the supply re-pinned to 0.9 on the
+        # Appendix B fleet, a cold step through both packages on the CPU.
+        #   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_tenants.py repin
+        pdn = build_datacenter()
+        lay = t_tenants.appendix_b_layout(pdn, seed=0)
+        req, jres, res = _appendix_b_repin()
+        ju, tu = _useful(req, jres.allocation, pdn), _useful(req, res.allocation, pdn)
+        owned = lay.tenant_of >= 0
+        for tag, r in (("reference", jres), ("port", res)):
+            sums = np.bincount(lay.tenant_of[owned], weights=r.allocation[owned], minlength=100)
+            csum = np.concatenate([[0.0], np.cumsum(r.allocation)])
+            print(
+                f"supply 0.9, {tag}: iterations {r.stats['phase_iterations']}, certified "
+                f"{r.stats['kkt_certified']}, cap excess "
+                f"{(csum[pdn.node_end] - csum[pdn.node_start] - 0.9 * pdn.node_cap).max():.2e} W, "
+                f"tenant bound excess {max((lay.b_min - sums).max(), (sums - lay.b_max).max()):.2e} W",
+                flush=True,
+            )
+        print(
+            f"supply 0.9, port vs reference: phase I {np.abs(res.phase1 - jres.phase1).max():.2e} W, "
+            f"caps {np.abs(res.allocation - jres.allocation).max():.2e} W, useful power "
+            f"{np.abs(tu - ju).max():.2e} W, total {res.allocation.sum() - jres.allocation.sum():+.3e} W",
+            flush=True,
+        )
+        sys.exit(0)
     # The measurements behind ROADMAP Queue 3's Appendix B entry: for cold
     # samples 0-2 (default options), the port's CPU run against the
     # reference's, and the reference against itself on telemetry one ulp up.
