@@ -10,6 +10,8 @@ Run from the repository root with no arguments:
                                           # for the control steps, per PDHG iteration)
     python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
     python3 chip_smoke.py --out DIR       # where the details go
+    python3 chip_smoke.py --stats-digest  # only phases 1-2 and phase 3's digest of the dual
+                                          # chunk statistics (runs in older checkouts too)
 
 Phases, each of which raises on failure:
 
@@ -25,36 +27,46 @@ Phases, each of which raises on failure:
    the tenant pair also against its CPU plain version bit for bit, and over
    repeated launches, ``sla_matvec`` also on lists of 0 to 1,000 edges and
    one list holding every edge; the chunk statistics on extra draws
-   (several seeds at n = 1, 31, 32 and the paper's n); the fused dual step
-   (``dual_update``) and scaled adjoint (``scaled_rmatvec``) against the
-   launches they replace, bit for bit, at the paper's shapes with and
-   without tenants, with scalar step sizes and with every column pinned,
-   and at edge sizes (``dual_update`` also against its CPU plain version);
-   ``tree_matvec``, ``sla_matvec`` and the two fused kernels each one
-   kernel on the card per call (torch.profiler);
+   (several seeds at n = 1, 31, 32 and the paper's n), the dual ones also
+   as the solver's pair of vectors in one call (``dual_chunk_stats_pair``,
+   each vector's bits those of the single-vector call), with a digest of
+   their bits at fixed seeds (``--stats-digest`` prints it alone, so that
+   an older checkout's kernels can be compared); the fused dual step
+   (``dual_update``), scaled adjoint (``scaled_rmatvec``) and primal step
+   (``primal_step``: that adjoint with the primal update as its epilogue)
+   against the launches they replace, bit for bit, at the paper's shapes
+   with and without tenants, with scalar step sizes and with every column
+   pinned, and at edge sizes (``dual_update`` also against its CPU plain
+   version); ``tree_matvec``, ``sla_matvec``, the three fused kernels and
+   the chunk-stats pair each one kernel on the card per call
+   (torch.profiler);
 4. the main path: five warm-started control steps of
    ``repro_torch.core.nvpax.optimize`` on ``build_datacenter()`` with
    telemetry requests, through the kernels
    (``SolverOptions(use_pallas=True, use_pallas_tree=True)``), each checked
    for feasibility and KKT certification and against the port's own CPU
-   run of the same steps; the PDHG loop launches one ``dual_update`` and
-   one ``scaled_rmatvec`` per iteration and no standalone ``dual_prox``,
-   ``tree_rmatvec`` or ``sla_rmatvec``;
+   run of the same steps; the PDHG loop launches one ``primal_step`` and
+   one ``dual_update`` per iteration and no standalone ``scaled_rmatvec``,
+   ``primal_update`` or ``dual_prox``, and ``tree_rmatvec`` and
+   ``sla_rmatvec`` only outside it;
 5. the paper's iterated max-min LP path (``use_waterfill=False``) on a
    1,536-device fleet, with the same checks;
 6. each kernel's time on the card (CUDA events; see :func:`time_calls`)
    beside its plain version's, its bound and, for the tree and tenant
    pairs and the scaled adjoint, a CSR sparse matrix-vector product on the
-   same incidence; the per-launch floor (``dual_prox`` on one row) and ``tree_matvec``'s two
-   paths at their boundary;
+   same incidence; the fused primal step beside the three launches it
+   replaces, the dual chunk-stats pair beside two single-vector calls; the
+   per-launch floor (``dual_prox`` on one row), ``tree_matvec``'s two paths
+   at their boundary, and ``torch.cumsum`` at the paper's n beside the
+   bound of the scan inside ``tree_matvec``;
 7. the serving path on a tenant fleet: ``PowerController.step`` on the
    paper's fleet with the Appendix B tenants (100 x 100 devices), every
    kernel flag on, three cold steps, each checked for certification,
    breaker caps, tenant contracts, and Phase I and useful power against the
    port's CPU run (the caps' distance from it is measured and reported, see
    :func:`tenant_engine_phase`), and the PDHG loop's launches held as in
-   phase 4; then a repeated step (identical bits) and a supply re-pin (no
-   rebuild).
+   phase 4, with one launch of each chunk statistic per KKT check; then a
+   repeated step (identical bits) and a supply re-pin (no rebuild).
    ``--warm-tenants`` adds one warm-carried step (iterations and
    certificate only);
 8. the data plane's serving path on qwen3-4b at full width (36 layers,
@@ -96,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -164,8 +177,12 @@ STATS_DRAWS = 64
 # sla_matvec list lengths around a warp (32 lanes) and past the kernel's
 # 128-edge chunk; "all": one tenant holds every edge
 LIST_LENGTHS = (0, 1, 31, 32, 33, 1000, "all")
-# the fused dual step and scaled adjoint at edge sizes beside the paper's
+# the fused dual step, scaled adjoint and primal step at edge sizes beside
+# the paper's
 FUSED_SIZES = (1, 1025, 100_003)
+# the digest of the dual chunk statistics: (m, n) of the solver's two dual
+# vectors at fixed seeds, the paper's fleet among them
+DIGEST_SHAPES = ((1_637, 12_288), (0, 5), (1, 1), (31, 2_162_689))
 # their outputs are compared bit for bit, as integers of the same width
 BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
 LIMITS = {
@@ -184,11 +201,12 @@ LIMITS = {
 ENGINE_SAMPLES = (0, 1, 2)
 SLA_FEAS_TOL = 1e-6  # watts: tenant sums inside [b_min, b_max]
 # the kernels of the tenant serving path (phase 7); flash attention is
-# phase 8's, and dual_prox stands alone (phase 6) since the fused dual step
-# took its place in the PDHG loop
+# phase 8's, and dual_prox, scaled_rmatvec and primal_update stand alone
+# (phases 3 and 6) since the fused dual step and primal step took their
+# place in the PDHG loop
 ALLOCATOR_KERNELS = (
-    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "scaled_rmatvec",
-    "primal_update", "dual_update", "primal_chunk_stats", "dual_chunk_stats",
+    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "primal_step",
+    "dual_update", "primal_chunk_stats", "dual_chunk_stats",
 )
 # the flash-attention kernels: Hopper (TMA + wgmma) and mma.sync bf16, float32
 FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_mma", "flash_attention_f32")
@@ -319,6 +337,55 @@ def on_cpu(args):
     return [type(a)(*(v.cpu() for v in a)) if isinstance(a, tuple) else a.cpu() for a in args]
 
 
+def step_inputs(adjoint, gen, vector_tau=True):
+    """The fused primal step's inputs over the scaled adjoint's, drawn from
+    ``gen``: (x, y_tree, y_sla, y_imp, tau, PrimalStepData); a third of the
+    columns linear (w = 0); the step size a vector or one 0-d tensor."""
+    y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tidx, sidx = adjoint
+
+    def vec():
+        return torch.as_tensor(gen.normal(size=tidx.n), dtype=sm.dtype, device=sm.device)
+
+    x, c, target = vec(), vec(), vec()
+    w = vec().abs()
+    w[::3] = 0
+    lo = vec() - 1.0
+    hi = lo + vec().abs() + 0.1
+    tau = (vec().abs() + 0.05 if vector_tau
+           else torch.full((), 0.37, dtype=sm.dtype, device=sm.device))
+    return x, y_tree, y_sla, y_imp, tau, tk.PrimalStepData(c, w, target, lo, hi, d_tree, d_sla,
+                                                           d_imp, sm, tidx, sidx)
+
+
+def step_composition(x, y_tree, y_sla, y_imp, tau, data):
+    """The three launches the fused primal step replaces: the scaled adjoint
+    kernel, the primal update kernel and the column scaling xm = sm * xe."""
+    gx, yi = tk.scaled_rmatvec(y_tree, y_sla, y_imp, data.d_tree, data.d_sla, data.d_imp,
+                               data.sm, data.tree_idx, data.sla_idx)
+    x1, xe = pk.primal_update(x, gx, *data[:5], tau)
+    return x1, xe, data.sm * xe, yi
+
+
+def stats_digest(device, pair: bool = False) -> str:
+    """A digest of the dual chunk statistics' bits (accumulators and sums,
+    float64 and float32) on the solver's two dual vectors at
+    ``DIGEST_SHAPES``, each pair drawn from a seed of its own: through the
+    single-vector ``dual_chunk_stats``, which every version of the port
+    has, or (``pair``) through one ``dual_chunk_stats_pair`` call."""
+    h = hashlib.sha256()
+    for dtype in (torch.float64, torch.float32):
+        for j, (m, n) in enumerate(DIGEST_SHAPES):
+            gen = np.random.default_rng(20_000 + j)
+            vecs = [tuple(torch.as_tensor(gen.normal(size=r) * 100.0, dtype=dtype, device=device)
+                          for _ in range(3)) for r in (m, n)]
+            outs = (pk.dual_chunk_stats_pair(*vecs, 3.0) if pair
+                    else [pk.dual_chunk_stats(*v, 3.0) for v in vecs])
+            for out in outs:
+                for t in out:
+                    h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def scaled_adjoint_csr(adjoint, device):
     """S K_mov^T D of the scaled adjoint as one CUDA CSR matrix, n x (m + k + n):
     row i holds s_i mov_i d_j at its covering tree rows j, its tenants and
@@ -409,23 +476,33 @@ def timed_steps(pdn_, requests, priority, options, device):
 
 
 # the kernels of the tree-only optimize paths (phases 4 and 5)
-OPTIMIZE_KERNELS = ("tree_matvec", "tree_rmatvec", "scaled_rmatvec", "primal_update", "dual_update")
+OPTIMIZE_KERNELS = ("tree_matvec", "tree_rmatvec", "primal_step", "dual_update")
 
 
-def check_loop_launches(tag, launches, iterations: int) -> None:
-    """The PDHG loop launches one fused dual step and one fused adjoint per
-    iteration and no standalone ``dual_prox``; the standalone adjoints run
-    only outside it (step sizes, KKT checks, repair), so fewer times than
-    the loop iterates."""
-    log(f"[{tag}] PDHG loop: {iterations} iterations, dual_update {launches['dual_update']}, "
-        f"scaled_rmatvec {launches['scaled_rmatvec']}, dual_prox {launches['dual_prox']}; "
-        f"outside it tree_rmatvec {launches['tree_rmatvec']}, "
-        f"sla_rmatvec {launches['sla_rmatvec']}")
-    if not (launches["dual_update"] == launches["scaled_rmatvec"] == iterations
+def check_loop_launches(tag, launches, iterations: int, stats: bool = False) -> None:
+    """The PDHG loop launches one fused primal step and one fused dual step
+    per iteration and no standalone ``scaled_rmatvec``, ``primal_update`` or
+    ``dual_prox``; the standalone adjoints run only outside it (step sizes,
+    KKT checks, repair), so fewer times than the loop iterates.  With
+    ``stats`` (the chunk-statistics flag) each KKT check, one per
+    ``check_every`` iterations, launches each chunk statistic once: the
+    dual one takes both dual vectors."""
+    checks = iterations // SolverOptions().check_every
+    log(f"[{tag}] PDHG loop: {iterations} iterations, {checks} checks; primal_step "
+        f"{launches['primal_step']}, dual_update {launches['dual_update']}, scaled_rmatvec "
+        f"{launches['scaled_rmatvec']}, primal_update {launches['primal_update']}, dual_prox "
+        f"{launches['dual_prox']}, primal_chunk_stats {launches['primal_chunk_stats']}, "
+        f"dual_chunk_stats {launches['dual_chunk_stats']}; outside it tree_rmatvec "
+        f"{launches['tree_rmatvec']}, sla_rmatvec {launches['sla_rmatvec']}")
+    per_check = checks if stats else 0
+    if not (launches["primal_step"] == launches["dual_update"] == iterations
+            and launches["scaled_rmatvec"] == launches["primal_update"] == 0
             and launches["dual_prox"] == 0
+            and launches["primal_chunk_stats"] == launches["dual_chunk_stats"] == per_check
             and launches["tree_rmatvec"] < iterations and launches["sla_rmatvec"] < iterations):
-        raise AssertionError(f"[{tag}] the PDHG loop's launches are not one fused dual step and "
-                             f"one fused adjoint per iteration: {launches}")
+        raise AssertionError(f"[{tag}] the PDHG loop's launches are not one fused primal step "
+                             f"and one fused dual step per iteration and {per_check} of each "
+                             f"chunk statistic: {launches}")
 
 
 def run_steps(tag, pdn_, requests, options, seed, device="cuda"):
@@ -531,6 +608,10 @@ def main(argv: list[str]) -> int:
         action="store_true",
         help="also run one warm-carried step on the tenant fleet (iterations only)",
     )
+    parser.add_argument(
+        "--stats-digest", action="store_true",
+        help="build, print phase 3's digest of the dual chunk statistics and stop",
+    )
     parser.add_argument("--out", default=str(ROOT / "artifacts" / "chip_smoke"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -569,6 +650,10 @@ def main(argv: list[str]) -> int:
             log(f"[2]   {line.strip()}")
     report["build_s"] = info.seconds
     report["build_reused"] = info.reused
+    if args.stats_digest:
+        log(f"[3] dual_chunk_stats digest at seeds 20000.. over (m, n) in {DIGEST_SHAPES}, "
+            f"float64 and float32: {stats_digest(cuda)}")
+        return 0
 
     # -- 3. kernels vs plain ----------------------------------------------
     pdn = build_datacenter()
@@ -683,6 +768,32 @@ def main(argv: list[str]) -> int:
                 else:
                     check(f"{name_} sums", key, g, r, r.clamp_min(1e-300), main_shape)
 
+    def check_pair(m, n, dtype, main_shape, gen):
+        """The dual statistics of two vectors in one launch against their
+        plain version (accumulators exact, sums to STATS_TOL), each vector's
+        bits those of the single-vector call, on repeated launches too."""
+        key = str(dtype).split(".")[-1]
+        vecs = [tuple(on_card(gen.normal(size=r) * 100.0, dtype) for _ in range(3))
+                for r in (m, n)]
+        got = pk.dual_chunk_stats_pair(*vecs, 3.0)
+        again = pk.dual_chunk_stats_pair(*vecs, 3.0)
+        want = pref.dual_chunk_stats_pair_ref(*vecs, 3.0)
+        for g, w, v, g2 in zip(got, want, vecs, again):
+            if v[0].numel():  # an empty vector's accumulator is empty
+                check("dual_chunk_stats", key, g[0], w[0], w[0].abs().clamp_min(1.0),
+                      main_shape)
+            for gs, ws in zip(g[1:], w[1:]):
+                # an empty vector's sums are 0: the scale's floor is the
+                # dtype's least normal number (1e-300 is 0 in float32)
+                check("dual_chunk_stats sums", key, gs, ws, ws.clamp_min(torch.finfo(dtype).tiny),
+                      main_shape)
+            for other in (pk.dual_chunk_stats(*v, 3.0), g2):
+                n_checks[0] += 1
+                if not all(torch.equal(a, b) for a, b in zip(other, g)):
+                    raise AssertionError(f"dual_chunk_stats_pair (m={m}, n={n}, {dtype}) is not "
+                                         "the single-vector call's bits, or differs between "
+                                         "launches")
+
     def check_tree(n, start, end, dtype, main_shape, gen=None):
         gen = rng if gen is None else gen
         key = str(dtype).split(".")[-1]
@@ -697,17 +808,25 @@ def main(argv: list[str]) -> int:
               float(y.abs().sum()), main_shape)
 
     def check_fused(tidx, sidx, dtype, main_shape, gen, vector_sigma=True, pinned=False):
-        """dual_update and scaled_rmatvec against the launches they replace
-        (their plain compositions on the card, whose adjoint sums are the
-        deterministic segment-sum kernels), and dual_update against its CPU
-        plain version: the same bits (max |d| = 0)."""
+        """dual_update, scaled_rmatvec and primal_step against the launches
+        they replace (dual_update's and scaled_rmatvec's plain compositions
+        on the card, whose adjoint sums are the deterministic segment-sum
+        kernels; primal_step's three launches, scaled_rmatvec, primal_update
+        and the column scaling, and its plain version on the card), and
+        dual_update against its CPU plain version: the same bits (max |d| =
+        0).  The primal step's step size is a vector with ``vector_sigma``,
+        else one scalar."""
         dual, adjoint = fused_inputs(tidx, sidx, dtype, gen, vector_sigma, pinned)
+        step = step_inputs(adjoint, gen, vector_sigma)
         got_d = pk.dual_update(*dual)
         got_a = tk.scaled_rmatvec(*adjoint)
+        got_s = tk.primal_step(*step[:-1], tk.primal_step_plan(step[-1]))
         for name_, got, want in (
             ("dual_update", got_d, pref.dual_update_ref(*dual)),
             ("dual_update", got_d, pref.dual_update_ref(*on_cpu(dual))),
             ("scaled_rmatvec", got_a, tref.scaled_rmatvec_ref(*adjoint)),
+            ("primal_step", got_s, step_composition(*step)),
+            ("primal_step", got_s, tref.primal_step_ref(*step)),
         ):
             for g, w in zip(got, want):
                 n_checks[0] += 1
@@ -754,6 +873,11 @@ def main(argv: list[str]) -> int:
     x_main = on_card(np.random.default_rng(12_288).normal(size=n_main), torch.float64)
     dual_main, adjoint_main = fused_inputs(idx_main, sidx_main, torch.float64,
                                            np.random.default_rng(18))
+    step_main = step_inputs(adjoint_main, np.random.default_rng(21))
+    plan_main = tk.primal_step_plan(step_main[-1])
+    gen = np.random.default_rng(22)
+    pair_main = [tuple(on_card(gen.normal(size=r) * 100.0, torch.float64) for _ in range(3))
+                 for r in (m_main, n_main)]
     t0 = time.perf_counter()
     for dtype in (torch.float64, torch.float32):
         main = dtype == torch.float64
@@ -783,6 +907,13 @@ def main(argv: list[str]) -> int:
             for seed in range(STATS_DRAWS if n == 1 else 3):
                 gen = np.random.default_rng(10_000 * n + seed)
                 check_stats(n, dtype, False, gen, cnt=float(1 + seed % 7))
+        # the dual statistics of the solver's two dual vectors in one launch:
+        # the paper's tree and improvement rows, an empty vector, one row,
+        # and a vector past the elementwise grid
+        gen = np.random.default_rng(19)
+        check_pair(m_main, n_main, dtype, main, gen)
+        for m_p, n_p in ((0, n_main), (1, 1), (n_main, 0), (1_025, 2 * grid + 1)):
+            check_pair(m_p, n_p, dtype, False, gen)
         # tree_matvec on both sides of its one-cluster path's last size
         for n in tree_sizes:
             gen = np.random.default_rng(n)
@@ -809,7 +940,7 @@ def main(argv: list[str]) -> int:
                         dtype, False, gen)
     log(f"[3] {n_checks[0]} kernel-vs-plain checks passed in {time.perf_counter() - t0:.1f} s "
         f"(tile {tile}, elementwise grid {grid} threads; n in {edge_sizes} and "
-        f"{tree_sizes} for tree_matvec, {FUSED_SIZES} for the fused pair; sla_matvec lists of "
+        f"{tree_sizes} for tree_matvec, {FUSED_SIZES} for the fused kernels; sla_matvec lists of "
         f"{LIST_LENGTHS} edges; "
         f"{STATS_DRAWS} chunk-stats draws at n=1); max |d| at "
         f"n={n_main}, m={m_main}, float64: "
@@ -826,15 +957,23 @@ def main(argv: list[str]) -> int:
         ("sla_matvec", lambda: tk.sla_matvec(x_main, sidx_main)),
         ("dual_update", lambda: pk.dual_update(*dual_main)),
         ("scaled_rmatvec", lambda: tk.scaled_rmatvec(*adjoint_main)),
+        ("primal_step", lambda: tk.primal_step(*step_main[:-1], plan_main)),
+        ("dual_chunk_stats", lambda: pk.dual_chunk_stats_pair(*pair_main, 3.0)),
     ):
         ran = device_kernels(fn, 5)
         if len(ran) != 5:
             raise AssertionError(f"{name_}: 5 calls ran {len(ran)} kernels on the card: {ran}")
         one_launch[name_] = sorted(set(ran))
     log(f"[3] one kernel on the card per call (torch.profiler, 5 calls): {one_launch}")
+    digest = stats_digest(cuda)
+    if stats_digest(cuda, pair=True) != digest:
+        raise AssertionError("[3] dual_chunk_stats_pair's bits are not the single-vector calls'")
+    log(f"[3] dual_chunk_stats digest at seeds 20000.. over (m, n) in {DIGEST_SHAPES}, float64 "
+        f"and float32: {digest} (the pair's the same)")
     report["kernel_checks"] = {
         "count": n_checks[0],
         "device_kernels_per_call": one_launch,
+        "dual_chunk_stats_digest": digest,
         "max_abs_err_f64": max_err,
         "max_rel_err": worst,
         "limits": LIMITS,
@@ -971,12 +1110,13 @@ def main(argv: list[str]) -> int:
          lambda: pref.primal_chunk_stats_ref(*stat_args, 3.0),
          bound(5 * 8 * n_b + 4 * 8, 13 * n_b),
          None),
-        # 3 vectors read, the accumulator and 3 scalars written (r = n)
+        # the solver's two dual vectors (r = m + n rows) in one launch: 3
+        # vectors read, the accumulator and 3 scalars written per vector
         ("dual_chunk_stats", "src/repro_torch/kernels/csrc/pdhg_update.cu",
          "src/repro/kernels/pdhg_update/kernel.py:190",
-         lambda: pk.dual_chunk_stats(*stat_args[:3], 3.0),
-         lambda: pref.dual_chunk_stats_ref(*stat_args[:3], 3.0),
-         bound(4 * 8 * n_b + 3 * 8, 10 * n_b),
+         lambda: pk.dual_chunk_stats_pair(*pair_main, 3.0),
+         lambda: pref.dual_chunk_stats_pair_ref(*pair_main, 3.0),
+         bound(4 * 8 * (m_b + n_b) + 6 * 8, 10 * (m_b + n_b)),
          None),
         # the fused dual step over the m + k + n rows: six vectors read and
         # one written per row (y, a, d, sigma, lo, hi; out) and 3 scalars;
@@ -998,6 +1138,17 @@ def main(argv: list[str]) -> int:
          bound(8 * (n_b + 1) + 4 * (cover_b + e_b) + 16 * (m_b + k_b) + 40 * n_b,
                2 * (cover_b + e_b) + 4 * n_b),
          lambda: torch.mv(a_adj, y_cat)),
+        # the fused primal step: scaled_rmatvec's reads and its yi write, the
+        # prox's seven vectors (x, c, w, target, lo, hi, tau) read and x1,
+        # xe, xm written; gx stays in a register.  scaled_rmatvec's
+        # operations, ten for the prox and one for xm per device
+        ("primal_step", "src/repro_torch/kernels/csrc/tree_matvec.cu",
+         "src/repro/kernels/pdhg_update/kernel.py:78",
+         lambda: tk.primal_step(*step_main[:-1], plan_main),
+         lambda: tref.primal_step_ref(*step_main),
+         bound(8 * (n_b + 1) + 4 * (cover_b + e_b) + 16 * (m_b + k_b) + 112 * n_b,
+               2 * (cover_b + e_b) + 15 * n_b),
+         None),
     ]
     library = {
         "tree_matvec": lambda: torch.mv(a_tree, xv),
@@ -1005,8 +1156,9 @@ def main(argv: list[str]) -> int:
     }
     entries = []
     log(f"[6] kernel times on {smi}, float64, n={n_b}, m={m_b}, k={k_b}, E={e_b} "
-        "(dual_prox and dual_chunk_stats at r=n; dual_update over m + k + n rows, "
-        "scaled_rmatvec over n devices, each beside the plain composition it replaces):")
+        "(dual_prox at r=n; dual_chunk_stats over the m + n rows of the dual pair; "
+        "dual_update over m + k + n rows; scaled_rmatvec and primal_step over n devices, each "
+        "beside the plain composition it replaces):")
     log("[6]   name: device time per call, kernel / plain (host-paced kernel / plain) | bound"
         " | CSR SpMV")
     for kname, source, replaces, fn_kernel, fn_plain, (bound_ms, bound_by), *lib in timing:
@@ -1033,6 +1185,26 @@ def main(argv: list[str]) -> int:
     log(f"[6]   dual_prox at r=m={m_b}: {dm_ms * 1e3:.2f} / {dm_plain * 1e3:.2f} us "
         f"({dm_paced * 1e3:.2f} / {dm_plain_paced * 1e3:.2f} us) | "
         f"{bound(6 * 8 * m_b, 7 * m_b)[0] * 1e3:.3f} us")
+    # what the fused kernels replace in the loop: the primal step's three
+    # launches, the two single-vector calls of the dual statistics
+    step_ms, step_paced = time_calls(lambda: step_composition(*step_main))
+    log(f"[6]   primal_step's three launches (scaled_rmatvec, primal_update, sm * xe): "
+        f"{step_ms * 1e3:.2f} us ({step_paced * 1e3:.2f} us host-paced)")
+    two_ms, two_paced = time_calls(lambda: [pk.dual_chunk_stats(*v, 3.0) for v in pair_main])
+    log(f"[6]   dual_chunk_stats as two single-vector calls (r=m, r=n): {two_ms * 1e3:.2f} us "
+        f"({two_paced * 1e3:.2f} us host-paced)")
+    sn_ms, sn_paced = time_calls(lambda: pk.dual_chunk_stats(*stat_args[:3], 3.0))
+    sn_plain, sn_plain_paced = time_calls(lambda: pref.dual_chunk_stats_ref(*stat_args[:3], 3.0))
+    log(f"[6]   dual_chunk_stats at r=n={n_b}: {sn_ms * 1e3:.2f} / {sn_plain * 1e3:.2f} us "
+        f"({sn_paced * 1e3:.2f} / {sn_plain_paced * 1e3:.2f} us) | "
+        f"{bound(4 * 8 * n_b + 3 * 8, 10 * n_b)[0] * 1e3:.3f} us")
+    # the scan inside tree_matvec (the reference's _blocked_prefix) has no
+    # launch of its own: torch.cumsum of the same n values beside its bound
+    # (n values read, n written)
+    cumsum_ms, cumsum_paced = time_calls(lambda: torch.cumsum(xv, 0))
+    log(f"[6]   the scan of tree_matvec (_blocked_prefix): torch.cumsum at n={n_b}: "
+        f"{cumsum_ms * 1e3:.2f} us ({cumsum_paced * 1e3:.2f} us host-paced) | "
+        f"{bound(16 * n_b, n_b)[0] * 1e3:.3f} us")
     s_m = [v[:m_b].contiguous() for v in stat_args[:3]]
     sm_ms, sm_paced = time_calls(lambda: pk.dual_chunk_stats(*s_m, 3.0))
     sm_plain, sm_plain_paced = time_calls(lambda: pref.dual_chunk_stats_ref(*s_m, 3.0))
@@ -1065,6 +1237,12 @@ def main(argv: list[str]) -> int:
                              "plain_paced_ms": dm_plain_paced},
         "dual_chunk_stats_rows_m": {"ms": sm_ms, "plain_ms": sm_plain, "paced_ms": sm_paced,
                                     "plain_paced_ms": sm_plain_paced},
+        "dual_chunk_stats_rows_n": {"ms": sn_ms, "plain_ms": sn_plain, "paced_ms": sn_paced,
+                                    "plain_paced_ms": sn_plain_paced},
+        "dual_chunk_stats_two_calls": {"ms": two_ms, "paced_ms": two_paced},
+        "primal_step_three_launches": {"ms": step_ms, "paced_ms": step_paced},
+        "blocked_prefix_cumsum": {"ms": cumsum_ms, "paced_ms": cumsum_paced,
+                                  "bound_ms": bound(16 * n_b, n_b)[0]},
     }
 
     # -- 7. the serving path on the tenant fleet -----------------------------
@@ -1223,7 +1401,8 @@ def tenant_engine_phase(pdn, layout, kernel_opts, cuda, warm_tenants: bool):
     missing = [k for k in ALLOCATOR_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"[7] kernels never launched: {missing}")
-    check_loop_launches("7", launches, sum(sum(r["phase_iterations"]) for r in rows))
+    check_loop_launches("7", launches, sum(sum(r["phase_iterations"]) for r in rows),
+                        stats=kernel_opts.use_pallas_stats)
 
     # the same cold step again: the same bits (no atomics on the path)
     card.reset_warm()

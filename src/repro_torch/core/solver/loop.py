@@ -104,6 +104,15 @@ def solve(
     # the adjoint, both constant through the solve
     sm = sc.s * sc.mov
     gt_scale = -sc.s_t * sc.t_mov
+    # with both kernel flags the primal half of an iteration (the scaled
+    # adjoint, the primal update and xm = s * mov * xe) is one launch; its
+    # fixed inputs are checked here, once per solve
+    fused_primal = opts.use_pallas and opts.use_pallas_tree
+    if fused_primal:
+        step_plan = tk.primal_step_plan(tk.PrimalStepData(
+            c_s, w_s, target_s, lo_s, hi_s, sc.d_tree, sc.d_sla, sc.d_imp, sm, tree.index,
+            sla.index,
+        ))
 
     # per-dual-block primal weights (PDLP multi-block style): the SLA rows
     # get their own omega, and tau_x comes from the omega-weighted per-block
@@ -118,10 +127,13 @@ def solve(
     def run_chunk(x, t, y_tree, y_sla, y_imp, omega, om_sla):
         """``opts.check_every`` PDHG iterations, queued without a sync.  The
         step sizes depend only on the primal weights, which change only at
-        checks, so they are formed once per chunk.  With the kernel flags
-        the scaled adjoint is one launch (``use_pallas_tree``) and the whole
-        dual step after the two matvecs another (``use_pallas``); on the
-        CPU both run their plain compositions, the flag-off path's bits."""
+        checks, so they are formed once per chunk.  With both kernel flags
+        the scaled adjoint with the primal update is one launch
+        (``primal_step``), and the whole dual step after the two matvecs
+        another (``dual_update``); with one flag, the scaled adjoint
+        (``use_pallas_tree``) or the primal update and dual step
+        (``use_pallas``) take their kernels.  On the CPU every kernel runs
+        its plain composition, the flag-off path's bits."""
         if use_blockwise:
             tau_x = theta_bw / torch.clamp_min(
                 col_rest_bw / omega + col_sla_bw / om_sla, 1e-12
@@ -134,27 +146,32 @@ def solve(
         sig_tree = steps.sig_tree / omega
         sig_imp = steps.sig_imp / omega
         for _ in range(opts.check_every):
-            if opts.use_pallas_tree:
-                gx, yi = tk.scaled_rmatvec(
-                    y_tree, y_sla, y_imp, sc.d_tree, sc.d_sla, sc.d_imp, sm, tree.index,
-                    sla.index,
-                )
+            if fused_primal:
+                x1, xe, xm, yi = tk.primal_step(x, y_tree, y_sla, y_imp, tau_x, step_plan)
                 # summed by torch, in the flag-off path's order
                 gt = gt_scale * torch.sum(yi)
             else:
-                gx, gt = scaling.scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc, n)
-            if opts.use_pallas:
-                # fused primal prox + extrapolation, one pass over memory
-                x1, xe = pk.primal_update(x, gx, c_s, w_s, target_s, lo_s, hi_s, tau_x)
-            else:
-                # primal prox (diagonal quadratic + box)
-                x1 = torch.clamp(
-                    (x - tau_x * (gx + c_s) + tau_x * w_s * target_s)
-                    / (1.0 + tau_x * w_s),
-                    lo_s,
-                    hi_s,
-                )
-                xe = 2.0 * x1 - x
+                if opts.use_pallas_tree:
+                    gx, yi = tk.scaled_rmatvec(
+                        y_tree, y_sla, y_imp, sc.d_tree, sc.d_sla, sc.d_imp, sm, tree.index,
+                        sla.index,
+                    )
+                    gt = gt_scale * torch.sum(yi)
+                else:
+                    gx, gt = scaling.scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc, n)
+                if opts.use_pallas:
+                    # fused primal prox + extrapolation, one pass over memory
+                    x1, xe = pk.primal_update(x, gx, c_s, w_s, target_s, lo_s, hi_s, tau_x)
+                    xm = sm * xe
+                else:
+                    # primal prox (diagonal quadratic + box)
+                    x1 = torch.clamp(
+                        (x - tau_x * (gx + c_s) + tau_x * w_s * target_s)
+                        / (1.0 + tau_x * w_s),
+                        lo_s,
+                        hi_s,
+                    )
+                    xe = 2.0 * x1 - x
             t1 = torch.clamp(t - tau_t * (gt + ct_s), tlo_s, thi_s)
             # dual with extrapolation
             te = 2.0 * t1 - t
@@ -162,7 +179,6 @@ def solve(
                 # scaled_matvec's two matvecs of xm = s * mov * xe, then its
                 # row scaling and the dual prox of all three row blocks in
                 # one launch
-                xm = sm * xe
                 if opts.use_pallas_tree:
                     kx = tk.tree_matvec(xm, tree.index)
                 else:
@@ -250,8 +266,10 @@ def solve(
             ax, move_num, move_den, dx2_cur, dx2_avg = pk.primal_chunk_stats(
                 x, px, rx, ax, cnt
             )
-            ayt, dyt2_cur, dyt2_avg, dyt2_zero = pk.dual_chunk_stats(yt, ry_tree, ayt, cnt)
-            ayi, dyi2_cur, dyi2_avg, dyi2_zero = pk.dual_chunk_stats(yi, ry_imp, ayi, cnt)
+            # the tree and improvement rows' statistics in one launch
+            (ayt, dyt2_cur, dyt2_avg, dyt2_zero), (ayi, dyi2_cur, dyi2_avg, dyi2_zero) = (
+                pk.dual_chunk_stats_pair((yt, ry_tree, ayt), (yi, ry_imp, ayi), cnt)
+            )
             at, ays = at + t, ays + ys
         else:
             ax, at, ayt, ays, ayi = ax + x, at + t, ayt + yt, ays + ys, ayi + yi

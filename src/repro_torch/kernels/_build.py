@@ -26,7 +26,17 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["BuildInfo", "DualRows", "DualUpdateArgs", "build", "library"]
+__all__ = [
+    "BuildInfo",
+    "DualRows",
+    "DualStatsArgs",
+    "DualUpdateArgs",
+    "PrimalStepArgs",
+    "ScaledAdjoint",
+    "StatsRows",
+    "build",
+    "library",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -76,6 +86,48 @@ class DualUpdateArgs(ctypes.Structure):
     ]
 
 
+class StatsRows(ctypes.Structure):
+    """One vector of ``dual_chunk_stats`` (``csrc/pdhg_update.cu``,
+    ``StatsRows<T>``): the duals, the restart anchor, the accumulator, the
+    new accumulator, the three sums and the count."""
+
+    _fields_ = [
+        ("y", _PTR), ("ry", _PTR), ("ay", _PTR), ("ayn", _PTR), ("out", _PTR), ("count", _I64),
+    ]
+
+
+class DualStatsArgs(ctypes.Structure):
+    """``dual_chunk_stats``' arguments, passed by value (``DualStatsArgs<T>``):
+    one or two vectors, the partial rows of both and the two ticket
+    counters."""
+
+    _fields_ = [("first", StatsRows), ("second", StatsRows), ("part", _PTR), ("tickets", _PTR)]
+
+
+class ScaledAdjoint(ctypes.Structure):
+    """The scaled adjoint's inputs (``csrc/tree_matvec.cu``, ``ScaledAdjoint<T>``):
+    duals and row scales of the tree, tenant and improvement rows, the two
+    CSR indexes, ``s * mov``, the tenant and device counts."""
+
+    _fields_ = [
+        ("y_tree", _PTR), ("d_tree", _PTR), ("cover_ptr", _PTR), ("cover_rows", _PTR),
+        ("y_sla", _PTR), ("d_sla", _PTR), ("dev_ptr", _PTR), ("dev_ten", _PTR),
+        ("y_imp", _PTR), ("d_imp", _PTR), ("sm", _PTR), ("k", _I64), ("n", _I64),
+    ]
+
+
+class PrimalStepArgs(ctypes.Structure):
+    """``primal_step``'s arguments, passed by value (``PrimalStepArgs<T>``):
+    the adjoint's, the primal iterate, the prox's data, the step size (a
+    stride of 1 or 0) and the outputs."""
+
+    _fields_ = [
+        ("adj", ScaledAdjoint), ("x", _PTR), ("c", _PTR), ("w", _PTR), ("target", _PTR),
+        ("lo", _PTR), ("hi", _PTR), ("tau", _PTR), ("tau_stride", _I64),
+        ("x1", _PTR), ("xe", _PTR), ("xm", _PTR), ("yi", _PTR),
+    ]
+
+
 # argument types of every exported function, by name stem, and the type
 # suffixes of its twins
 _SIGNATURES = {
@@ -84,10 +136,11 @@ _SIGNATURES = {
     "dual_prox": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR], _SOLVER),
     "dual_update": ([_INT, DualUpdateArgs, _PTR], _SOLVER),
     "scaled_rmatvec": ([_INT] + [_PTR] * 11 + [_I64, _I64] + [_PTR] * 3, _SOLVER),
+    "primal_step": ([_INT, PrimalStepArgs, _PTR], _SOLVER),
     "segment_sums": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
     "sla_matvec": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
     "primal_chunk_stats": ([_INT] + [_PTR] * 4 + [_F64, _I64] + [_PTR] * 4, _SOLVER),
-    "dual_chunk_stats": ([_INT] + [_PTR] * 3 + [_F64, _I64] + [_PTR] * 4, _SOLVER),
+    "dual_chunk_stats": ([_INT, DualStatsArgs, _F64, _INT, _PTR], _SOLVER),
     "flash_attention": (
         [_INT] + [_PTR] * 4 + [_I64] * 6 + [ctypes.POINTER(_I64), _F32, _INT, _PTR],
         _ATTENTION,

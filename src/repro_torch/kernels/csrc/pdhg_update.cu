@@ -36,18 +36,41 @@
 // returns bit for bit what the plain PyTorch expression returns.
 //
 // The chunk statistics are one grid-stride pass that writes the new average
-// accumulator and, per block, one row of partial results (a fixed-order
-// shared-memory tree over the block's threads), then a one-block launch that
-// combines the rows in a fixed order: max for the move norms, sums for the
-// travel terms.  The TPU version leaves the per-block rows to the caller;
-// here no float64 atomics are used, so repeated calls return the same bits.
-// The sums add in another order than torch.sum, so they agree with the plain
-// version to a few unit roundoffs of the sum of the terms, not bit for bit;
-// the maxima and the accumulator are exact.  Bound: bytes, 40 n (primal: 4
-// reads + 1 write of n values) and 32 r (dual) in float64.
+// accumulator and, per CTA, one row of partial results (a fixed-order
+// shared-memory tree over the CTA's threads); the rows are then combined in
+// a fixed order: max for the move norms, sums for the travel terms.  The
+// TPU version leaves the per-block rows to the caller; here no float64
+// atomics are used, so repeated calls return the same bits.  The sums add
+// in another order than torch.sum, so they agree with the plain version to
+// a few unit roundoffs of the sum of the terms, not bit for bit; the maxima
+// and the accumulator are exact.  Bound: bytes, 40 n (primal: 4 reads + 1
+// write of n values) and 32 r (dual) in float64.
+//
+// primal_chunk_stats combines in a second, one-CTA launch (combine_rows).
+// dual_chunk_stats does it in the same launch, and takes the solver's two
+// dual blocks (the tree rows and the improvement rows) in that one launch:
+// each block's rows start at a CTA boundary and keep the CTAs a launch of
+// their own would have (grid_for), so the partial rows are the same; each
+// CTA writes its row and takes a ticket from its block's counter (an
+// acquire-release add, no float64 atomics); the CTA that draws the last
+// ticket reads the block's rows back past L1 and combines them with
+// combine_rows' stripes and tree, so the results are the bits of the
+// two-launch version, and resets the counter to 0.  The pass is most of
+// the time; the ticket and the combine add less than a second launch
+// would (chip_smoke.py phase 6 times the pair beside two single-vector
+// calls).
+// The counters are a device buffer the wrapper allocates once per device,
+// zero between launches, so the launch replays in a CUDA graph; two calls
+// running at once on two streams would share them (the solver makes one
+// call at a time).  What the one launch saves is three launches per KKT
+// check: at the paper's sizes (r = 1,637 and 12,288) every pass is far
+// below a launch's floor.
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "rounded.cuh"
 
 // The fused dual step's arguments.  The exported dual_update_* take them by
 // value, so these types live outside the anonymous namespace: a parameter
@@ -82,36 +105,36 @@ struct DualUpdateArgs {
   const T* te;
 };
 
+// One vector of dual_chunk_stats: the duals, the restart anchor, the average
+// accumulator, the new accumulator, the three sums and the row count
+// (_build.StatsRows).
+template <typename T>
+struct StatsRows {
+  const T* y;
+  const T* ry;
+  const T* ay;
+  T* ayn;
+  T* out;
+  int64_t count;
+};
+
+// Up to two vectors in one launch, the partial rows of both (first's then
+// second's) and their two ticket counters (_build.DualStatsArgs).
+template <typename T>
+struct DualStatsArgs {
+  StatsRows<T> first;
+  StatsRows<T> second;
+  T* part;
+  unsigned* tickets;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 32;
 
-template <typename T>
-struct Rn;
-
-template <>
-struct Rn<double> {
-  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-};
-
-template <>
-struct Rn<float> {
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-};
-
-// clip(v, lo, hi) = min(max(v, lo), hi), as jnp.clip and torch.clamp take it
-template <typename T>
-__device__ __forceinline__ T clip(T v, T lo, T hi) {
-  const T a = v < lo ? lo : v;
-  return a > hi ? hi : a;
-}
+using rn::clip;
+using rn::Rn;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -120,16 +143,12 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ target, const T* __restrict__ lo,
                          const T* __restrict__ hi, const T* __restrict__ tau, int64_t tau_stride,
                          int64_t n, T* __restrict__ x1, T* __restrict__ xe) {
-  using R = Rn<T>;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += step) {
-    const T t = tau[i * tau_stride];
-    const T xi = x[i];
-    const T tw = R::mul(t, w[i]);
-    const T num = R::add(R::sub(xi, R::mul(t, R::add(gx[i], c[i]))), R::mul(tw, target[i]));
-    const T v = clip(R::div(num, R::add(T(1), tw)), lo[i], hi[i]);
+    T v, e;
+    rn::primal_prox(x[i], gx[i], c[i], w[i], target[i], lo[i], hi[i], tau[i * tau_stride], v, e);
     x1[i] = v;
-    xe[i] = R::sub(R::mul(T(2), v), xi);
+    xe[i] = e;
   }
 }
 
@@ -248,48 +267,20 @@ __global__ void __launch_bounds__(kStatThreads)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-    dual_stats_kernel(const T* __restrict__ y, const T* __restrict__ ry,
-                      const T* __restrict__ ay, T cnt, int64_t n, T* __restrict__ ayn,
-                      T* __restrict__ part) {
-  using R = Rn<T>;
-  __shared__ T sh[3 * kStatThreads];
-  T v[3] = {T(0), T(0), T(0)};
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kStatThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kStatThreads + threadIdx.x; i < n;
-       i += step) {
-    const T yi = y[i];
-    const T a = R::add(ay[i], yi);
-    ayn[i] = a;
-    const T r = ry[i];
-    const T d = R::sub(yi, r);
-    v[0] = R::add(v[0], R::mul(d, d));
-    const T e = R::sub(R::div(a, cnt), r);
-    v[1] = R::add(v[1], R::mul(e, e));
-    v[2] = R::add(v[2], R::mul(r, r));
-  }
-  block_reduce<T, 3, 0>(v, sh);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) part[blockIdx.x * 3 + k] = v[k];
-  }
-}
-
-// One block: combine the nb rows of K partials, each thread a fixed stripe
-// of rows, then the block tree.  nb = 0 gives zeros.
+// Combine nb rows of K partials: each thread a fixed stripe of rows, then
+// the block tree; thread 0 writes the K results.  nb = 0 gives zeros.  The
+// rows are read past L1 (__ldcg), since other CTAs of the same launch may
+// have written them.
 template <typename T, int K, int kMax>
-__global__ void __launch_bounds__(kStatThreads)
-    combine_rows(const T* __restrict__ part, int64_t nb, T* __restrict__ out) {
+__device__ void combine_partials(const T* part, int64_t nb, T* out, T* sh) {
   using R = Rn<T>;
-  __shared__ T sh[K * kStatThreads];
   T v[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) v[k] = T(0);
   for (int64_t b = threadIdx.x; b < nb; b += kStatThreads) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const T p = part[b * K + k];
+      const T p = __ldcg(part + b * K + k);
       v[k] = k < kMax ? max_nan(v[k], p) : R::add(v[k], p);
     }
   }
@@ -298,6 +289,59 @@ __global__ void __launch_bounds__(kStatThreads)
 #pragma unroll
     for (int k = 0; k < K; ++k) out[k] = v[k];
   }
+}
+
+// One CTA: combine the nb rows of K partials.
+template <typename T, int K, int kMax>
+__global__ void __launch_bounds__(kStatThreads)
+    combine_rows(const T* __restrict__ part, int64_t nb, T* __restrict__ out) {
+  __shared__ T sh[K * kStatThreads];
+  combine_partials<T, K, kMax>(part, nb, out, sh);
+}
+
+// CTAs [0, blocks0) take the first vector, the next blocks1 the second.
+// Each CTA grid-strides over its vector as a launch of that vector's CTAs
+// alone would, writes its row of partials, and takes a ticket; the last
+// CTA of a vector combines its rows and resets its counter.
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+    dual_stats_kernel(DualStatsArgs<T> a, T cnt, int64_t blocks0, int64_t blocks1) {
+  using R = Rn<T>;
+  __shared__ T sh[3 * kStatThreads];
+  __shared__ bool last;
+  const bool second = blockIdx.x >= blocks0;
+  const StatsRows<T> r = second ? a.second : a.first;
+  const int64_t nb = second ? blocks1 : blocks0;
+  const int64_t b = second ? blockIdx.x - blocks0 : blockIdx.x;
+  T* part = a.part + (second ? blocks0 * 3 : 0);
+  unsigned* ticket = a.tickets + (second ? 1 : 0);
+  T v[3] = {T(0), T(0), T(0)};
+  const int64_t step = nb * kStatThreads;
+  for (int64_t i = b * kStatThreads + threadIdx.x; i < r.count; i += step) {
+    const T yi = r.y[i];
+    const T acc = R::add(r.ay[i], yi);
+    r.ayn[i] = acc;
+    const T ry = r.ry[i];
+    const T d = R::sub(yi, ry);
+    v[0] = R::add(v[0], R::mul(d, d));
+    const T e = R::sub(R::div(acc, cnt), ry);
+    v[1] = R::add(v[1], R::mul(e, e));
+    v[2] = R::add(v[2], R::mul(ry, ry));
+  }
+  block_reduce<T, 3, 0>(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) part[b * 3 + k] = v[k];
+    // release: this CTA's row is visible before its ticket; acquire: the
+    // last ticket's holder sees every other CTA's row (and, past the
+    // barrier below, so do its other threads)
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> t(*ticket);
+    last = t.fetch_add(1u, cuda::memory_order_acq_rel) == static_cast<unsigned>(nb - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  combine_partials<T, 3, 0>(part, nb, r.out, sh);
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 unsigned grid_for(int64_t n) {
@@ -362,17 +406,20 @@ int primal_chunk_stats_impl(int device, const T* x, const T* px, const T* rx, co
   return static_cast<int>(cudaGetLastError());
 }
 
+// CTAs of one vector of dual_chunk_stats: a launch of its own's, and one
+// for an empty vector, which writes its zeros.
+int64_t stats_blocks(int64_t n) { return n > 0 ? grid_for(n) : 1; }
+
 template <typename T>
-int dual_chunk_stats_impl(int device, const T* y, const T* ry, const T* ay, double cnt,
-                          int64_t n, T* ayn, T* part, T* out, cudaStream_t stream) {
+int dual_chunk_stats_impl(int device, const DualStatsArgs<T>& args, double cnt, int vectors,
+                          cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned nb = n > 0 ? grid_for(n) : 0;
-  if (nb > 0) {
-    dual_stats_kernel<T><<<nb, kStatThreads, 0, stream>>>(y, ry, ay, static_cast<T>(cnt), n, ayn,
-                                                         part);
-  }
-  combine_rows<T, 3, 0><<<1, kStatThreads, 0, stream>>>(part, nb, out);
+  if (vectors < 1 || vectors > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks0 = stats_blocks(args.first.count);
+  const int64_t blocks1 = vectors == 2 ? stats_blocks(args.second.count) : 0;
+  dual_stats_kernel<T><<<static_cast<unsigned>(blocks0 + blocks1), kStatThreads, 0, stream>>>(
+      args, static_cast<T>(cnt), blocks0, blocks1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,19 +483,19 @@ int primal_chunk_stats_f32(int device, const float* x, const float* px, const fl
                                         static_cast<cudaStream_t>(stream));
 }
 
-// (ay + y, [sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2]);
-// `part` holds chunk_stats_blocks(n) rows of 3.
-int dual_chunk_stats_f64(int device, const double* y, const double* ry, const double* ay,
-                         double cnt, int64_t n, double* ayn, double* part, double* out,
+// For each of `vectors` (1 or 2) vectors of args (first, then second):
+// (ay + y, [sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2]), in one
+// launch; `part` holds max(chunk_stats_blocks(count), 1) rows of 3 for each
+// vector, `tickets` two zeroed counters, left at zero.
+int dual_chunk_stats_f64(int device, DualStatsArgs<double> args, double cnt, int vectors,
                          void* stream) {
-  return dual_chunk_stats_impl<double>(device, y, ry, ay, cnt, n, ayn, part, out,
+  return dual_chunk_stats_impl<double>(device, args, cnt, vectors,
                                        static_cast<cudaStream_t>(stream));
 }
 
-int dual_chunk_stats_f32(int device, const float* y, const float* ry, const float* ay,
-                         double cnt, int64_t n, float* ayn, float* part, float* out,
+int dual_chunk_stats_f32(int device, DualStatsArgs<float> args, double cnt, int vectors,
                          void* stream) {
-  return dual_chunk_stats_impl<float>(device, y, ry, ay, cnt, n, ayn, part, out,
+  return dual_chunk_stats_impl<float>(device, args, cnt, vectors,
                                       static_cast<cudaStream_t>(stream));
 }
 

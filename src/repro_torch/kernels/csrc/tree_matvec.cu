@@ -85,12 +85,73 @@
 // of y, tree_rmatvec, sla_rmatvec, the adds and the column scaling), so its
 // bits are theirs.  The solver's gt = -s_t*t_mov*sum(yi) stays a torch
 // reduction on yi: a sum in this launch would add in another order.
+//
+// primal_step is that adjoint with the primal update of the same PDHG
+// iteration as its epilogue (core/solver/loop.py), in place of three
+// launches: scaled_rmatvec, primal_update (pdhg_update.cu) and the column
+// scaling xm = s*mov*xe of the two matvecs' input.  Thread i already holds
+// gx[i] and sm[i] = s[i]*mov[i]; it keeps gx in a register and writes
+//   yi[i],  x1[i] = clip((x - tau*(gx + c) + tau*w*target) / (1 + tau*w), lo, hi),
+//   xe[i] = 2*x1[i] - x[i],  xm[i] = sm[i]*xe[i],
+// the prox by rn::primal_prox, primal_update's own operations and order
+// (rounded.cuh), so the bits are those of the three launches.  The step
+// size tau is a vector or one broadcast scalar, read through a stride of 1
+// or 0.  The prox's seven inputs are loaded before the list walk, so their
+// loads are in flight with it.  Bound: bytes (0.52 us in float64 at the
+// paper's tenant fleet); what the fusion saves is two launches per
+// iteration and the gx round trip through memory.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "rounded.cuh"
+
 namespace cg = cooperative_groups;
+
+// The scaled adjoint's inputs: the tree duals and row scales with the
+// covering-rows CSR, the tenant duals and row scales with the device-tenant
+// CSR (read only when k > 0), the improvement duals and row scales, and
+// sm = s*mov over the n devices (_build.ScaledAdjoint).  primal_step takes
+// its arguments by value, so these types live outside the anonymous
+// namespace: a parameter type local to this file would give the exported
+// functions internal linkage.
+template <typename T>
+struct ScaledAdjoint {
+  const T* y_tree;
+  const T* d_tree;
+  const int32_t* cover_ptr;
+  const int32_t* cover_rows;
+  const T* y_sla;
+  const T* d_sla;
+  const int32_t* dev_ptr;
+  const int32_t* dev_ten;
+  const T* y_imp;
+  const T* d_imp;
+  const T* sm;
+  int64_t k;
+  int64_t n;
+};
+
+// primal_step's arguments: the adjoint's, the primal iterate, the primal
+// prox's data (c, w, target, lo, hi), the step size (a stride of 1 or 0)
+// and the four outputs (_build.PrimalStepArgs).
+template <typename T>
+struct PrimalStepArgs {
+  ScaledAdjoint<T> adj;
+  const T* x;
+  const T* c;
+  const T* w;
+  const T* target;
+  const T* lo;
+  const T* hi;
+  const T* tau;
+  int64_t tau_stride;
+  T* x1;
+  T* xe;
+  T* xm;
+  T* yi;
+};
 
 namespace {
 
@@ -259,11 +320,7 @@ __global__ void __launch_bounds__(kThreads)
 // out[s] = sum of v[idx[e]] for e in [ptr[s], ptr[s + 1]), added in list
 // order with round-to-nearest adds (nothing to contract, but kept explicit).
 template <typename T>
-__device__ __forceinline__ T add_rn(T a, T b);
-template <>
-__device__ __forceinline__ double add_rn<double>(double a, double b) { return __dadd_rn(a, b); }
-template <>
-__device__ __forceinline__ float add_rn<float>(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ T add_rn(T a, T b) { return rn::Rn<T>::add(a, b); }
 
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
@@ -278,11 +335,7 @@ __global__ void __launch_bounds__(kRowThreads)
 }
 
 template <typename T>
-__device__ __forceinline__ T mul_rn(T a, T b);
-template <>
-__device__ __forceinline__ double mul_rn<double>(double a, double b) { return __dmul_rn(a, b); }
-template <>
-__device__ __forceinline__ float mul_rn<float>(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ T mul_rn(T a, T b) { return rn::Rn<T>::mul(a, b); }
 
 // List entries a thread of scaled_rmatvec gathers at once: a tree's
 // covering-rows lists hold its depth (4 at the paper's fleet), a device's
@@ -317,23 +370,25 @@ __device__ __forceinline__ T add_in_order(T acc, const T (&p)[kWalk], int32_t co
   return acc;
 }
 
-// One thread per device i walks its covering-rows list and (k > 0) its
-// tenant list together, kWalk entries of each at a time: the loads of both
+// Device i's gx[i], with yi[i] = d_imp[i]*y_imp[i] in `v` and sm[i] in
+// `scale`: device i walks its covering-rows list and (k > 0) its tenant
+// list together, kWalk entries of each at a time, so the loads of both
 // lists' entries (id, then the dual and its row scale) are in flight at
 // once, and each sum still adds its own list's products d*y in list order
-// from T(0), every product rounded before its add, as segment_sums over the
-// products does.
+// from T(0), every product rounded before its add, as segment_sums over
+// the products does.  The inputs come in as __restrict__ pointers and are
+// read with plain loads: the compiler makes them read-only-path loads
+// itself (LDG.E.CONSTANT).  A build that wrote the same loads as explicit
+// __ldg got the same load instructions, scheduled worse: scaled_rmatvec
+// took 3.76 us a call at the paper's tenant fleet in chip_smoke.py's phase
+// 6 (NVIDIA H100 80GB HBM3, 700 W), against 3.04 for these plain loads.
 template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-    scaled_rmatvec_kernel(const T* __restrict__ y_tree, const T* __restrict__ d_tree,
-                          const int32_t* __restrict__ cover_ptr,
-                          const int32_t* __restrict__ cover_rows, const T* __restrict__ y_sla,
-                          const T* __restrict__ d_sla, const int32_t* __restrict__ dev_ptr,
-                          const int32_t* __restrict__ dev_ten, const T* __restrict__ y_imp,
-                          const T* __restrict__ d_imp, const T* __restrict__ sm, int64_t k,
-                          int64_t n, T* __restrict__ gx, T* __restrict__ yi) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
-  if (i >= n) return;
+__device__ __forceinline__ T scaled_adjoint_at(
+    const T* __restrict__ y_tree, const T* __restrict__ d_tree,
+    const int32_t* __restrict__ cover_ptr, const int32_t* __restrict__ cover_rows,
+    const T* __restrict__ y_sla, const T* __restrict__ d_sla, const int32_t* __restrict__ dev_ptr,
+    const int32_t* __restrict__ dev_ten, const T* __restrict__ y_imp, const T* __restrict__ d_imp,
+    const T* __restrict__ sm, int64_t k, int64_t i, T& v, T& scale) {
   int32_t a = cover_ptr[i];
   const int32_t a_stop = cover_ptr[i + 1];
   int32_t b = 0, b_stop = 0;
@@ -341,8 +396,8 @@ __global__ void __launch_bounds__(kRowThreads)
     b = dev_ptr[i];
     b_stop = dev_ptr[i + 1];
   }
-  const T v = mul_rn(d_imp[i], y_imp[i]);
-  const T scale = sm[i];
+  v = mul_rn(d_imp[i], y_imp[i]);
+  scale = sm[i];
   T tree_sum = T(0);
   T sla_sum = T(0);
   for (; a < a_stop || b < b_stop; a += kWalk, b += kWalk) {
@@ -353,8 +408,48 @@ __global__ void __launch_bounds__(kRowThreads)
     sla_sum = add_in_order(sla_sum, ps, b_stop - b);
   }
   const T g = k > 0 ? add_rn(tree_sum, sla_sum) : tree_sum;
+  return mul_rn(scale, add_rn(g, v));
+}
+
+// scaled_adjoint_at's arguments from a ScaledAdjoint p, and device i
+#define SCALED_ADJOINT_ARGS(p, i)                                                      \
+  (p).y_tree, (p).d_tree, (p).cover_ptr, (p).cover_rows, (p).y_sla, (p).d_sla, (p).dev_ptr, \
+      (p).dev_ten, (p).y_imp, (p).d_imp, (p).sm, (p).k, (i)
+
+// One thread per device: (gx, yi) of the scaled adjoint.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    scaled_rmatvec_kernel(ScaledAdjoint<T> p, T* __restrict__ gx, T* __restrict__ yi) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (i >= p.n) return;
+  T v, scale;
+  const T g = scaled_adjoint_at(SCALED_ADJOINT_ARGS(p, i), v, scale);
   yi[i] = v;
-  gx[i] = mul_rn(scale, add_rn(g, v));
+  gx[i] = g;
+}
+
+// One thread per device: the scaled adjoint, then the primal prox,
+// extrapolation and column scaling on its gx, which never leaves the
+// register.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) primal_step_kernel(PrimalStepArgs<T> p) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (i >= p.adj.n) return;
+  const T x = p.x[i];
+  const T c = p.c[i];
+  const T w = p.w[i];
+  const T target = p.target[i];
+  const T lo = p.lo[i];
+  const T hi = p.hi[i];
+  const T tau = p.tau[i * p.tau_stride];
+  T v, scale;
+  const T g = scaled_adjoint_at(SCALED_ADJOINT_ARGS(p.adj, i), v, scale);
+  T x1, xe;
+  rn::primal_prox(x, g, c, w, target, lo, hi, tau, x1, xe);
+  p.yi[i] = v;
+  p.x1[i] = x1;
+  p.xe[i] = xe;
+  p.xm[i] = mul_rn(scale, xe);
 }
 
 // The same sums, a warp per list: the lanes gather kSlaChunk values of the
@@ -424,18 +519,25 @@ int gather_sums_impl(int device, const T* v, const int32_t* ptr, const int32_t* 
 }
 
 template <typename T>
-int scaled_rmatvec_impl(int device, const T* y_tree, const T* d_tree, const int32_t* cover_ptr,
-                        const int32_t* cover_rows, const T* y_sla, const T* d_sla,
-                        const int32_t* dev_ptr, const int32_t* dev_ten, const T* y_imp,
-                        const T* d_imp, const T* sm, int64_t k, int64_t n, T* gx, T* yi,
+int scaled_rmatvec_impl(int device, const ScaledAdjoint<T>& p, T* gx, T* yi,
                         cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
+  if (p.n > 0) {
     scaled_rmatvec_kernel<T>
-        <<<static_cast<unsigned>(ceil_div(n, kRowThreads)), kRowThreads, 0, stream>>>(
-            y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla, dev_ptr, dev_ten, y_imp, d_imp,
-            sm, k, n, gx, yi);
+        <<<static_cast<unsigned>(ceil_div(p.n, kRowThreads)), kRowThreads, 0, stream>>>(p, gx,
+                                                                                        yi);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int primal_step_impl(int device, const PrimalStepArgs<T>& p, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.adj.n > 0) {
+    primal_step_kernel<T>
+        <<<static_cast<unsigned>(ceil_div(p.adj.n, kRowThreads)), kRowThreads, 0, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -565,9 +667,9 @@ int scaled_rmatvec_f64(int device, const double* y_tree, const double* d_tree,
                        const double* d_sla, const int32_t* dev_ptr, const int32_t* dev_ten,
                        const double* y_imp, const double* d_imp, const double* sm, int64_t k,
                        int64_t n, double* gx, double* yi, void* stream) {
-  return scaled_rmatvec_impl<double>(device, y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
-                                     dev_ptr, dev_ten, y_imp, d_imp, sm, k, n, gx, yi,
-                                     static_cast<cudaStream_t>(stream));
+  const ScaledAdjoint<double> p = {y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
+                                   dev_ptr, dev_ten, y_imp, d_imp, sm, k, n};
+  return scaled_rmatvec_impl<double>(device, p, gx, yi, static_cast<cudaStream_t>(stream));
 }
 
 int scaled_rmatvec_f32(int device, const float* y_tree, const float* d_tree,
@@ -575,9 +677,19 @@ int scaled_rmatvec_f32(int device, const float* y_tree, const float* d_tree,
                        const float* d_sla, const int32_t* dev_ptr, const int32_t* dev_ten,
                        const float* y_imp, const float* d_imp, const float* sm, int64_t k,
                        int64_t n, float* gx, float* yi, void* stream) {
-  return scaled_rmatvec_impl<float>(device, y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
-                                    dev_ptr, dev_ten, y_imp, d_imp, sm, k, n, gx, yi,
-                                    static_cast<cudaStream_t>(stream));
+  const ScaledAdjoint<float> p = {y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
+                                  dev_ptr, dev_ten, y_imp, d_imp, sm, k, n};
+  return scaled_rmatvec_impl<float>(device, p, gx, yi, static_cast<cudaStream_t>(stream));
+}
+
+// The scaled adjoint with the primal update as its epilogue: (x1, xe, xm,
+// yi), see PrimalStepArgs; the structure is passed by value.
+int primal_step_f64(int device, PrimalStepArgs<double> args, void* stream) {
+  return primal_step_impl<double>(device, args, static_cast<cudaStream_t>(stream));
+}
+
+int primal_step_f32(int device, PrimalStepArgs<float> args, void* stream) {
+  return primal_step_impl<float>(device, args, static_cast<cudaStream_t>(stream));
 }
 
 // The same sums, a warp per list: sla_matvec passes (x, tenant lists of

@@ -1,6 +1,7 @@
 from repro_torch.kernels.pdhg_update.ops import (
     DualBlock,
     dual_chunk_stats,
+    dual_chunk_stats_pair,
     dual_prox,
     dual_update,
     primal_chunk_stats,
@@ -10,6 +11,7 @@ from repro_torch.kernels.pdhg_update.ops import (
 __all__ = [
     "DualBlock",
     "dual_chunk_stats",
+    "dual_chunk_stats_pair",
     "dual_prox",
     "dual_update",
     "primal_chunk_stats",

@@ -4,7 +4,10 @@
 Replace ``repro/kernels/pdhg_update/kernel.py:primal_update``,
 ``:dual_prox``, ``:primal_chunk_stats`` and ``:dual_chunk_stats`` (Pallas,
 TPU); ``dual_update`` is ``dual_prox`` redesigned as the solver's whole dual
-step, with the row scaling before it, in one launch.  The source's header
+step, with the row scaling before it, in one launch, and
+``dual_chunk_stats_pair`` the statistics of the solver's two dual blocks in
+one launch (so is ``dual_chunk_stats`` of one vector: the pass and the
+combine of its partial rows).  The source's header
 comment gives the design and what bounds it.  Each wrapper checks its
 inputs, allocates its outputs with ``torch.empty``, launches on the current
 stream, raises on a non-zero ``cudaGetLastError``, and counts its launches
@@ -21,6 +24,7 @@ from repro_torch.kernels.pdhg_update.ref import DualBlock
 __all__ = [
     "LAUNCHES",
     "dual_chunk_stats",
+    "dual_chunk_stats_pair",
     "dual_prox",
     "dual_update",
     "primal_chunk_stats",
@@ -156,40 +160,78 @@ def dual_update(tree: DualBlock, sla: DualBlock, imp: DualBlock, s_t, t_mov, te)
     return tuple(b[1] for b in blocks)
 
 
-def _chunk_stats(name: str, vecs, cnt, n_out: int):
-    """Launch one chunk-stats pass over ``vecs`` (the iterate first, the
-    accumulator last); returns the new accumulator and ``n_out`` 0-d
-    results on the device."""
-    v = vecs[0]
-    n = v.shape[0]
+def primal_chunk_stats(x, px, rx, ax, cnt):
+    """(ax + x, max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2);
+    ``cnt`` is a host number."""
+    _check("x px rx ax", (x, px, rx, ax), x.shape[0], x)
+    n = x.shape[0]
     lib = _build.library()
-    acc = torch.empty_like(v)
-    part = torch.empty(max(lib.chunk_stats_blocks(n), 1) * n_out, dtype=v.dtype, device=v.device)
-    out = torch.empty(n_out, dtype=v.dtype, device=v.device)
-    fn = getattr(lib, f"{name}_{_suffix(v.dtype)}")
-    err = fn(
-        v.device.index,
-        *(t.data_ptr() for t in vecs),
+    acc = torch.empty_like(x)
+    part = torch.empty(max(lib.chunk_stats_blocks(n), 1) * 4, dtype=x.dtype, device=x.device)
+    out = torch.empty(4, dtype=x.dtype, device=x.device)
+    err = getattr(lib, f"primal_chunk_stats_{_suffix(x.dtype)}")(
+        x.device.index,
+        *(t.data_ptr() for t in (x, px, rx, ax)),
         float(cnt),
         n,
         acc.data_ptr(),
         part.data_ptr(),
         out.data_ptr(),
-        torch.cuda.current_stream(v.device).cuda_stream,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _raise_on(err, "primal_chunk_stats")
+    LAUNCHES["primal_chunk_stats"] += 1
     return (acc, *out.unbind())
 
 
-def primal_chunk_stats(x, px, rx, ax, cnt):
-    """(ax + x, max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2);
-    ``cnt`` is a host number."""
-    _check("x px rx ax", (x, px, rx, ax), x.shape[0], x)
-    return _chunk_stats("primal_chunk_stats", (x, px, rx, ax), cnt, 4)
+# dual_chunk_stats' ticket counters, two per device: zero between launches
+# (each launch leaves them so), made once, before any CUDA graph captures a
+# launch.  Calls on two streams at once would share them.
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    t = _TICKETS.get(device.index)
+    if t is None:
+        t = _TICKETS[device.index] = torch.zeros(2, dtype=torch.int32, device=device)
+    return t
+
+
+def _dual_stats(vectors, cnt):
+    """One launch of the dual statistics over one or two (y, ry, ay)
+    triples; returns each triple's (ay + y, three 0-d sums)."""
+    like = vectors[0][0]
+    for j, (y, ry, ay) in enumerate(vectors):
+        _check(f"y{j} ry{j} ay{j}", (y, ry, ay), y.shape[0], like)
+    lib = _build.library()
+    blocks = [max(lib.chunk_stats_blocks(v[0].shape[0]), 1) for v in vectors]
+    part = torch.empty(3 * sum(blocks), dtype=like.dtype, device=like.device)
+    out = torch.empty(3 * len(vectors), dtype=like.dtype, device=like.device)
+    accs = [torch.empty_like(v[0]) for v in vectors]
+    rows = [
+        _build.StatsRows(y.data_ptr(), ry.data_ptr(), ay.data_ptr(), acc.data_ptr(),
+                         out.data_ptr() + 3 * j * out.element_size(), y.shape[0])
+        for j, ((y, ry, ay), acc) in enumerate(zip(vectors, accs))
+    ]
+    if len(rows) == 1:
+        rows.append(_build.StatsRows())
+    args = _build.DualStatsArgs(*rows, part.data_ptr(), _tickets(like.device).data_ptr())
+    err = getattr(lib, f"dual_chunk_stats_{_suffix(like.dtype)}")(
+        like.device.index, args, float(cnt), len(vectors),
+        torch.cuda.current_stream(like.device).cuda_stream,
+    )
+    _raise_on(err, "dual_chunk_stats")
+    LAUNCHES["dual_chunk_stats"] += 1
+    sums = out.unbind()
+    return [(acc, *sums[3 * j : 3 * j + 3]) for j, acc in enumerate(accs)]
 
 
 def dual_chunk_stats(y, ry, ay, cnt):
     """(ay + y, sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2)."""
-    _check("y ry ay", (y, ry, ay), y.shape[0], y)
-    return _chunk_stats("dual_chunk_stats", (y, ry, ay), cnt, 3)
+    return _dual_stats([(y, ry, ay)], cnt)[0]
+
+
+def dual_chunk_stats_pair(first, second, cnt):
+    """:func:`dual_chunk_stats` of two (y, ry, ay) triples (the solver's tree
+    and improvement rows) in one launch; returns the two results."""
+    return tuple(_dual_stats([first, second], cnt))

@@ -7,6 +7,7 @@ from __future__ import annotations
 from repro_torch.kernels.pdhg_update import kernel
 from repro_torch.kernels.pdhg_update.ref import (
     DualBlock,
+    dual_chunk_stats_pair_ref,
     dual_chunk_stats_ref,
     dual_prox_ref,
     dual_update_ref,
@@ -21,6 +22,7 @@ __all__ = [
     "dual_update",
     "primal_chunk_stats",
     "dual_chunk_stats",
+    "dual_chunk_stats_pair",
 ]
 
 
@@ -52,3 +54,9 @@ def dual_chunk_stats(y, ry, ay, cnt):
     if y.device.type == "cpu":
         return dual_chunk_stats_ref(y, ry, ay, cnt)
     return kernel.dual_chunk_stats(y, ry, ay, cnt)
+
+
+def dual_chunk_stats_pair(first, second, cnt):
+    if first[0].device.type == "cpu":
+        return dual_chunk_stats_pair_ref(first, second, cnt)
+    return kernel.dual_chunk_stats_pair(first, second, cnt)

@@ -14,6 +14,7 @@ __all__ = [
     "dual_update_ref",
     "primal_chunk_stats_ref",
     "dual_chunk_stats_ref",
+    "dual_chunk_stats_pair_ref",
 ]
 
 
@@ -96,3 +97,9 @@ def dual_chunk_stats_ref(y, ry, ay, cnt):
         torch.sum((_true_div(ayn, cnt) - ry) ** 2),
         torch.sum(ry * ry),
     )
+
+
+def dual_chunk_stats_pair_ref(first, second, cnt):
+    """:func:`dual_chunk_stats_ref` of two (y, ry, ay) triples: the solver's
+    tree rows and improvement rows at a KKT check."""
+    return dual_chunk_stats_ref(*first, cnt), dual_chunk_stats_ref(*second, cnt)

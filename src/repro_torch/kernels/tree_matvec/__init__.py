@@ -1,6 +1,9 @@
 from repro_torch.kernels.tree_matvec.ops import (
+    PrimalStepData,
     SlaIndex,
     TreeIndex,
+    primal_step,
+    primal_step_plan,
     sla_index,
     sla_matvec,
     sla_rmatvec,
@@ -11,8 +14,11 @@ from repro_torch.kernels.tree_matvec.ops import (
 )
 
 __all__ = [
+    "PrimalStepData",
     "SlaIndex",
     "TreeIndex",
+    "primal_step",
+    "primal_step_plan",
     "sla_index",
     "sla_matvec",
     "sla_rmatvec",

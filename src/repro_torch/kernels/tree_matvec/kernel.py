@@ -10,25 +10,31 @@ that), the adjoint and the tenant pair are segmented sums over CSR lists
 built here once per topology, a warp per list for ``sla_matvec``'s long
 tenant lists.  ``scaled_rmatvec`` is the solver's whole scaled adjoint in
 one launch: both adjoints' list walks with the row and column scaling
-around them.  Each wrapper checks its inputs, allocates its output and
-scratch with ``torch.empty``, launches one kernel on the current stream,
+around them; ``primal_step`` is that launch with the primal update of the
+same iteration as its epilogue, its fixed inputs checked once per solve
+(:func:`primal_step_plan`).  Each wrapper checks its inputs, allocates its
+output and scratch with ``torch.empty``, launches one kernel on the current stream,
 raises on a non-zero ``cudaGetLastError``, and counts its launches in
 :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.tree_matvec.ref import PrimalStepData
 
 __all__ = [
     "LAUNCHES",
+    "PrimalStepPlan",
     "SlaIndex",
     "TreeIndex",
+    "primal_step",
+    "primal_step_plan",
     "sla_index",
     "sla_matvec",
     "sla_rmatvec",
@@ -44,6 +50,7 @@ LAUNCHES = {
     "sla_matvec": 0,
     "sla_rmatvec": 0,
     "scaled_rmatvec": 0,
+    "primal_step": 0,
 }
 
 
@@ -273,6 +280,25 @@ def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
     return _segment_sums("sla_rmatvec", y, idx.dev_ptr, idx.dev_ten, idx.n)
 
 
+def _check_like(like: torch.Tensor, named) -> None:
+    """Each (name, vector, size) of ``named`` contiguous of that size, of
+    ``like``'s float dtype and CUDA device."""
+    for name, v, size in named:
+        _check_vec(name, v, size)
+        if v.dtype != like.dtype or v.device != like.device:
+            raise ValueError(f"{name} must be {like.dtype} on {like.device}")
+
+
+def _check_indexes(tree_idx: TreeIndex, sla_idx: SlaIndex, device: torch.device) -> None:
+    """The scaled adjoint's two indexes on ``device``, over the same
+    devices; the tenant one is read only when it has tenants."""
+    _check_index(tree_idx, device)
+    if sla_idx.k:
+        if sla_idx.n != tree_idx.n:
+            raise ValueError(f"the tenant index is for n={sla_idx.n} devices, not {tree_idx.n}")
+        _check_sla_index(sla_idx, device)
+
+
 def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: TreeIndex,
                    sla_idx: SlaIndex):
     """(gx, yi) of the scaled adjoint, one thread per device: its covering
@@ -280,17 +306,10 @@ def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: Tre
     ``d_sla * y_sla``, then ``yi = d_imp * y_imp`` added, then the product
     with ``sm = s * mov``; the bits of :func:`.ref.scaled_rmatvec_ref`."""
     n, m, k = tree_idx.n, tree_idx.start.shape[0], sla_idx.k
-    for name, v, size in (("y_imp", y_imp, n), ("d_imp", d_imp, n), ("sm", sm, n),
-                          ("y_tree", y_tree, m), ("d_tree", d_tree, m),
-                          ("y_sla", y_sla, k), ("d_sla", d_sla, k)):
-        _check_vec(name, v, size)
-        if v.dtype != y_imp.dtype or v.device != y_imp.device:
-            raise ValueError(f"{name} must be {y_imp.dtype} on {y_imp.device}")
-    _check_index(tree_idx, y_imp.device)
-    if k:
-        if sla_idx.n != n:
-            raise ValueError(f"the tenant index is for n={sla_idx.n} devices, not {n}")
-        _check_sla_index(sla_idx, y_imp.device)
+    _check_like(y_imp, (("y_imp", y_imp, n), ("d_imp", d_imp, n), ("sm", sm, n),
+                        ("y_tree", y_tree, m), ("d_tree", d_tree, m),
+                        ("y_sla", y_sla, k), ("d_sla", d_sla, k)))
+    _check_indexes(tree_idx, sla_idx, y_imp.device)
     gx = torch.empty_like(y_imp)
     yi = torch.empty_like(y_imp)
     fn = getattr(_build.library(), f"scaled_rmatvec_{_suffix(y_imp.dtype)}")
@@ -316,3 +335,68 @@ def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: Tre
     _raise_on(err, "scaled_rmatvec")
     LAUNCHES["scaled_rmatvec"] += 1
     return gx, yi
+
+
+class PrimalStepPlan(NamedTuple):
+    """:class:`PrimalStepData` checked for the kernel, with its pointers laid
+    out once (``fixed``: a ``PrimalStepArgs`` whose per-call fields are left
+    empty) and the kernel's entry point.  Made by :func:`primal_step_plan`."""
+
+    data: PrimalStepData
+    fixed: _build.PrimalStepArgs
+    fn: Any
+
+
+def primal_step_plan(data: PrimalStepData) -> PrimalStepPlan:
+    """Check the solve's fixed inputs of :func:`primal_step` once: CUDA
+    tensors of one float dtype, contiguous, of the index's sizes."""
+    tree_idx, sla_idx = data.tree_idx, data.sla_idx
+    n, m, k = tree_idx.n, tree_idx.start.shape[0], sla_idx.k
+    like = data.sm
+    _check_like(like, [(name, getattr(data, name), size) for name, size in (
+        ("c", n), ("w", n), ("target", n), ("lo", n), ("hi", n), ("d_tree", m), ("d_sla", k),
+        ("d_imp", n), ("sm", n))])
+    _check_indexes(tree_idx, sla_idx, like.device)
+    adj = _build.ScaledAdjoint(
+        d_tree=data.d_tree.data_ptr(), cover_ptr=tree_idx.cover_ptr.data_ptr(),
+        cover_rows=tree_idx.cover_rows.data_ptr(), d_sla=data.d_sla.data_ptr(),
+        dev_ptr=sla_idx.dev_ptr.data_ptr(), dev_ten=sla_idx.dev_ten.data_ptr(),
+        d_imp=data.d_imp.data_ptr(), sm=data.sm.data_ptr(), k=k, n=n,
+    )
+    fixed = _build.PrimalStepArgs(
+        adj=adj, c=data.c.data_ptr(), w=data.w.data_ptr(), target=data.target.data_ptr(),
+        lo=data.lo.data_ptr(), hi=data.hi.data_ptr(),
+    )
+    fn = getattr(_build.library(), f"primal_step_{_suffix(like.dtype)}")
+    return PrimalStepPlan(data, fixed, fn)
+
+
+def primal_step(x, y_tree, y_sla, y_imp, tau, plan: PrimalStepPlan):
+    """(x1, xe, xm, yi) of :func:`.ref.primal_step_ref`, bit for bit, in one
+    launch: the scaled adjoint of (y_tree, y_sla, y_imp), then the primal
+    prox and extrapolation of ``x`` with step ``tau`` (a [n] vector or a 0-d
+    tensor) and ``xm = sm * xe``.  Only the per-call inputs are checked; the
+    plan's were checked when it was made."""
+    if not isinstance(plan, PrimalStepPlan):
+        raise TypeError("primal_step on a card takes a PrimalStepPlan (primal_step_plan)")
+    like = plan.data.sm
+    n, m, k = plan.fixed.adj.n, plan.data.d_tree.shape[0], plan.fixed.adj.k
+    _check_like(like, (("x", x, n), ("y_tree", y_tree, m), ("y_sla", y_sla, k),
+                       ("y_imp", y_imp, n)))
+    if not isinstance(tau, torch.Tensor) or tau.dtype != like.dtype or tau.device != like.device:
+        raise ValueError(f"tau must be a {like.dtype} tensor on {like.device}")
+    if tau.ndim:
+        _check_vec("tau", tau, n)
+    x1, xe, xm, yi = (torch.empty_like(x) for _ in range(4))
+    args = _build.PrimalStepArgs.from_buffer_copy(plan.fixed)
+    args.adj.y_tree = y_tree.data_ptr()
+    args.adj.y_sla = y_sla.data_ptr()
+    args.adj.y_imp = y_imp.data_ptr()
+    args.x = x.data_ptr()
+    args.tau = tau.data_ptr()
+    args.tau_stride = 1 if tau.ndim else 0
+    args.x1, args.xe, args.xm, args.yi = (v.data_ptr() for v in (x1, xe, xm, yi))
+    err = plan.fn(x.device.index, args, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "primal_step")
+    LAUNCHES["primal_step"] += 1
+    return x1, xe, xm, yi

@@ -9,6 +9,8 @@ import torch
 from repro_torch.kernels.tree_matvec import kernel
 from repro_torch.kernels.tree_matvec.kernel import SlaIndex, TreeIndex, sla_index, tree_index
 from repro_torch.kernels.tree_matvec.ref import (
+    PrimalStepData,
+    primal_step_ref,
     scaled_rmatvec_ref,
     sla_matvec_ref,
     sla_rmatvec_ref,
@@ -17,12 +19,15 @@ from repro_torch.kernels.tree_matvec.ref import (
 )
 
 __all__ = [
+    "PrimalStepData",
     "SlaIndex",
     "TreeIndex",
     "sla_index",
     "sla_matvec",
     "sla_rmatvec",
     "scaled_rmatvec",
+    "primal_step",
+    "primal_step_plan",
     "tree_index",
     "tree_matvec",
     "tree_rmatvec",
@@ -60,3 +65,19 @@ def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: Tre
                                   sla_idx)
     return kernel.scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx,
                                  sla_idx)
+
+
+def primal_step_plan(data: PrimalStepData):
+    """Once per solve: the data itself on the CPU, a checked
+    :class:`.kernel.PrimalStepPlan` on a card."""
+    if data.sm.device.type == "cpu":
+        return data
+    return kernel.primal_step_plan(data)
+
+
+def primal_step(x, y_tree, y_sla, y_imp, tau, plan):
+    """(x1, xe, xm, yi): the scaled adjoint with the primal update as its
+    epilogue; ``plan`` from :func:`primal_step_plan`."""
+    if x.device.type == "cpu":
+        return primal_step_ref(x, y_tree, y_sla, y_imp, tau, plan)
+    return kernel.primal_step(x, y_tree, y_sla, y_imp, tau, plan)

@@ -3,14 +3,20 @@
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
+from repro_torch.kernels.pdhg_update.ref import primal_update_ref
+
 __all__ = [
+    "PrimalStepData",
     "tree_matvec_ref",
     "tree_rmatvec_ref",
     "sla_matvec_ref",
     "sla_rmatvec_ref",
     "scaled_rmatvec_ref",
+    "primal_step_ref",
 ]
 
 
@@ -60,3 +66,34 @@ def scaled_rmatvec_ref(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx,
         gx = gx + ops.sla_rmatvec(d_sla * y_sla, sla_idx)
     gx = gx + yi
     return sm * gx, yi
+
+
+class PrimalStepData(NamedTuple):
+    """What the primal step reads that stays fixed through a solve: the
+    scaled problem data of the primal prox (``c``, ``w``, ``target``, ``lo``,
+    ``hi``, each [n]), the row scales of the tree, tenant and improvement
+    rows, ``sm = s * mov`` and the two kernel indexes."""
+
+    c: torch.Tensor
+    w: torch.Tensor
+    target: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    d_tree: torch.Tensor
+    d_sla: torch.Tensor
+    d_imp: torch.Tensor
+    sm: torch.Tensor
+    tree_idx: Any  # TreeIndex
+    sla_idx: Any  # SlaIndex
+
+
+def primal_step_ref(x, y_tree, y_sla, y_imp, tau, data: PrimalStepData):
+    """The primal half of a PDHG iteration, composed as the solver loop did
+    it in three launches: :func:`scaled_rmatvec_ref`, then the primal prox
+    and extrapolation (``primal_update_ref``), then the column scaling of
+    the two matvecs' input, ``xm = sm * xe``.  ``tau`` is a [n] vector or a
+    0-d tensor.  Returns ``(x1, xe, xm, yi)``."""
+    gx, yi = scaled_rmatvec_ref(y_tree, y_sla, y_imp, data.d_tree, data.d_sla, data.d_imp,
+                                data.sm, data.tree_idx, data.sla_idx)
+    x1, xe = primal_update_ref(x, gx, data.c, data.w, data.target, data.lo, data.hi, tau)
+    return x1, xe, data.sm * xe, yi

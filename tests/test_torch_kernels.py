@@ -440,6 +440,40 @@ def test_chunk_stats_of_an_empty_vector_are_zero():
     assert ayn.shape == (0,) and all(float(v) == 0.0 for v in rest)
 
 
+@pytest.mark.parametrize(
+    "m, n", [(0, 5), (7, 1), (STATS_BLOCK - 1, STATS_BLOCK + 1), (3 * STATS_BLOCK + 5, 1)]
+)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dual_chunk_stats_pair_matches_reference(m, n, dtype):
+    """The two-block dual statistics (the solver's tree rows, m, and
+    improvement rows, n, in one call) against the reference's Pallas
+    ``dual_chunk_stats`` (interpret mode) and its jnp oracle on each block:
+    the accumulators exactly, the sums to ``STATS_TOL`` relative.  An empty
+    block (m = 0) is held to the oracle alone, which sums nothing to 0: the
+    Pallas kernel refuses a vector shorter than its block.  Each block's
+    result is also the single-vector call's, bit for bit."""
+    rng = np.random.default_rng(m + 7 * n)
+    blocks = [tuple(rng.normal(size=r).astype(dtype) for _ in range(3)) for r in (m, n)]
+    cnt = 5.0
+    got = pk.dual_chunk_stats_pair(*(tuple(torch.as_tensor(v) for v in b) for b in blocks), cnt)
+    tol = STATS_TOL[dtype]
+    for b, g in zip(blocks, got):
+        with enable_x64(dtype == np.float64):
+            jb = [jnp.asarray(v, JNP[dtype]) for v in b]
+            wants = [j_dual_chunk_stats_ref(*jb, cnt)]
+            if b[0].size:
+                wants.append(j_dual_chunk_stats(*jb, cnt, block=STATS_BLOCK))
+        for want in wants:
+            np.testing.assert_array_equal(g[0].numpy(), np.asarray(want[0]))
+            for gv, wv in zip(g[1:], want[1:]):
+                assert gv.dtype == torch.from_numpy(b[0]).dtype
+                np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=tol)
+        single = pk.dual_chunk_stats(*(torch.as_tensor(v) for v in b), cnt)
+        assert all(torch.equal(a, c) for a, c in zip(g, single))
+        if not b[0].size:
+            assert all(float(v) == 0.0 for v in g[1:])
+
+
 # ---------------------------------------------------------------------------
 # the fused dual step and scaled adjoint of one PDHG iteration
 # ---------------------------------------------------------------------------
@@ -570,11 +604,93 @@ def test_scaled_rmatvec_matches_reference(dtype, use_kernels, k, all_pinned):
     assert torch.equal(pgx, gx) and torch.equal(pgt, gt)
 
 
+# (tenants, vector step size, every column pinned)
+PRIMAL_STEP_CASES = [
+    pytest.param(0, True, False, id="no-tenants"),
+    pytest.param(6, True, False, id="tenants"),
+    pytest.param(6, False, False, id="scalar-step"),
+    pytest.param(6, True, True, id="all-pinned"),
+]
+
+
+@pytest.mark.parametrize("k, vector_tau, all_pinned", PRIMAL_STEP_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_primal_step_matches_reference(dtype, k, vector_tau, all_pinned):
+    """The fused primal step's plain version (the CPU path of
+    ``primal_step``) against the reference's composition: its
+    ``scaling.scaled_rmatvec`` through the Pallas adjoints (interpret mode),
+    then its Pallas ``primal_update`` (interpret mode), then ``s * mov * xe``.
+    Bar: ``TOL`` (1e-12 relative and absolute in float64), not bits: the
+    reference's adjoint scans a difference array where the port walks
+    covering-rows lists, and XLA contracts the prox's products into FMAs
+    (the same gx through both prox kernels differs in the last bit).
+    Against the port's own three-launch composition, on which the CUDA
+    kernel is held on the card, the bits are equal."""
+    p = _fused_problem(dtype, k, True, True, all_pinned, seed=2)
+    n = p["n"]
+    rng = np.random.default_rng(3)
+
+    def vec():
+        return rng.normal(size=n).astype(dtype)
+
+    c, target, w = vec(), vec(), np.abs(vec())
+    w[::3] = 0  # linear columns
+    lo = vec() - 1.0
+    hi = lo + np.abs(vec()) + dtype(0.1)
+    tau = np.abs(vec()) + dtype(0.05) if vector_tau else dtype(0.37)
+    with enable_x64(dtype == np.float64):
+        jt, js, jsc, tt, ts = _both_topologies(p, dtype)
+        jgx, jgt = j_scaling.scaled_rmatvec(
+            *(jnp.asarray(p[f], JNP[dtype]) for f in ("y_tree", "y_sla", "y_imp")),
+            jt, js, jsc, n, use_kernels=True,
+        )
+        J = [jnp.asarray(v, JNP[dtype]) for v in (p["xs"], c, w, target, lo, hi, tau)]
+        jx1, jxe = j_primal_update(J[0], jgx, *J[1:], interpret=True)
+        jxm = jsc.s * jsc.mov * jxe
+    T = {f: torch.as_tensor(p[f]) for f in
+         ("xs", "y_tree", "y_sla", "y_imp", "s", "s_t", "mov", "t_mov", "d_tree", "d_sla",
+          "d_imp")}
+    sm = T["s"] * T["mov"]
+    data = tk.PrimalStepData(*(torch.as_tensor(v) for v in (c, w, target, lo, hi)),
+                             T["d_tree"], T["d_sla"], T["d_imp"], sm, tt.index, ts.index)
+    plan = tk.primal_step_plan(data)
+    assert plan is data  # the CPU keeps no kernel plan
+    tau_t = torch.as_tensor(tau)
+    x1, xe, xm, yi = tk.primal_step(T["xs"], T["y_tree"], T["y_sla"], T["y_imp"], tau_t, plan)
+    gt = -T["s_t"] * T["t_mov"] * torch.sum(yi)
+    for g, w_ in ((x1, jx1), (xe, jxe), (xm, jxm), (gt, jgt)):
+        assert g.dtype == T["xs"].dtype
+        _close(g, w_, dtype=dtype)
+    if all_pinned:
+        assert not bool(xm.any())
+    gx, yi2 = tk.scaled_rmatvec(T["y_tree"], T["y_sla"], T["y_imp"], T["d_tree"], T["d_sla"],
+                                T["d_imp"], sm, tt.index, ts.index)
+    cx1, cxe = pk.primal_update(T["xs"], gx, *data[:5], tau_t)
+    for g, w_ in ((x1, cx1), (xe, cxe), (xm, sm * cxe), (yi, yi2)):
+        assert torch.equal(g, w_)
+
+
+# kernel flags of the solver loop: both (the fused primal step, the fused
+# dual step), each alone (the standalone scaled adjoint; the standalone
+# primal update with the fused dual step), and both with the chunk
+# statistics (the one-call pair of dual blocks)
+LOOP_FLAGS = [
+    pytest.param(dict(use_pallas=True, use_pallas_tree=True), id="primal-step"),
+    pytest.param(dict(use_pallas_tree=True), id="scaled-rmatvec"),
+    pytest.param(dict(use_pallas=True), id="primal-update"),
+    pytest.param(dict(use_pallas=True, use_pallas_tree=True, use_pallas_stats=True),
+                 id="chunk-stats"),
+]
+
+
+@pytest.mark.parametrize("flags", LOOP_FLAGS)
 @pytest.mark.parametrize("with_tenants", [False, True])
-def test_fused_flags_leave_the_cpu_solve_bit_for_bit(with_tenants):
-    """On the CPU the fused dual step and scaled adjoint run their plain
-    compositions: a control step with the two kernel flags on gives the
-    flag-off step's allocation and iterations bit for bit."""
+def test_fused_flags_leave_the_cpu_solve_bit_for_bit(with_tenants, flags):
+    """On the CPU every kernel of the solver loop runs its plain composition:
+    a control step with kernel flags on gives the flag-off step's
+    allocation and iterations bit for bit, through each of the loop's
+    branches (the fused primal step, the standalone scaled adjoint and
+    primal update, the paired dual chunk statistics)."""
     from repro_torch.core.engine import AllocEngine
     from repro_torch.core.nvpax import NvpaxOptions
     from repro_torch.core.solver import SolverOptions
@@ -584,10 +700,10 @@ def test_fused_flags_leave_the_cpu_solve_bit_for_bit(with_tenants):
     lay = assign_tenants(pdn, n_tenants=4, devices_per_tenant=8, seed=1)
     tele = np.random.default_rng(1).uniform(100, 650, pdn.n)
     runs = []
-    for flags in ({}, dict(use_pallas=True, use_pallas_tree=True)):
+    for opts in ({}, flags):
         eng = AllocEngine(
             pdn, sla=lay.sla_topo(device="cpu") if with_tenants else None,
-            priority=lay.priority, options=NvpaxOptions(solver=SolverOptions(**flags)),
+            priority=lay.priority, options=NvpaxOptions(solver=SolverOptions(**opts)),
             device="cpu",
         )
         runs.append(eng.step(tele))
@@ -623,3 +739,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     y = torch.zeros(pdn.m, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         tk_kernel.scaled_rmatvec(y, x[:1], x, y, x[:1], x, x, idx, sidx)
+    data = tk.PrimalStepData(x, x, x, x, x, y, x[:1], x, x, idx, sidx)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk_kernel.primal_step_plan(data)
+    with pytest.raises(TypeError, match="PrimalStepPlan"):
+        tk_kernel.primal_step(x, y, x[:1], x, x[0], data)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk_kernel.dual_chunk_stats_pair((y, y, y), (x, x, x), 1.0)

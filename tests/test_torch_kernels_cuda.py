@@ -17,10 +17,13 @@ int32 (rows that overlap at will need up to m x n entries).  The forward tree su
 three-pass scan it replaced: they equal a host emulation of that arithmetic
 bit for bit.  The tenant
 kernels sum each CSR list in edge order: they equal the CPU plain version
-bit for bit.  The fused dual step (``dual_update``) and scaled adjoint
-(``scaled_rmatvec``) equal the launches they replace bit for bit.  The
-chunk statistics' accumulator and maxima are exact; their
-sums are held to 8 unit roundoffs of the sum (all terms are squares).
+bit for bit.  The fused dual step (``dual_update``), scaled adjoint
+(``scaled_rmatvec``) and primal step (``primal_step``: the scaled adjoint
+with the primal update as its epilogue) equal the launches they replace
+bit for bit.  The chunk statistics' accumulator and maxima are exact; their
+sums are held to 8 unit roundoffs of the sum (all terms are squares); the
+two-vector ``dual_chunk_stats_pair`` is one launch whose bits are the
+single-vector call's on each vector.
 Flash attention is held to its plain version (``attention_ref``) row by
 row, |d| <= tol * max|ref row|: the kernel the wrapper picks and, where that
 is the Hopper (TMA + wgmma) kernel, the mma.sync kernel too.  Float32: 1e-5 (both keep float32
@@ -54,11 +57,13 @@ STATS_TOL = {torch.float64: 8 * 2.0**-53, torch.float32: 8 * 2.0**-24}
 # 2,162,689 is past the elementwise grid (see test_sizes_cover_a_second_grid_pass)
 SIZES = [1, 31, 1023, 1024, 1025, 3079, 12288, 100_003, 2_162_689]
 DTYPES = [torch.float64, torch.float32]
-# the kernels of the allocator's paths (flash attention is the data plane's;
-# dual_prox stands alone since the fused dual step took its place in the loop)
+# the kernels of the allocator's tenant path with every flag (flash attention
+# is the data plane's; dual_prox, scaled_rmatvec and primal_update stand
+# alone since the fused dual step and primal step took their place in the
+# loop)
 ALLOCATOR_KERNELS = (
-    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "scaled_rmatvec",
-    "primal_update", "dual_update", "primal_chunk_stats", "dual_chunk_stats",
+    "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "primal_step",
+    "dual_update", "primal_chunk_stats", "dual_chunk_stats",
 )
 
 
@@ -214,10 +219,25 @@ def test_elementwise_kernels_match_plain(cuda, n, dtype, vector_step):
     _assert_within(got, want, ELEM_TOL[dtype] * want.abs().clamp_min(1.0))
 
 
-def test_solver_runs_through_the_kernels(cuda):
-    """A control step with the tree and update kernel flags on a tree-only
-    fleet launches the five kernels of that path (not the standalone
-    ``dual_prox``) and lands on the plain path's allocation."""
+# solver flags, the kernels the PDHG loop must launch and those it must not
+SOLVER_PATHS = [
+    pytest.param(dict(use_pallas=True, use_pallas_tree=True),
+                 ("tree_matvec", "tree_rmatvec", "primal_step", "dual_update"),
+                 ("scaled_rmatvec", "primal_update", "dual_prox"), id="both-flags"),
+    pytest.param(dict(use_pallas=True), ("primal_update", "dual_update"),
+                 ("primal_step", "scaled_rmatvec", "dual_prox"), id="use-pallas"),
+    pytest.param(dict(use_pallas_tree=True), ("tree_matvec", "scaled_rmatvec"),
+                 ("primal_step", "primal_update", "dual_update"), id="use-pallas-tree"),
+]
+
+
+@pytest.mark.parametrize("flags, launched, idle", SOLVER_PATHS)
+def test_solver_runs_through_the_kernels(cuda, flags, launched, idle):
+    """A control step on a tree-only fleet with the tree and update kernel
+    flags launches the kernels of that path (with both flags the fused
+    primal step, not the standalone adjoint and primal update, and never the
+    standalone ``dual_prox``) and lands on the plain path's allocation; each
+    flag alone keeps a path through the standalone kernels."""
     from repro_torch.core.nvpax import NvpaxOptions, optimize
     from repro_torch.core.problem import AllocProblem
     from repro_torch.core.solver import SolverOptions
@@ -226,15 +246,13 @@ def test_solver_runs_through_the_kernels(cuda):
     rng = np.random.default_rng(3)
     req, pri = rng.uniform(100, 650, pdn.n), rng.integers(1, 4, pdn.n)
     ap = AllocProblem.build(pdn, req, priority=pri, device=cuda)
-    opts = NvpaxOptions(
-        use_waterfill=False, solver=SolverOptions(use_pallas=True, use_pallas_tree=True)
-    )
+    opts = NvpaxOptions(use_waterfill=False, solver=SolverOptions(**flags))
     plain = optimize(ap, NvpaxOptions(use_waterfill=False))
     reset_launch_counts()
     res = optimize(ap, opts)
-    path = ("tree_matvec", "tree_rmatvec", "scaled_rmatvec", "primal_update", "dual_update")
-    assert all(launch_counts()[k] > 0 for k in path), launch_counts()
-    assert launch_counts()["dual_prox"] == 0
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in launched), counts
+    assert all(counts[k] == 0 for k in idle), counts
     np.testing.assert_allclose(res.allocation, plain.allocation, rtol=0, atol=1e-6)
     assert res.stats["phase_iterations"] == plain.stats["phase_iterations"]
 
@@ -379,6 +397,36 @@ def _paper_fused(cuda, dtype, tenants=True, vector_sigma=True, pinned=False, see
     return (*blocks, *scalars), adjoint
 
 
+def _step_inputs(adjoint, gen, vector_tau=True):
+    """The primal step's inputs over a scaled adjoint's, drawn from ``gen``:
+    (x, y_tree, y_sla, y_imp, tau, PrimalStepData); a third of the columns
+    linear (w = 0), a step size vector or one 0-d tensor."""
+    y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tidx, sidx = adjoint
+    n = tidx.n
+
+    def vec():
+        return torch.as_tensor(gen.normal(size=n), dtype=sm.dtype, device=sm.device)
+
+    x, c, target = vec(), vec(), vec()
+    w = vec().abs()
+    w[::3] = 0
+    lo = vec() - 1.0
+    hi = lo + vec().abs() + 0.1
+    tau = vec().abs() + 0.05 if vector_tau else torch.full((), 0.37, dtype=sm.dtype,
+                                                           device=sm.device)
+    data = tk.PrimalStepData(c, w, target, lo, hi, d_tree, d_sla, d_imp, sm, tidx, sidx)
+    return x, y_tree, y_sla, y_imp, tau, data
+
+
+def _composition(x, y_tree, y_sla, y_imp, tau, data):
+    """The three launches the primal step replaces: the scaled adjoint
+    kernel, the primal update kernel and the column scaling."""
+    gx, yi = tk.scaled_rmatvec(y_tree, y_sla, y_imp, data.d_tree, data.d_sla, data.d_imp,
+                               data.sm, data.tree_idx, data.sla_idx)
+    x1, xe = pk.primal_update(x, gx, *data[:5], tau)
+    return x1, xe, data.sm * xe, yi
+
+
 def _bits(v):
     return v.view(torch.int64 if v.dtype == torch.float64 else torch.int32)
 
@@ -416,6 +464,45 @@ def test_fused_kernels_equal_their_plain_composition(cuda, dtype, tenants, vecto
         assert torch.equal(_bits(g), _bits(w)) and torch.equal(_bits(g.cpu()), _bits(c))
     wgx, wyi = tref.scaled_rmatvec_ref(*adjoint)
     assert torch.equal(_bits(gx), _bits(wgx)) and torch.equal(_bits(yi), _bits(wyi))
+    # the primal step: the bits of the three launches it replaces and of its
+    # plain version on the card, one launch
+    step = _step_inputs(adjoint, np.random.default_rng(5), vector_tau=vector_sigma)
+    plan = tk.primal_step_plan(step[-1])
+    reset_launch_counts()
+    got = tk.primal_step(*step[:-1], plan)
+    assert launch_counts()["primal_step"] == 1
+    for want in (_composition(*step), tref.primal_step_ref(*step)):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 1025, 100_003])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_primal_step_at_edge_sizes(cuda, n, dtype):
+    """Around a CTA's 256 devices and past the paper's n, on random rows
+    and tenant edges (devices in several tenants): the bits of the three
+    launches it replaces."""
+    rng = np.random.default_rng(n + 13)
+    s, e = _rows(rng, n)
+    dev, ten, k = _edges(rng, n)
+    tidx = tk.tree_index(s, e, n, cuda)
+    sidx = tk.sla_index(dev, ten, k, n, cuda)
+    m = len(s)
+
+    def vec(size, scale=1.0):
+        return _vec(rng, size, dtype, cuda, scale)
+
+    sm = (vec(n).abs() + 0.1) * (vec(n) > -0.5).to(dtype)
+    adjoint = (vec(m), vec(k), vec(n), vec(m).abs() + 0.1, vec(k).abs() + 0.1,
+               vec(n).abs() + 0.1, sm, tidx, sidx)
+    for vector_tau in (True, False):
+        step = _step_inputs(adjoint, rng, vector_tau)
+        got = tk.primal_step(*step[:-1], tk.primal_step_plan(step[-1]))
+        want = _composition(*step)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
 
 
 def _redesigned(cuda):
@@ -427,22 +514,37 @@ def _redesigned(cuda):
     pdn = build_datacenter()
     idx = tk.tree_index(pdn.node_start, pdn.node_end, pdn.n, cuda)
     sla = appendix_b_layout(pdn, seed=0).sla_topo(device=cuda)
-    x = _vec(np.random.default_rng(9), pdn.n, torch.float64, cuda)
+    rng = np.random.default_rng(9)
+    x = _vec(rng, pdn.n, torch.float64, cuda)
     dual, adjoint = _paper_fused(cuda, torch.float64)
+    step = _step_inputs(adjoint, rng)
+    plan = tk.primal_step_plan(step[-1])
+    pair = [tuple(_vec(rng, r, torch.float64, cuda) for _ in range(3)) for r in (pdn.m, pdn.n)]
     return [
         ("tree_matvec", lambda: tk.tree_matvec(x, idx), x),
         ("sla_matvec", lambda: tk.sla_matvec(x, sla.index), x),
         ("dual_update", lambda: pk.dual_update(*dual), dual[0].a),
         ("scaled_rmatvec", lambda: tk.scaled_rmatvec(*adjoint), adjoint[0]),
+        ("primal_step", lambda: tk.primal_step(*step[:-1], plan), step[1]),
+        ("dual_chunk_stats", lambda: pk.dual_chunk_stats_pair(*pair, 3.0), pair[1][0]),
     ]
 
 
-def _first(out):
-    """A call's output, or the first of its outputs."""
-    return out[0] if isinstance(out, tuple) else out
+def _tensors(out):
+    """A call's outputs as a flat list of tensors."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _tensors(o)]
 
 
-@pytest.mark.parametrize("which", [0, 1, 2, 3])
+def _equal(a, b):
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+REDESIGNED = range(6)
+
+
+@pytest.mark.parametrize("which", REDESIGNED)
 def test_redesigned_kernels_are_one_device_launch_per_call(cuda, which):
     """LAUNCHES counts wrapper calls; the profiler counts what the card ran:
     one kernel per call, nothing else (no memset, no copy)."""
@@ -453,18 +555,18 @@ def test_redesigned_kernels_are_one_device_launch_per_call(cuda, which):
     assert launch_counts()[name] == 6
 
 
-@pytest.mark.parametrize("which", [0, 1, 2, 3])
+@pytest.mark.parametrize("which", REDESIGNED)
 def test_redesigned_kernels_repeat_their_bits_and_replay_in_a_graph(cuda, which):
-    """The same bits on every launch and from a CUDA graph replay, also after
+    """The same bits on 20 launches and from a CUDA graph replay, also after
     the graph's input changes in place."""
     _, call, x = _redesigned(cuda)[which]
 
     def fn():
-        return _first(call())
+        return _tensors(call())
 
     first = fn()
-    for _ in range(5):
-        assert torch.equal(fn(), first)
+    for _ in range(20):
+        assert _equal(fn(), first)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -475,11 +577,11 @@ def test_redesigned_kernels_repeat_their_bits_and_replay_in_a_graph(cuda, which)
         out = fn()
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(out, first)
+    assert _equal(out, first)
     x.mul_(-0.5)
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(out, fn())
+    assert _equal(out, fn())
     x.mul_(-2.0)
 
 
@@ -592,9 +694,31 @@ def test_chunk_stats_kernels_match_plain(cuda, n, dtype):
         assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
+@pytest.mark.parametrize("m, n", [(0, 12_288), (1, 1), (1_637, 12_288), (12_288, 2_162_689)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dual_chunk_stats_pair_matches_plain(cuda, m, n, dtype):
+    """The two dual blocks' statistics in one launch: the accumulators
+    exact, the sums within STATS_TOL of the plain version, each block's
+    bits those of the single-vector call (the same kernel on one block),
+    on every launch."""
+    rng = np.random.default_rng(m + n)
+    pair = [tuple(_vec(rng, r, dtype, cuda) for _ in range(3)) for r in (m, n)]
+    reset_launch_counts()
+    got = pk.dual_chunk_stats_pair(*pair, 3.0)
+    assert launch_counts()["dual_chunk_stats"] == 1
+    want = pref.dual_chunk_stats_pair_ref(*pair, 3.0)
+    for g, w, vec in zip(got, want, pair):
+        _assert_within(g[0], w[0], 0.0)
+        for gs, ws in zip(g[1:], w[1:]):
+            _assert_within(gs, ws, STATS_TOL[dtype] * float(ws))
+        assert _equal(list(g), list(pk.dual_chunk_stats(*vec, 3.0)))
+    for _ in range(3):
+        assert _equal(_tensors(pk.dual_chunk_stats_pair(*pair, 3.0)), _tensors(got))
+
+
 def test_tenant_engine_step_runs_through_every_kernel(cuda):
     """A cold engine step on a tenant fleet with every kernel flag launches
-    all nine kernels of the path, certifies, keeps the contracts, lands on the CPU
+    all eight kernels of the path, certifies, keeps the contracts, lands on the CPU
     run's iterations, and repeats bit for bit."""
     from repro_torch.core.engine import AllocEngine
     from repro_torch.core.nvpax import NvpaxOptions
@@ -617,11 +741,13 @@ def test_tenant_engine_step_runs_through_every_kernel(cuda):
     res = eng.step(tele)
     counts = launch_counts()
     assert all(counts[k] > 0 for k in ALLOCATOR_KERNELS), counts
-    # the PDHG loop: one fused dual step and one fused adjoint per iteration;
-    # the standalone adjoints run only outside it (step sizes, KKT checks)
+    # the PDHG loop: one fused primal step and one fused dual step per
+    # iteration, one launch of each chunk statistic per check; the standalone
+    # adjoints run only outside it (step sizes, KKT checks)
     iterations = sum(res.stats["phase_iterations"])
-    assert counts["dual_update"] == counts["scaled_rmatvec"] == iterations, counts
-    assert counts["dual_prox"] == 0, counts
+    assert counts["dual_update"] == counts["primal_step"] == iterations, counts
+    assert counts["dual_chunk_stats"] == counts["primal_chunk_stats"] == iterations // 50, counts
+    assert counts["dual_prox"] == counts["scaled_rmatvec"] == counts["primal_update"] == 0, counts
     assert counts["tree_rmatvec"] < iterations and counts["sla_rmatvec"] < iterations, counts
     cpu = engine("cpu").step(tele)
     assert res.stats["kkt_certified"]
