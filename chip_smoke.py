@@ -10,8 +10,9 @@ Run from the repository root with no arguments:
                                           # for the control steps, per PDHG iteration)
     python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
     python3 chip_smoke.py --out DIR       # where the details go
-    python3 chip_smoke.py --stats-digest  # only phases 1-2 and phase 3's digest of the dual
-                                          # chunk statistics (runs in older checkouts too)
+    python3 chip_smoke.py --stats-digest  # only phases 1-2 and phase 3's digest of the chunk
+                                          # statistics (a copy of this file placed in an
+                                          # older checkout runs it on that checkout's kernels)
 
 Phases, each of which raises on failure:
 
@@ -29,17 +30,21 @@ Phases, each of which raises on failure:
    one list holding every edge; the chunk statistics on extra draws
    (several seeds at n = 1, 31, 32 and the paper's n), the dual ones also
    as the solver's pair of vectors in one call (``dual_chunk_stats_pair``,
-   each vector's bits those of the single-vector call), with a digest of
-   their bits at fixed seeds (``--stats-digest`` prints it alone, so that
-   an older checkout's kernels can be compared); the fused dual step
+   each vector's bits those of the single-vector call), and all of a KKT
+   check's in one call (``check_chunk_stats``: the primal block, both dual
+   blocks and the t and tenant accumulators, with the bits of the primal
+   call, the pair and torch's two adds, the ticket counters back at zero),
+   with a digest of their bits at fixed seeds, the same through the
+   separate calls, the pair and the one call (``--stats-digest`` prints it
+   alone, so that an older checkout's kernels can be compared); the fused dual step
    (``dual_update``), scaled adjoint (``scaled_rmatvec``) and primal step
    (``primal_step``: that adjoint with the primal update as its epilogue)
    against the launches they replace, bit for bit, at the paper's shapes
    with and without tenants, with scalar step sizes and with every column
    pinned, and at edge sizes (``dual_update`` also against its CPU plain
-   version); ``tree_matvec``, ``sla_matvec``, the three fused kernels and
-   the chunk-stats pair each one kernel on the card per call
-   (torch.profiler);
+   version); ``tree_matvec``, ``sla_matvec``, the three fused kernels, the
+   chunk-stats pair, the primal chunk statistics and the one-launch check
+   statistics each one kernel on the card per call (torch.profiler);
 4. the main path: five warm-started control steps of
    ``repro_torch.core.nvpax.optimize`` on ``build_datacenter()`` with
    telemetry requests, through the kernels
@@ -55,7 +60,8 @@ Phases, each of which raises on failure:
    beside its plain version's, its bound and, for the tree and tenant
    pairs and the scaled adjoint, a CSR sparse matrix-vector product on the
    same incidence; the fused primal step beside the three launches it
-   replaces, the dual chunk-stats pair beside two single-vector calls; the
+   replaces, the dual chunk-stats pair beside two single-vector calls, the
+   one-launch check statistics beside the separate launches it replaces; the
    per-launch floor (``dual_prox`` on one row), ``tree_matvec``'s two paths
    at their boundary, and ``torch.cumsum`` at the paper's n beside the
    bound of the scan inside ``tree_matvec``;
@@ -65,7 +71,8 @@ Phases, each of which raises on failure:
    breaker caps, tenant contracts, and Phase I and useful power against the
    port's CPU run (the caps' distance from it is measured and reported, see
    :func:`tenant_engine_phase`), and the PDHG loop's launches held as in
-   phase 4, with one launch of each chunk statistic per KKT check; then a
+   phase 4, with one statistics launch per KKT check (``check_chunk_stats``)
+   and no standalone primal or dual chunk statistics; then a
    repeated step (identical bits) and a supply re-pin (no rebuild).
    ``--warm-tenants`` adds one warm-carried step (iterations and
    certificate only);
@@ -180,9 +187,10 @@ LIST_LENGTHS = (0, 1, 31, 32, 33, 1000, "all")
 # the fused dual step, scaled adjoint and primal step at edge sizes beside
 # the paper's
 FUSED_SIZES = (1, 1025, 100_003)
-# the digest of the dual chunk statistics: (m, n) of the solver's two dual
-# vectors at fixed seeds, the paper's fleet among them
-DIGEST_SHAPES = ((1_637, 12_288), (0, 5), (1, 1), (31, 2_162_689))
+# the digest of the chunk statistics: (n, m, k) of one KKT check's primal
+# and improvement rows, tree rows and tenants at fixed seeds, the paper's
+# tenant fleet among them
+DIGEST_SHAPES = ((12_288, 1_637, 100), (5, 0, 0), (1, 1, 1), (0, 7, 2), (2_162_689, 31, 3))
 # their outputs are compared bit for bit, as integers of the same width
 BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
 LIMITS = {
@@ -196,17 +204,20 @@ LIMITS = {
     "dual_chunk_stats": ELEM_TOL,
     "primal_chunk_stats sums": STATS_TOL,
     "dual_chunk_stats sums": STATS_TOL,
+    # the one-launch check statistics: accumulators and maxima exact
+    "check_chunk_stats": {"float64": 0.0, "float32": 0.0},
+    "check_chunk_stats sums": STATS_TOL,
 }
 # the serving path on the tenant fleet: telemetry samples of its cold steps
 ENGINE_SAMPLES = (0, 1, 2)
 SLA_FEAS_TOL = 1e-6  # watts: tenant sums inside [b_min, b_max]
 # the kernels of the tenant serving path (phase 7); flash attention is
-# phase 8's, and dual_prox, scaled_rmatvec and primal_update stand alone
-# (phases 3 and 6) since the fused dual step and primal step took their
-# place in the PDHG loop
+# phase 8's, and dual_prox, scaled_rmatvec, primal_update and the standalone
+# chunk statistics stand alone (phases 3 and 6) since the fused dual step,
+# primal step and check statistics took their place in the solver
 ALLOCATOR_KERNELS = (
     "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "primal_step",
-    "dual_update", "primal_chunk_stats", "dual_chunk_stats",
+    "dual_update", "check_chunk_stats",
 )
 # the flash-attention kernels: Hopper (TMA + wgmma) and mma.sync bf16, float32
 FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_mma", "flash_attention_f32")
@@ -366,23 +377,51 @@ def step_composition(x, y_tree, y_sla, y_imp, tau, data):
     return x1, xe, data.sm * xe, yi
 
 
-def stats_digest(device, pair: bool = False) -> str:
-    """A digest of the dual chunk statistics' bits (accumulators and sums,
-    float64 and float32) on the solver's two dual vectors at
-    ``DIGEST_SHAPES``, each pair drawn from a seed of its own: through the
-    single-vector ``dual_chunk_stats``, which every version of the port
-    has, or (``pair``) through one ``dual_chunk_stats_pair`` call."""
+def check_inputs(gen, n: int, m: int, k: int, dtype, device):
+    """One KKT check's chunk-statistics inputs drawn from ``gen``: the
+    primal (x, px, rx, ax) of n rows, the tree and improvement rows'
+    (y, ry, ay) of m and n rows, t and its accumulator (0-d), the k tenant
+    duals and their accumulator."""
+
+    def vec(r):
+        return torch.as_tensor(gen.normal(size=r) * 100.0, dtype=dtype, device=device)
+
+    primal = tuple(vec(n) for _ in range(4))
+    tree = tuple(vec(m) for _ in range(3))
+    imp = tuple(vec(n) for _ in range(3))
+    t, at = (torch.as_tensor(gen.normal() * 100.0, dtype=dtype, device=device) for _ in range(2))
+    return primal, tree, imp, t, at, vec(k), vec(k)
+
+
+def separate_stats(primal, tree, imp, t, at, ys, ays, pair: bool = True):
+    """A check's chunk statistics through the calls every version of the
+    port has: the primal call, the dual pair (or, without ``pair``, one
+    call per dual block) and torch's two adds."""
+    duals = (pk.dual_chunk_stats_pair(tree, imp, 3.0) if pair
+             else [pk.dual_chunk_stats(*v, 3.0) for v in (tree, imp)])
+    return (pk.primal_chunk_stats(*primal, 3.0), *duals, at + t, ays + ys)
+
+
+def flat(out) -> list:
+    """A call's outputs as a flat list of tensors."""
+    return [v for o in out for v in (o if isinstance(o, tuple) else (o,))]
+
+
+def stats_digest(device, route: str = "calls") -> str:
+    """A digest of the chunk statistics' bits (accumulators, maxima and
+    sums, float64 and float32) of one KKT check at ``DIGEST_SHAPES``, each
+    from a seed of its own: through the separate calls every version of the
+    port has (the primal call, one call per dual block, torch's two adds),
+    through the dual pair in place of the two dual calls (``pair``), or
+    through one ``check_chunk_stats`` call (``check``)."""
     h = hashlib.sha256()
     for dtype in (torch.float64, torch.float32):
-        for j, (m, n) in enumerate(DIGEST_SHAPES):
-            gen = np.random.default_rng(20_000 + j)
-            vecs = [tuple(torch.as_tensor(gen.normal(size=r) * 100.0, dtype=dtype, device=device)
-                          for _ in range(3)) for r in (m, n)]
-            outs = (pk.dual_chunk_stats_pair(*vecs, 3.0) if pair
-                    else [pk.dual_chunk_stats(*v, 3.0) for v in vecs])
-            for out in outs:
-                for t in out:
-                    h.update(t.cpu().numpy().tobytes())
+        for j, (n, m, k) in enumerate(DIGEST_SHAPES):
+            args = check_inputs(np.random.default_rng(20_000 + j), n, m, k, dtype, device)
+            outs = (pk.check_chunk_stats(*args, 3.0) if route == "check"
+                    else separate_stats(*args, pair=route == "pair"))
+            for v in flat(outs):
+                h.update(v.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -485,24 +524,28 @@ def check_loop_launches(tag, launches, iterations: int, stats: bool = False) -> 
     ``dual_prox``; the standalone adjoints run only outside it (step sizes,
     KKT checks, repair), so fewer times than the loop iterates.  With
     ``stats`` (the chunk-statistics flag) each KKT check, one per
-    ``check_every`` iterations, launches each chunk statistic once: the
-    dual one takes both dual vectors."""
+    ``check_every`` iterations, makes one statistics launch
+    (``check_chunk_stats``: the primal and both dual blocks, the t and
+    tenant accumulators) and no standalone primal or dual chunk
+    statistics."""
     checks = iterations // SolverOptions().check_every
     log(f"[{tag}] PDHG loop: {iterations} iterations, {checks} checks; primal_step "
         f"{launches['primal_step']}, dual_update {launches['dual_update']}, scaled_rmatvec "
         f"{launches['scaled_rmatvec']}, primal_update {launches['primal_update']}, dual_prox "
-        f"{launches['dual_prox']}, primal_chunk_stats {launches['primal_chunk_stats']}, "
-        f"dual_chunk_stats {launches['dual_chunk_stats']}; outside it tree_rmatvec "
+        f"{launches['dual_prox']}, check_chunk_stats {launches['check_chunk_stats']}, "
+        f"primal_chunk_stats {launches['primal_chunk_stats']}, dual_chunk_stats "
+        f"{launches['dual_chunk_stats']}; outside it tree_rmatvec "
         f"{launches['tree_rmatvec']}, sla_rmatvec {launches['sla_rmatvec']}")
     per_check = checks if stats else 0
     if not (launches["primal_step"] == launches["dual_update"] == iterations
             and launches["scaled_rmatvec"] == launches["primal_update"] == 0
             and launches["dual_prox"] == 0
-            and launches["primal_chunk_stats"] == launches["dual_chunk_stats"] == per_check
+            and launches["check_chunk_stats"] == per_check
+            and launches["primal_chunk_stats"] == launches["dual_chunk_stats"] == 0
             and launches["tree_rmatvec"] < iterations and launches["sla_rmatvec"] < iterations):
         raise AssertionError(f"[{tag}] the PDHG loop's launches are not one fused primal step "
-                             f"and one fused dual step per iteration and {per_check} of each "
-                             f"chunk statistic: {launches}")
+                             f"and one fused dual step per iteration and {per_check} "
+                             f"statistics launches: {launches}")
 
 
 def run_steps(tag, pdn_, requests, options, seed, device="cuda"):
@@ -610,7 +653,7 @@ def main(argv: list[str]) -> int:
     )
     parser.add_argument(
         "--stats-digest", action="store_true",
-        help="build, print phase 3's digest of the dual chunk statistics and stop",
+        help="build, print phase 3's digest of the chunk statistics and stop",
     )
     parser.add_argument("--out", default=str(ROOT / "artifacts" / "chip_smoke"))
     args = parser.parse_args(argv)
@@ -651,8 +694,8 @@ def main(argv: list[str]) -> int:
     report["build_s"] = info.seconds
     report["build_reused"] = info.reused
     if args.stats_digest:
-        log(f"[3] dual_chunk_stats digest at seeds 20000.. over (m, n) in {DIGEST_SHAPES}, "
-            f"float64 and float32: {stats_digest(cuda)}")
+        log(f"[3] chunk-stats digest at seeds 20000.. over (n, m, k) in {DIGEST_SHAPES}, "
+            f"float64 and float32, separate calls: {stats_digest(cuda)}")
         return 0
 
     # -- 3. kernels vs plain ----------------------------------------------
@@ -794,6 +837,37 @@ def main(argv: list[str]) -> int:
                                          "the single-vector call's bits, or differs between "
                                          "launches")
 
+    def check_check(n, m, k, dtype, main_shape, gen):
+        """Every chunk statistic of one KKT check in one launch against its
+        plain version (the accumulators and maxima exact, the sums to
+        STATS_TOL), its bits those of the separate calls (the primal call,
+        the dual pair, torch's two adds) and of a repeated launch, and the
+        three ticket counters back at zero after each launch."""
+        key = str(dtype).split(".")[-1]
+        args = check_inputs(gen, n, m, k, dtype, cuda)
+        got = pk.check_chunk_stats(*args, 3.0)
+        tickets = [pk._tickets(cuda).clone()]
+        again = pk.check_chunk_stats(*args, 3.0)
+        tickets.append(pk._tickets(cuda).clone())
+        want = pref.check_chunk_stats_ref(*args, 3.0)
+        exact = [(g[i], w[i]) for g, w, n_exact in zip(got, want, (3, 1, 1))
+                 for i in range(n_exact)] + list(zip(got[3:], want[3:]))
+        for g, w in exact:
+            if g.numel():  # an empty block's accumulator is empty
+                check("check_chunk_stats", key, g, w, w.abs().clamp_min(1.0), main_shape)
+        for g, w, n_exact in zip(got, want, (3, 1, 1)):
+            for gs, ws in zip(g[n_exact:], w[n_exact:]):
+                check("check_chunk_stats sums", key, gs, ws,
+                      ws.clamp_min(torch.finfo(dtype).tiny), main_shape)
+        for other in (separate_stats(*args), again):
+            n_checks[0] += 1
+            if not all(torch.equal(a, b) for a, b in zip(flat(other), flat(got))):
+                raise AssertionError(f"check_chunk_stats (n={n}, m={m}, k={k}, {dtype}) is not "
+                                     "the separate calls' bits, or differs between launches")
+        n_checks[0] += 1
+        if any(bool(t.any()) for t in tickets):
+            raise AssertionError(f"check_chunk_stats left its ticket counters at {tickets}")
+
     def check_tree(n, start, end, dtype, main_shape, gen=None):
         gen = rng if gen is None else gen
         key = str(dtype).split(".")[-1]
@@ -878,6 +952,8 @@ def main(argv: list[str]) -> int:
     gen = np.random.default_rng(22)
     pair_main = [tuple(on_card(gen.normal(size=r) * 100.0, torch.float64) for _ in range(3))
                  for r in (m_main, n_main)]
+    check_main = check_inputs(np.random.default_rng(24), n_main, m_main, layout.n_tenants,
+                              torch.float64, cuda)
     t0 = time.perf_counter()
     for dtype in (torch.float64, torch.float32):
         main = dtype == torch.float64
@@ -914,6 +990,13 @@ def main(argv: list[str]) -> int:
         check_pair(m_main, n_main, dtype, main, gen)
         for m_p, n_p in ((0, n_main), (1, 1), (n_main, 0), (1_025, 2 * grid + 1)):
             check_pair(m_p, n_p, dtype, False, gen)
+        # every statistic of a KKT check in one launch: the tenant fleet's
+        # shapes, an empty primal block, one row each, no tree rows, and
+        # blocks past the elementwise grid
+        gen = np.random.default_rng(23)
+        check_check(n_main, m_main, layout.n_tenants, dtype, main, gen)
+        for n_c, m_c, k_c in ((0, 5, 0), (1, 1, 1), (1_025, 0, 257), (2 * grid + 1, 1_025, 3)):
+            check_check(n_c, m_c, k_c, dtype, False, gen)
         # tree_matvec on both sides of its one-cluster path's last size
         for n in tree_sizes:
             gen = np.random.default_rng(n)
@@ -959,6 +1042,8 @@ def main(argv: list[str]) -> int:
         ("scaled_rmatvec", lambda: tk.scaled_rmatvec(*adjoint_main)),
         ("primal_step", lambda: tk.primal_step(*step_main[:-1], plan_main)),
         ("dual_chunk_stats", lambda: pk.dual_chunk_stats_pair(*pair_main, 3.0)),
+        ("primal_chunk_stats", lambda: pk.primal_chunk_stats(*check_main[0], 3.0)),
+        ("check_chunk_stats", lambda: pk.check_chunk_stats(*check_main, 3.0)),
     ):
         ran = device_kernels(fn, 5)
         if len(ran) != 5:
@@ -966,14 +1051,17 @@ def main(argv: list[str]) -> int:
         one_launch[name_] = sorted(set(ran))
     log(f"[3] one kernel on the card per call (torch.profiler, 5 calls): {one_launch}")
     digest = stats_digest(cuda)
-    if stats_digest(cuda, pair=True) != digest:
-        raise AssertionError("[3] dual_chunk_stats_pair's bits are not the single-vector calls'")
-    log(f"[3] dual_chunk_stats digest at seeds 20000.. over (m, n) in {DIGEST_SHAPES}, float64 "
-        f"and float32: {digest} (the pair's the same)")
+    for route in ("pair", "check"):
+        if stats_digest(cuda, route) != digest:
+            raise AssertionError(f"[3] the chunk statistics' bits through {route} are not the "
+                                 "separate calls'")
+    log(f"[3] chunk-stats digest at seeds 20000.. over (n, m, k) in {DIGEST_SHAPES}, float64 "
+        f"and float32: {digest} (the separate calls'; the pair's and check_chunk_stats' the "
+        "same)")
     report["kernel_checks"] = {
         "count": n_checks[0],
         "device_kernels_per_call": one_launch,
-        "dual_chunk_stats_digest": digest,
+        "chunk_stats_digest": digest,
         "max_abs_err_f64": max_err,
         "max_rel_err": worst,
         "limits": LIMITS,
@@ -1118,6 +1206,17 @@ def main(argv: list[str]) -> int:
          lambda: pref.dual_chunk_stats_pair_ref(*pair_main, 3.0),
          bound(4 * 8 * (m_b + n_b) + 6 * 8, 10 * (m_b + n_b)),
          None),
+        # every statistic of a KKT check in one launch at the tenant fleet's
+        # shapes: the primal block's and both dual blocks' reads and writes
+        # as above, t, at and at + t, the k tenant duals, their accumulator
+        # and its sum with them; one add per accumulator value
+        ("check_chunk_stats", "src/repro_torch/kernels/csrc/pdhg_update.cu",
+         "src/repro/kernels/pdhg_update/kernel.py:154",
+         lambda: pk.check_chunk_stats(*check_main, 3.0),
+         lambda: pref.check_chunk_stats_ref(*check_main, 3.0),
+         bound(40 * n_b + 32 * (m_b + n_b) + 24 * k_b + 24 + 10 * 8,
+               13 * n_b + 10 * (m_b + n_b) + k_b + 1),
+         None),
         # the fused dual step over the m + k + n rows: six vectors read and
         # one written per row (y, a, d, sigma, lo, hi; out) and 3 scalars;
         # 7 operations a row, one more on the improvement rows
@@ -1190,6 +1289,13 @@ def main(argv: list[str]) -> int:
     step_ms, step_paced = time_calls(lambda: step_composition(*step_main))
     log(f"[6]   primal_step's three launches (scaled_rmatvec, primal_update, sm * xe): "
         f"{step_ms * 1e3:.2f} us ({step_paced * 1e3:.2f} us host-paced)")
+    sep_ms, sep_paced = time_calls(lambda: separate_stats(*check_main))
+    log(f"[6]   check_chunk_stats' separate launches (primal_chunk_stats, dual_chunk_stats_pair, "
+        f"at + t, ays + ys): {sep_ms * 1e3:.2f} us ({sep_paced * 1e3:.2f} us host-paced)")
+    _, _, _, t_c, at_c, ys_c, ays_c = check_main
+    adds_ms, adds_paced = time_calls(lambda: (at_c + t_c, ays_c + ys_c))
+    log(f"[6]   torch's two adds alone (at + t, ays + ys at k={k_b}): {adds_ms * 1e3:.2f} us "
+        f"({adds_paced * 1e3:.2f} us host-paced)")
     two_ms, two_paced = time_calls(lambda: [pk.dual_chunk_stats(*v, 3.0) for v in pair_main])
     log(f"[6]   dual_chunk_stats as two single-vector calls (r=m, r=n): {two_ms * 1e3:.2f} us "
         f"({two_paced * 1e3:.2f} us host-paced)")
@@ -1240,13 +1346,15 @@ def main(argv: list[str]) -> int:
         "dual_chunk_stats_rows_n": {"ms": sn_ms, "plain_ms": sn_plain, "paced_ms": sn_paced,
                                     "plain_paced_ms": sn_plain_paced},
         "dual_chunk_stats_two_calls": {"ms": two_ms, "paced_ms": two_paced},
+        "check_chunk_stats_separate_launches": {"ms": sep_ms, "paced_ms": sep_paced},
+        "check_chunk_stats_torch_adds": {"ms": adds_ms, "paced_ms": adds_paced},
         "primal_step_three_launches": {"ms": step_ms, "paced_ms": step_paced},
         "blocked_prefix_cumsum": {"ms": cumsum_ms, "paced_ms": cumsum_paced,
                                   "bound_ms": bound(16 * n_b, n_b)[0]},
     }
 
     # -- 7. the serving path on the tenant fleet -----------------------------
-    engine_opts = kernel_opts._replace(use_pallas_stats=True)  # all eight kernels
+    engine_opts = kernel_opts._replace(use_pallas_stats=True)  # every kernel of the path
     engine_launches, engine_report = tenant_engine_phase(
         pdn, layout, engine_opts, cuda, args.warm_tenants
     )

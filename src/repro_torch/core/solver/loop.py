@@ -260,17 +260,19 @@ def solve(
         x, t, yt, ys, yi = run_chunk(x, t, yt, ys, yi, omega, om_sla)
         cnt = acount + 1.0
         if opts.use_pallas_stats:
-            # fused chunk-boundary bookkeeping: average accumulation, move
-            # norms and restart-candidate travel in one pass per block; the
-            # results stay on the device
-            ax, move_num, move_den, dx2_cur, dx2_avg = pk.primal_chunk_stats(
-                x, px, rx, ax, cnt
+            # fused chunk-boundary bookkeeping in one launch: average
+            # accumulation, move norms and restart-candidate travel of the
+            # primal, tree and improvement rows, and the t and tenant
+            # accumulators; the results stay on the device
+            (
+                (ax, move_num, move_den, dx2_cur, dx2_avg),
+                (ayt, dyt2_cur, dyt2_avg, dyt2_zero),
+                (ayi, dyi2_cur, dyi2_avg, dyi2_zero),
+                at,
+                ays,
+            ) = pk.check_chunk_stats(
+                (x, px, rx, ax), (yt, ry_tree, ayt), (yi, ry_imp, ayi), t, at, ys, ays, cnt
             )
-            # the tree and improvement rows' statistics in one launch
-            (ayt, dyt2_cur, dyt2_avg, dyt2_zero), (ayi, dyi2_cur, dyi2_avg, dyi2_zero) = (
-                pk.dual_chunk_stats_pair((yt, ry_tree, ayt), (yi, ry_imp, ayi), cnt)
-            )
-            at, ays = at + t, ays + ys
         else:
             ax, at, ayt, ays, ayi = ax + x, at + t, ayt + yt, ays + ys, ayi + yi
 

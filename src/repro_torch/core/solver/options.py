@@ -71,9 +71,9 @@ class SolverOptions(NamedTuple):
     # tenant rows) take their deterministic kernels on a card regardless.
     use_pallas_tree: bool = False
     # Fused chunk-boundary statistics at every KKT check
-    # (repro_torch.kernels.pdhg_update.primal/dual_chunk_stats): the average
-    # accumulators, the move norms and the restart-candidate travel in one
-    # pass per vector.
+    # (repro_torch.kernels.pdhg_update.check_chunk_stats): the average
+    # accumulators, the move norms and the restart-candidate travel of every
+    # block in one launch.
     use_pallas_stats: bool = False
     # Per-dual-block primal weights (PDLP multi-block style): a second
     # omega for the SLA rows.  Requires precondition=True (inert otherwise /

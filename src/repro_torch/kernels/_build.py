@@ -27,10 +27,12 @@ from pathlib import Path
 from typing import NamedTuple
 
 __all__ = [
+    "AccRows",
     "BuildInfo",
+    "ChunkStatsArgs",
     "DualRows",
-    "DualStatsArgs",
     "DualUpdateArgs",
+    "PrimalStatsRows",
     "PrimalStepArgs",
     "ScaledAdjoint",
     "StatsRows",
@@ -86,22 +88,48 @@ class DualUpdateArgs(ctypes.Structure):
     ]
 
 
+class PrimalStatsRows(ctypes.Structure):
+    """The primal block of ``chunk_stats`` (``csrc/pdhg_update.cu``,
+    ``PrimalStatsRows<T>``): the iterate, the previous check's iterate, the
+    restart anchor, the accumulator, the new accumulator, the four results
+    and the count."""
+
+    _fields_ = [
+        ("x", _PTR), ("px", _PTR), ("rx", _PTR), ("ax", _PTR), ("axn", _PTR), ("out", _PTR),
+        ("count", _I64),
+    ]
+
+
 class StatsRows(ctypes.Structure):
-    """One vector of ``dual_chunk_stats`` (``csrc/pdhg_update.cu``,
-    ``StatsRows<T>``): the duals, the restart anchor, the accumulator, the
-    new accumulator, the three sums and the count."""
+    """One dual block of ``chunk_stats`` (``StatsRows<T>``): the duals, the
+    restart anchor, the accumulator, the new accumulator, the three sums and
+    the count."""
 
     _fields_ = [
         ("y", _PTR), ("ry", _PTR), ("ay", _PTR), ("ayn", _PTR), ("out", _PTR), ("count", _I64),
     ]
 
 
-class DualStatsArgs(ctypes.Structure):
-    """``dual_chunk_stats``' arguments, passed by value (``DualStatsArgs<T>``):
-    one or two vectors, the partial rows of both and the two ticket
-    counters."""
+class AccRows(ctypes.Structure):
+    """The accumulators of ``chunk_stats`` (``AccRows<T>``): the 0-d ``t``,
+    its accumulator and the new one, the k tenant duals, their accumulator
+    and the new one, and k."""
 
-    _fields_ = [("first", StatsRows), ("second", StatsRows), ("part", _PTR), ("tickets", _PTR)]
+    _fields_ = [
+        ("t", _PTR), ("at", _PTR), ("atn", _PTR), ("ys", _PTR), ("ays", _PTR), ("aysn", _PTR),
+        ("count", _I64),
+    ]
+
+
+class ChunkStatsArgs(ctypes.Structure):
+    """``chunk_stats``' arguments, passed by value (``ChunkStatsArgs<T>``):
+    the primal block, two dual blocks, the accumulators, the partial rows of
+    the statistics blocks and their three ticket counters."""
+
+    _fields_ = [
+        ("primal", PrimalStatsRows), ("first", StatsRows), ("second", StatsRows),
+        ("acc", AccRows), ("part", _PTR), ("tickets", _PTR),
+    ]
 
 
 class ScaledAdjoint(ctypes.Structure):
@@ -139,8 +167,7 @@ _SIGNATURES = {
     "primal_step": ([_INT, PrimalStepArgs, _PTR], _SOLVER),
     "segment_sums": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
     "sla_matvec": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
-    "primal_chunk_stats": ([_INT] + [_PTR] * 4 + [_F64, _I64] + [_PTR] * 4, _SOLVER),
-    "dual_chunk_stats": ([_INT, DualStatsArgs, _F64, _INT, _PTR], _SOLVER),
+    "chunk_stats": ([_INT, ChunkStatsArgs, _F64, _INT, _PTR], _SOLVER),
     "flash_attention": (
         [_INT] + [_PTR] * 4 + [_I64] * 6 + [ctypes.POINTER(_I64), _F32, _INT, _PTR],
         _ATTENTION,

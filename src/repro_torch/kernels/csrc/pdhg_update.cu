@@ -35,36 +35,38 @@
 // (the __*_rn intrinsics are never contracted into an FMA), so the kernel
 // returns bit for bit what the plain PyTorch expression returns.
 //
-// The chunk statistics are one grid-stride pass that writes the new average
-// accumulator and, per CTA, one row of partial results (a fixed-order
-// shared-memory tree over the CTA's threads); the rows are then combined in
-// a fixed order: max for the move norms, sums for the travel terms.  The
-// TPU version leaves the per-block rows to the caller; here no float64
-// atomics are used, so repeated calls return the same bits.  The sums add
-// in another order than torch.sum, so they agree with the plain version to
-// a few unit roundoffs of the sum of the terms, not bit for bit; the maxima
-// and the accumulator are exact.  Bound: bytes, 40 n (primal: 4 reads + 1
-// write of n values) and 32 r (dual) in float64.
-//
-// primal_chunk_stats combines in a second, one-CTA launch (combine_rows).
-// dual_chunk_stats does it in the same launch, and takes the solver's two
-// dual blocks (the tree rows and the improvement rows) in that one launch:
-// each block's rows start at a CTA boundary and keep the CTAs a launch of
-// their own would have (grid_for), so the partial rows are the same; each
-// CTA writes its row and takes a ticket from its block's counter (an
-// acquire-release add, no float64 atomics); the CTA that draws the last
-// ticket reads the block's rows back past L1 and combines them with
-// combine_rows' stripes and tree, so the results are the bits of the
-// two-launch version, and resets the counter to 0.  The pass is most of
-// the time; the ticket and the combine add less than a second launch
-// would (chip_smoke.py phase 6 times the pair beside two single-vector
-// calls).
+// The chunk statistics are one launch per KKT check: check_chunk_stats
+// takes the primal block (x; n rows), the solver's two dual blocks (the
+// tree rows and the improvement rows) and the two accumulators the check
+// also updates, at + t (a 0-d value) and ays + ys (the k tenant rows).  The
+// grid is four segments, each starting at a CTA boundary: a statistics
+// block keeps the CTAs a launch of its own would have (grid_for) and runs
+// one grid-stride pass over them that writes the new average accumulator
+// and, per CTA, one row of partial results (a fixed-order tree over the
+// CTA's threads, block_reduce); each CTA then takes a ticket from its
+// block's counter (an acquire-release add, no float64 atomics), and the CTA
+// that draws the last ticket reads the block's rows back past L1, combines
+// them in a fixed order (each thread a stripe of rows, then the tree: max
+// for the move norms, sums for the travel terms) and resets the counter to
+// 0.  The accumulator segment adds, one rounded add a value, and reads no
+// statistic.  The standalone primal_chunk_stats, dual_chunk_stats and
+// dual_chunk_stats_pair are the same kernel with their blocks alone, so a
+// block's bits are the same in every call that takes it.  The TPU version
+// leaves the per-block rows to the caller; here repeated calls return the
+// same bits.  The sums add in another order than torch.sum, so they agree
+// with the plain version to a few unit roundoffs of the sum of the terms,
+// not bit for bit; the maxima and the accumulators are exact.
+// Bound: bytes, 40 n (primal: 4 reads + 1 write of n values), 32 r per dual
+// block and 24 k + 24 for the accumulators in float64: 0.94 MB at the
+// paper's tenant fleet, about 0.28 us at 3.35 TB/s, far below a launch's
+// floor.  What the one launch saves is launches: the pass, the ticket's
+// round trip to L2 and the combine's tree are one dependent chain, where
+// the check issued five launches before; the trees wait on three barriers
+// each, not nine.
 // The counters are a device buffer the wrapper allocates once per device,
 // zero between launches, so the launch replays in a CUDA graph; two calls
 // running at once on two streams would share them (the solver makes one
-// call at a time).  What the one launch saves is three launches per KKT
-// check: at the paper's sizes (r = 1,637 and 12,288) every pass is far
-// below a launch's floor.
+// call at a time).
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
@@ -105,9 +107,23 @@ struct DualUpdateArgs {
   const T* te;
 };
 
-// One vector of dual_chunk_stats: the duals, the restart anchor, the average
-// accumulator, the new accumulator, the three sums and the row count
-// (_build.StatsRows).
+// The primal block of the chunk statistics: the iterate, the previous
+// check's iterate, the restart anchor, the average accumulator, the new
+// accumulator, the four results and the row count (_build.PrimalStatsRows).
+template <typename T>
+struct PrimalStatsRows {
+  const T* x;
+  const T* px;
+  const T* rx;
+  const T* ax;
+  T* axn;
+  T* out;
+  int64_t count;
+};
+
+// One dual block of the chunk statistics: the duals, the restart anchor,
+// the average accumulator, the new accumulator, the three sums and the row
+// count (_build.StatsRows).
 template <typename T>
 struct StatsRows {
   const T* y;
@@ -118,12 +134,29 @@ struct StatsRows {
   int64_t count;
 };
 
-// Up to two vectors in one launch, the partial rows of both (first's then
-// second's) and their two ticket counters (_build.DualStatsArgs).
+// The accumulators a KKT check adds besides the statistics: the 0-d t and
+// its accumulator, the k tenant duals and theirs (_build.AccRows).
 template <typename T>
-struct DualStatsArgs {
+struct AccRows {
+  const T* t;
+  const T* at;
+  T* atn;
+  const T* ys;
+  const T* ays;
+  T* aysn;
+  int64_t count;
+};
+
+// check_chunk_stats' blocks, the partial rows of its statistics blocks
+// (primal's, then first's, then second's) and their three ticket counters
+// (_build.ChunkStatsArgs).  Which blocks a launch takes is its `blocks`
+// mask (kPrimal, kFirst, kSecond, kAcc).
+template <typename T>
+struct ChunkStatsArgs {
+  PrimalStatsRows<T> primal;
   StatsRows<T> first;
   StatsRows<T> second;
+  AccRows<T> acc;
   T* part;
   unsigned* tickets;
 };
@@ -214,63 +247,49 @@ __device__ __forceinline__ T max_nan(T a, T b) {
   return (a != a || a > b) ? a : b;
 }
 
-// Reduce K values per thread over the block in a fixed order; the first
-// kMax slots take the max, the rest the sum.  Thread 0 gets the results.
+// Reduce K values per thread over the block in a fixed order, a tree of
+// the pairs (tid, tid + half) for half = 128, 64, ..., 1: the first kMax
+// slots take the max, the rest the sum.  Thread 0 gets the results.  The
+// three levels that cross warps go through shared memory, each level's
+// upper threads publishing into a region of their own, so each level
+// waits on one barrier and loads its K operands together; the last five
+// run in warp 0 by shuffles, with the same pairs and so the same bits.
 template <typename T, int K, int kMax>
 __device__ void block_reduce(T (&v)[K], T* sh) {
   using R = Rn<T>;
   const int tid = threadIdx.x;
+  int base = 0;
 #pragma unroll
-  for (int k = 0; k < K; ++k) sh[k * kStatThreads + tid] = v[k];
-  __syncthreads();
-  for (int half = kStatThreads / 2; half > 0; half >>= 1) {
-    if (tid < half) {
+  for (int half = kStatThreads / 2; half >= 32; half >>= 1) {
+    if (tid >= half && tid < 2 * half) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const T a = sh[k * kStatThreads + tid];
-        const T b = sh[k * kStatThreads + tid + half];
-        sh[k * kStatThreads + tid] = k < kMax ? max_nan(a, b) : R::add(a, b);
-      }
+      for (int k = 0; k < K; ++k) sh[k * kStatThreads + base + tid - half] = v[k];
     }
     __syncthreads();
-  }
+    if (tid < half) {
+      T o[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = sh[k * kStatThreads];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-    primal_stats_kernel(const T* __restrict__ x, const T* __restrict__ px,
-                        const T* __restrict__ rx, const T* __restrict__ ax, T cnt, int64_t n,
-                        T* __restrict__ axn, T* __restrict__ part) {
-  using R = Rn<T>;
-  __shared__ T sh[4 * kStatThreads];
-  T v[4] = {T(0), T(0), T(0), T(0)};  // |.| >= 0, so 0 is the max's identity
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kStatThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kStatThreads + threadIdx.x; i < n;
-       i += step) {
-    const T xi = x[i];
-    const T a = R::add(ax[i], xi);
-    axn[i] = a;
-    const T r = rx[i];
-    v[0] = max_nan(v[0], fabs(R::sub(xi, px[i])));
-    v[1] = max_nan(v[1], fabs(xi));
-    const T d = R::sub(xi, r);
-    v[2] = R::add(v[2], R::mul(d, d));
-    const T e = R::sub(R::div(a, cnt), r);
-    v[3] = R::add(v[3], R::mul(e, e));
-  }
-  block_reduce<T, 4, 2>(v, sh);
-  if (threadIdx.x == 0) {
+      for (int k = 0; k < K; ++k) o[k] = sh[k * kStatThreads + base + tid];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) part[blockIdx.x * 4 + k] = v[k];
+      for (int k = 0; k < K; ++k) v[k] = k < kMax ? max_nan(v[k], o[k]) : R::add(v[k], o[k]);
+    }
+    base += half;
+  }
+  if (tid < 32) {
+#pragma unroll
+    for (int half = 16; half > 0; half >>= 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const T o = __shfl_down_sync(0xffffffffu, v[k], half);
+        v[k] = k < kMax ? max_nan(v[k], o) : R::add(v[k], o);
+      }
+    }
   }
 }
 
 // Combine nb rows of K partials: each thread a fixed stripe of rows, then
-// the block tree; thread 0 writes the K results.  nb = 0 gives zeros.  The
-// rows are read past L1 (__ldcg), since other CTAs of the same launch may
-// have written them.
+// the block tree; thread 0 writes the K results.  The rows are read past
+// L1 (__ldcg), since other CTAs of the same launch wrote them.
 template <typename T, int K, int kMax>
 __device__ void combine_partials(const T* part, int64_t nb, T* out, T* sh) {
   using R = Rn<T>;
@@ -291,47 +310,17 @@ __device__ void combine_partials(const T* part, int64_t nb, T* out, T* sh) {
   }
 }
 
-// One CTA: combine the nb rows of K partials.
+// CTA b of a statistics block of nb CTAs, after its pass: reduce its K
+// partials over the CTA, write them as row b, take a ticket; the CTA that
+// draws the last one combines the nb rows into `out` and resets the
+// counter.
 template <typename T, int K, int kMax>
-__global__ void __launch_bounds__(kStatThreads)
-    combine_rows(const T* __restrict__ part, int64_t nb, T* __restrict__ out) {
-  __shared__ T sh[K * kStatThreads];
-  combine_partials<T, K, kMax>(part, nb, out, sh);
-}
-
-// CTAs [0, blocks0) take the first vector, the next blocks1 the second.
-// Each CTA grid-strides over its vector as a launch of that vector's CTAs
-// alone would, writes its row of partials, and takes a ticket; the last
-// CTA of a vector combines its rows and resets its counter.
-template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-    dual_stats_kernel(DualStatsArgs<T> a, T cnt, int64_t blocks0, int64_t blocks1) {
-  using R = Rn<T>;
-  __shared__ T sh[3 * kStatThreads];
-  __shared__ bool last;
-  const bool second = blockIdx.x >= blocks0;
-  const StatsRows<T> r = second ? a.second : a.first;
-  const int64_t nb = second ? blocks1 : blocks0;
-  const int64_t b = second ? blockIdx.x - blocks0 : blockIdx.x;
-  T* part = a.part + (second ? blocks0 * 3 : 0);
-  unsigned* ticket = a.tickets + (second ? 1 : 0);
-  T v[3] = {T(0), T(0), T(0)};
-  const int64_t step = nb * kStatThreads;
-  for (int64_t i = b * kStatThreads + threadIdx.x; i < r.count; i += step) {
-    const T yi = r.y[i];
-    const T acc = R::add(r.ay[i], yi);
-    r.ayn[i] = acc;
-    const T ry = r.ry[i];
-    const T d = R::sub(yi, ry);
-    v[0] = R::add(v[0], R::mul(d, d));
-    const T e = R::sub(R::div(acc, cnt), ry);
-    v[1] = R::add(v[1], R::mul(e, e));
-    v[2] = R::add(v[2], R::mul(ry, ry));
-  }
-  block_reduce<T, 3, 0>(v, sh);
+__device__ void finish_block(T (&v)[K], T* part, int64_t b, int64_t nb, unsigned* ticket,
+                             T* out, T* sh, bool& last) {
+  block_reduce<T, K, kMax>(v, sh);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) part[b * 3 + k] = v[k];
+    for (int k = 0; k < K; ++k) part[b * K + k] = v[k];
     // release: this CTA's row is visible before its ticket; acquire: the
     // last ticket's holder sees every other CTA's row (and, past the
     // barrier below, so do its other threads)
@@ -340,8 +329,92 @@ __global__ void __launch_bounds__(kStatThreads)
   }
   __syncthreads();
   if (!last) return;
-  combine_partials<T, 3, 0>(part, nb, r.out, sh);
+  combine_partials<T, K, kMax>(part, nb, out, sh);
   if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// ax + x,  max|x - px|,  max|x|,  sum (x - rx)^2,  sum ((ax + x)/cnt - rx)^2
+template <typename T>
+__device__ void primal_block(const PrimalStatsRows<T>& r, T cnt, int64_t b, int64_t nb,
+                             T* part, unsigned* ticket, T* sh, bool& last) {
+  using R = Rn<T>;
+  T v[4] = {T(0), T(0), T(0), T(0)};  // |.| >= 0, so 0 is the max's identity
+  const int64_t step = nb * kStatThreads;
+  for (int64_t i = b * kStatThreads + threadIdx.x; i < r.count; i += step) {
+    // every load before the store: the pointers are not __restrict__, so a
+    // load after the store could not be issued before it
+    const T xi = r.x[i];
+    const T axi = r.ax[i];
+    const T pxi = r.px[i];
+    const T ri = r.rx[i];
+    const T a = R::add(axi, xi);
+    r.axn[i] = a;
+    v[0] = max_nan(v[0], fabs(R::sub(xi, pxi)));
+    v[1] = max_nan(v[1], fabs(xi));
+    const T d = R::sub(xi, ri);
+    v[2] = R::add(v[2], R::mul(d, d));
+    const T e = R::sub(R::div(a, cnt), ri);
+    v[3] = R::add(v[3], R::mul(e, e));
+  }
+  finish_block<T, 4, 2>(v, part, b, nb, ticket, r.out, sh, last);
+}
+
+// ay + y,  sum (y - ry)^2,  sum ((ay + y)/cnt - ry)^2,  sum ry^2
+template <typename T>
+__device__ void dual_block(const StatsRows<T>& r, T cnt, int64_t b, int64_t nb, T* part,
+                           unsigned* ticket, T* sh, bool& last) {
+  using R = Rn<T>;
+  T v[3] = {T(0), T(0), T(0)};
+  const int64_t step = nb * kStatThreads;
+  for (int64_t i = b * kStatThreads + threadIdx.x; i < r.count; i += step) {
+    const T yi = r.y[i];
+    const T ayi = r.ay[i];
+    const T ry = r.ry[i];
+    const T acc = R::add(ayi, yi);
+    r.ayn[i] = acc;
+    const T d = R::sub(yi, ry);
+    v[0] = R::add(v[0], R::mul(d, d));
+    const T e = R::sub(R::div(acc, cnt), ry);
+    v[1] = R::add(v[1], R::mul(e, e));
+    v[2] = R::add(v[2], R::mul(ry, ry));
+  }
+  finish_block<T, 3, 0>(v, part, b, nb, ticket, r.out, sh, last);
+}
+
+// CTAs [0, bp) take the primal block, the next b0 the first dual block, the
+// next b1 the second, the rest (ba) the accumulators; a block a launch does
+// not take has no CTAs.  Each statistics block's CTAs grid-stride over it as
+// a launch of that block alone would.
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+    chunk_stats_kernel(ChunkStatsArgs<T> a, T cnt, int64_t bp, int64_t b0, int64_t b1,
+                       int64_t ba) {
+  using R = Rn<T>;
+  __shared__ T sh[4 * kStatThreads];
+  __shared__ bool last;
+  int64_t b = blockIdx.x;
+  if (b < bp) {
+    primal_block(a.primal, cnt, b, bp, a.part, a.tickets, sh, last);
+    return;
+  }
+  b -= bp;
+  T* part = a.part + 4 * bp;
+  if (b < b0) {
+    dual_block(a.first, cnt, b, b0, part, a.tickets + 1, sh, last);
+    return;
+  }
+  b -= b0;
+  part += 3 * b0;
+  if (b < b1) {
+    dual_block(a.second, cnt, b, b1, part, a.tickets + 2, sh, last);
+    return;
+  }
+  b -= b1;
+  const AccRows<T> r = a.acc;
+  if (b == 0 && threadIdx.x == 0) *r.atn = R::add(*r.at, *r.t);
+  for (int64_t i = b * kStatThreads + threadIdx.x; i < r.count; i += ba * kStatThreads) {
+    r.aysn[i] = R::add(r.ays[i], r.ys[i]);
+  }
 }
 
 unsigned grid_for(int64_t n) {
@@ -391,35 +464,27 @@ int dual_update_impl(int device, const DualUpdateArgs<T>& args, cudaStream_t str
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int primal_chunk_stats_impl(int device, const T* x, const T* px, const T* rx, const T* ax,
-                            double cnt, int64_t n, T* axn, T* part, T* out,
-                            cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned nb = n > 0 ? grid_for(n) : 0;
-  if (nb > 0) {
-    primal_stats_kernel<T><<<nb, kStatThreads, 0, stream>>>(x, px, rx, ax, static_cast<T>(cnt), n,
-                                                           axn, part);
-  }
-  combine_rows<T, 4, 2><<<1, kStatThreads, 0, stream>>>(part, nb, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// CTAs of one vector of dual_chunk_stats: a launch of its own's, and one
-// for an empty vector, which writes its zeros.
+// CTAs of a statistics block: a launch of its own's, and one for an empty
+// block, which writes its zeros.
 int64_t stats_blocks(int64_t n) { return n > 0 ? grid_for(n) : 1; }
 
+// The blocks a launch of check_chunk_stats takes (its `blocks` mask).
+constexpr int kPrimal = 1, kFirst = 2, kSecond = 4, kAcc = 8;
+
 template <typename T>
-int dual_chunk_stats_impl(int device, const DualStatsArgs<T>& args, double cnt, int vectors,
-                          cudaStream_t stream) {
+int chunk_stats_impl(int device, const ChunkStatsArgs<T>& args, double cnt, int blocks,
+                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (vectors < 1 || vectors > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks0 = stats_blocks(args.first.count);
-  const int64_t blocks1 = vectors == 2 ? stats_blocks(args.second.count) : 0;
-  dual_stats_kernel<T><<<static_cast<unsigned>(blocks0 + blocks1), kStatThreads, 0, stream>>>(
-      args, static_cast<T>(cnt), blocks0, blocks1);
+  if (blocks <= 0 || blocks > (kPrimal | kFirst | kSecond | kAcc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t bp = blocks & kPrimal ? stats_blocks(args.primal.count) : 0;
+  const int64_t b0 = blocks & kFirst ? stats_blocks(args.first.count) : 0;
+  const int64_t b1 = blocks & kSecond ? stats_blocks(args.second.count) : 0;
+  const int64_t ba = blocks & kAcc ? stats_blocks(args.acc.count) : 0;
+  chunk_stats_kernel<T><<<static_cast<unsigned>(bp + b0 + b1 + ba), kStatThreads, 0, stream>>>(
+      args, static_cast<T>(cnt), bp, b0, b1, ba);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,43 +532,32 @@ int dual_update_f32(int device, DualUpdateArgs<float> args, void* stream) {
   return dual_update_impl<float>(device, args, static_cast<cudaStream_t>(stream));
 }
 
-// (ax + x, [max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2]);
-// `part` holds chunk_stats_blocks(n) rows of 4.
-int primal_chunk_stats_f64(int device, const double* x, const double* px, const double* rx,
-                           const double* ax, double cnt, int64_t n, double* axn, double* part,
-                           double* out, void* stream) {
-  return primal_chunk_stats_impl<double>(device, x, px, rx, ax, cnt, n, axn, part, out,
-                                         static_cast<cudaStream_t>(stream));
+// The chunk statistics of the blocks in the `blocks` mask (1: primal, 2:
+// the first dual block, 4: the second, 8: the accumulators), in one
+// launch:
+//   primal: (ax + x, [max|x - px|, max|x|, sum (x - rx)^2,
+//            sum ((ax + x)/cnt - rx)^2])
+//   dual:   (ay + y, [sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2])
+//   accumulators: at + t, ays + ys
+// `part` holds chunk_stats_blocks(count) rows of 4 for the primal block
+// and of 3 for each dual block it takes, `tickets` three zeroed counters,
+// left at zero.  The structure is passed by value.
+int chunk_stats_f64(int device, ChunkStatsArgs<double> args, double cnt, int blocks,
+                    void* stream) {
+  return chunk_stats_impl<double>(device, args, cnt, blocks, static_cast<cudaStream_t>(stream));
 }
 
-int primal_chunk_stats_f32(int device, const float* x, const float* px, const float* rx,
-                           const float* ax, double cnt, int64_t n, float* axn, float* part,
-                           float* out, void* stream) {
-  return primal_chunk_stats_impl<float>(device, x, px, rx, ax, cnt, n, axn, part, out,
-                                        static_cast<cudaStream_t>(stream));
-}
-
-// For each of `vectors` (1 or 2) vectors of args (first, then second):
-// (ay + y, [sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2]), in one
-// launch; `part` holds max(chunk_stats_blocks(count), 1) rows of 3 for each
-// vector, `tickets` two zeroed counters, left at zero.
-int dual_chunk_stats_f64(int device, DualStatsArgs<double> args, double cnt, int vectors,
-                         void* stream) {
-  return dual_chunk_stats_impl<double>(device, args, cnt, vectors,
-                                       static_cast<cudaStream_t>(stream));
-}
-
-int dual_chunk_stats_f32(int device, DualStatsArgs<float> args, double cnt, int vectors,
-                         void* stream) {
-  return dual_chunk_stats_impl<float>(device, args, cnt, vectors,
-                                      static_cast<cudaStream_t>(stream));
+int chunk_stats_f32(int device, ChunkStatsArgs<float> args, double cnt, int blocks,
+                    void* stream) {
+  return chunk_stats_impl<float>(device, args, cnt, blocks, static_cast<cudaStream_t>(stream));
 }
 
 // Threads in the largest grid a launch uses: a longer vector makes the
 // grid-stride loop take more than one pass.
 int64_t elementwise_grid_threads() { return kMaxBlocks * kThreads; }
 
-// Rows of partial results the chunk-stats pass writes for n elements.
-int64_t chunk_stats_blocks(int64_t n) { return n > 0 ? grid_for(n) : 0; }
+// CTAs, and so rows of partial results, of a chunk-statistics block of n
+// rows.
+int64_t chunk_stats_blocks(int64_t n) { return stats_blocks(n); }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 from repro_torch.kernels.pdhg_update.ops import (
     DualBlock,
+    check_chunk_stats,
     dual_chunk_stats,
     dual_chunk_stats_pair,
     dual_prox,
@@ -10,6 +11,7 @@ from repro_torch.kernels.pdhg_update.ops import (
 
 __all__ = [
     "DualBlock",
+    "check_chunk_stats",
     "dual_chunk_stats",
     "dual_chunk_stats_pair",
     "dual_prox",

@@ -5,9 +5,11 @@ Replace ``repro/kernels/pdhg_update/kernel.py:primal_update``,
 ``:dual_prox``, ``:primal_chunk_stats`` and ``:dual_chunk_stats`` (Pallas,
 TPU); ``dual_update`` is ``dual_prox`` redesigned as the solver's whole dual
 step, with the row scaling before it, in one launch, and
-``dual_chunk_stats_pair`` the statistics of the solver's two dual blocks in
-one launch (so is ``dual_chunk_stats`` of one vector: the pass and the
-combine of its partial rows).  The source's header
+``check_chunk_stats`` every chunk statistic of a KKT check in one launch:
+the primal block, the solver's two dual blocks and the ``t`` and tenant
+accumulators.  ``primal_chunk_stats``, ``dual_chunk_stats`` and
+``dual_chunk_stats_pair`` are one launch of the same kernel on their blocks
+alone (the pass and the combine of its partial rows).  The source's header
 comment gives the design and what bounds it.  Each wrapper checks its
 inputs, allocates its outputs with ``torch.empty``, launches on the current
 stream, raises on a non-zero ``cudaGetLastError``, and counts its launches
@@ -23,6 +25,7 @@ from repro_torch.kernels.pdhg_update.ref import DualBlock
 
 __all__ = [
     "LAUNCHES",
+    "check_chunk_stats",
     "dual_chunk_stats",
     "dual_chunk_stats_pair",
     "dual_prox",
@@ -37,6 +40,7 @@ LAUNCHES = {
     "dual_update": 0,
     "primal_chunk_stats": 0,
     "dual_chunk_stats": 0,
+    "check_chunk_stats": 0,
 }
 
 
@@ -160,78 +164,107 @@ def dual_update(tree: DualBlock, sla: DualBlock, imp: DualBlock, s_t, t_mov, te)
     return tuple(b[1] for b in blocks)
 
 
-def primal_chunk_stats(x, px, rx, ax, cnt):
-    """(ax + x, max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2);
-    ``cnt`` is a host number."""
-    _check("x px rx ax", (x, px, rx, ax), x.shape[0], x)
-    n = x.shape[0]
-    lib = _build.library()
-    acc = torch.empty_like(x)
-    part = torch.empty(max(lib.chunk_stats_blocks(n), 1) * 4, dtype=x.dtype, device=x.device)
-    out = torch.empty(4, dtype=x.dtype, device=x.device)
-    err = getattr(lib, f"primal_chunk_stats_{_suffix(x.dtype)}")(
-        x.device.index,
-        *(t.data_ptr() for t in (x, px, rx, ax)),
-        float(cnt),
-        n,
-        acc.data_ptr(),
-        part.data_ptr(),
-        out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _raise_on(err, "primal_chunk_stats")
-    LAUNCHES["primal_chunk_stats"] += 1
-    return (acc, *out.unbind())
-
-
-# dual_chunk_stats' ticket counters, two per device: zero between launches
-# (each launch leaves them so), made once, before any CUDA graph captures a
-# launch.  Calls on two streams at once would share them.
+# chunk_stats' ticket counters, three per device (one per statistics block
+# of a launch): zero between launches (each launch leaves them so), made
+# once, before any CUDA graph captures a launch.  Calls on two streams at
+# once would share them.
 _TICKETS: dict[int, torch.Tensor] = {}
+
+# the blocks a launch takes (csrc/pdhg_update.cu, chunk_stats' mask)
+_PRIMAL, _FIRST, _SECOND, _ACC = 1, 2, 4, 8
 
 
 def _tickets(device: torch.device) -> torch.Tensor:
     t = _TICKETS.get(device.index)
     if t is None:
-        t = _TICKETS[device.index] = torch.zeros(2, dtype=torch.int32, device=device)
+        t = _TICKETS[device.index] = torch.zeros(3, dtype=torch.int32, device=device)
     return t
 
 
-def _dual_stats(vectors, cnt):
-    """One launch of the dual statistics over one or two (y, ry, ay)
-    triples; returns each triple's (ay + y, three 0-d sums)."""
-    like = vectors[0][0]
-    for j, (y, ry, ay) in enumerate(vectors):
-        _check(f"y{j} ry{j} ay{j}", (y, ry, ay), y.shape[0], like)
+def _chunk_stats(name: str, cnt, primal=None, duals=(), accs=None) -> list:
+    """One launch of the chunk statistics over the blocks given: the primal
+    ``(x, px, rx, ax)``, up to two dual ``(y, ry, ay)`` and the accumulators
+    ``(t, at, ys, ays)`` (``t`` and ``at`` 0-d).  Returns, for the blocks
+    given and in that order, the primal result (``ax + x`` and four 0-d
+    values), each dual block's (``ay + y`` and three 0-d sums), and
+    ``at + t``, ``ays + ys``; counts one launch of ``name``."""
+    like = (primal or duals[0] or accs)[0]
+    if primal is not None:
+        _check("x px rx ax", primal, primal[0].shape[0], like)
+    for j, v in enumerate(duals):
+        _check(f"y{j} ry{j} ay{j}", v, v[0].shape[0], like)
+    if accs is not None:
+        t, at, ys, ays = accs
+        _check("ys ays", (ys, ays), ys.shape[0], like)
+        for nm, v in (("t", t), ("at", at)):
+            if v.shape != () or v.device != like.device or v.dtype != like.dtype:
+                raise ValueError(f"{nm} must be a 0-d {like.dtype} tensor on {like.device}")
     lib = _build.library()
-    blocks = [max(lib.chunk_stats_blocks(v[0].shape[0]), 1) for v in vectors]
-    part = torch.empty(3 * sum(blocks), dtype=like.dtype, device=like.device)
-    out = torch.empty(3 * len(vectors), dtype=like.dtype, device=like.device)
-    accs = [torch.empty_like(v[0]) for v in vectors]
-    rows = [
-        _build.StatsRows(y.data_ptr(), ry.data_ptr(), ay.data_ptr(), acc.data_ptr(),
-                         out.data_ptr() + 3 * j * out.element_size(), y.shape[0])
-        for j, ((y, ry, ay), acc) in enumerate(zip(vectors, accs))
-    ]
-    if len(rows) == 1:
-        rows.append(_build.StatsRows())
-    args = _build.DualStatsArgs(*rows, part.data_ptr(), _tickets(like.device).data_ptr())
-    err = getattr(lib, f"dual_chunk_stats_{_suffix(like.dtype)}")(
-        like.device.index, args, float(cnt), len(vectors),
+    rows_p = lib.chunk_stats_blocks(primal[0].shape[0]) if primal is not None else 0
+    rows_d = sum(lib.chunk_stats_blocks(v[0].shape[0]) for v in duals)
+    part = torch.empty(4 * rows_p + 3 * rows_d, dtype=like.dtype, device=like.device)
+    out = torch.empty(4 * (primal is not None) + 3 * len(duals), dtype=like.dtype,
+                      device=like.device)
+    args = _build.ChunkStatsArgs(part=part.data_ptr(),
+                                 tickets=_tickets(like.device).data_ptr())
+    mask = 0
+    stats = []  # each statistics block's new accumulator and count of 0-d results
+
+    def out_ptr():  # where the next block's 0-d results go
+        return out.data_ptr() + sum(k for _, k in stats) * out.element_size()
+
+    if primal is not None:
+        x, px, rx, ax = primal
+        axn = torch.empty_like(x)
+        args.primal = _build.PrimalStatsRows(*(v.data_ptr() for v in (x, px, rx, ax, axn)),
+                                             out_ptr(), x.shape[0])
+        mask |= _PRIMAL
+        stats.append((axn, 4))
+    for (y, ry, ay), field, bit in zip(duals, ("first", "second"), (_FIRST, _SECOND)):
+        ayn = torch.empty_like(y)
+        setattr(args, field, _build.StatsRows(*(v.data_ptr() for v in (y, ry, ay, ayn)),
+                                              out_ptr(), y.shape[0]))
+        mask |= bit
+        stats.append((ayn, 3))
+    if accs is not None:
+        atn, aysn = torch.empty_like(at), torch.empty_like(ays)
+        args.acc = _build.AccRows(*(v.data_ptr() for v in (t, at, atn, ys, ays, aysn)),
+                                  ys.shape[0])
+        mask |= _ACC
+    err = getattr(lib, f"chunk_stats_{_suffix(like.dtype)}")(
+        like.device.index, args, float(cnt), mask,
         torch.cuda.current_stream(like.device).cuda_stream,
     )
-    _raise_on(err, "dual_chunk_stats")
-    LAUNCHES["dual_chunk_stats"] += 1
-    sums = out.unbind()
-    return [(acc, *sums[3 * j : 3 * j + 3]) for j, acc in enumerate(accs)]
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    values, results, i = out.unbind(), [], 0
+    for acc, k in stats:
+        results.append((acc, *values[i : i + k]))
+        i += k
+    return results + ([atn, aysn] if accs is not None else [])
+
+
+def primal_chunk_stats(x, px, rx, ax, cnt):
+    """(ax + x, max|x - px|, max|x|, sum (x - rx)^2, sum ((ax + x)/cnt - rx)^2);
+    ``cnt`` is a host number."""
+    return _chunk_stats("primal_chunk_stats", cnt, primal=(x, px, rx, ax))[0]
 
 
 def dual_chunk_stats(y, ry, ay, cnt):
     """(ay + y, sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2)."""
-    return _dual_stats([(y, ry, ay)], cnt)[0]
+    return _chunk_stats("dual_chunk_stats", cnt, duals=[(y, ry, ay)])[0]
 
 
 def dual_chunk_stats_pair(first, second, cnt):
     """:func:`dual_chunk_stats` of two (y, ry, ay) triples (the solver's tree
     and improvement rows) in one launch; returns the two results."""
-    return tuple(_dual_stats([first, second], cnt))
+    return tuple(_chunk_stats("dual_chunk_stats", cnt, duals=[first, second]))
+
+
+def check_chunk_stats(primal, tree, imp, t, at, ys, ays, cnt):
+    """Every chunk statistic of one KKT check in one launch: returns
+    (:func:`primal_chunk_stats` of ``primal`` = (x, px, rx, ax), the two
+    results of :func:`dual_chunk_stats_pair` of ``tree`` and ``imp``,
+    ``at + t``, ``ays + ys``), each with the bits of those calls and of
+    torch's adds."""
+    return tuple(_chunk_stats("check_chunk_stats", cnt, primal, [tree, imp], (t, at, ys, ays)))

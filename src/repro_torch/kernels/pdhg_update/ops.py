@@ -7,6 +7,7 @@ from __future__ import annotations
 from repro_torch.kernels.pdhg_update import kernel
 from repro_torch.kernels.pdhg_update.ref import (
     DualBlock,
+    check_chunk_stats_ref,
     dual_chunk_stats_pair_ref,
     dual_chunk_stats_ref,
     dual_prox_ref,
@@ -23,6 +24,7 @@ __all__ = [
     "primal_chunk_stats",
     "dual_chunk_stats",
     "dual_chunk_stats_pair",
+    "check_chunk_stats",
 ]
 
 
@@ -60,3 +62,9 @@ def dual_chunk_stats_pair(first, second, cnt):
     if first[0].device.type == "cpu":
         return dual_chunk_stats_pair_ref(first, second, cnt)
     return kernel.dual_chunk_stats_pair(first, second, cnt)
+
+
+def check_chunk_stats(primal, tree, imp, t, at, ys, ays, cnt):
+    if primal[0].device.type == "cpu":
+        return check_chunk_stats_ref(primal, tree, imp, t, at, ys, ays, cnt)
+    return kernel.check_chunk_stats(primal, tree, imp, t, at, ys, ays, cnt)

@@ -15,6 +15,7 @@ __all__ = [
     "primal_chunk_stats_ref",
     "dual_chunk_stats_ref",
     "dual_chunk_stats_pair_ref",
+    "check_chunk_stats_ref",
 ]
 
 
@@ -103,3 +104,16 @@ def dual_chunk_stats_pair_ref(first, second, cnt):
     """:func:`dual_chunk_stats_ref` of two (y, ry, ay) triples: the solver's
     tree rows and improvement rows at a KKT check."""
     return dual_chunk_stats_ref(*first, cnt), dual_chunk_stats_ref(*second, cnt)
+
+
+def check_chunk_stats_ref(primal, tree, imp, t, at, ys, ays, cnt):
+    """Every chunk statistic of one KKT check: :func:`primal_chunk_stats_ref`
+    of ``primal`` = (x, px, rx, ax), :func:`dual_chunk_stats_pair_ref` of the
+    tree and improvement rows' (y, ry, ay), then the t and tenant
+    accumulators ``at + t`` and ``ays + ys``."""
+    return (
+        primal_chunk_stats_ref(*primal, cnt),
+        *dual_chunk_stats_pair_ref(tree, imp, cnt),
+        at + t,
+        ays + ys,
+    )

@@ -474,6 +474,78 @@ def test_dual_chunk_stats_pair_matches_reference(m, n, dtype):
             assert all(float(v) == 0.0 for v in g[1:])
 
 
+# (n, m, k): the primal and improvement rows, the tree rows and the tenant
+# rows of one KKT check; block edges, no tree rows, no tenants, and an empty
+# primal block (with no improvement rows, as in the solver)
+CHECK_SIZES = [
+    (1, 1, 1),
+    (STATS_BLOCK - 1, STATS_BLOCK + 1, 3),
+    (STATS_BLOCK, 0, 0),
+    (STATS_BLOCK + 1, 7, STATS_BLOCK),
+    (3 * STATS_BLOCK + 5, STATS_BLOCK, 0),
+    (0, 5, 2),
+]
+
+
+@pytest.mark.parametrize("n, m, k", CHECK_SIZES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_check_chunk_stats_matches_reference(n, m, k, dtype):
+    """Every chunk statistic of one KKT check in one call (the primal block,
+    the tree and improvement rows, the t and tenant accumulators) against
+    the reference's Pallas ``primal_chunk_stats`` and ``dual_chunk_stats``
+    (interpret mode) and their jnp oracles on each block: the accumulators
+    and maxima exactly, the sums to ``STATS_TOL`` relative.  An empty dual
+    block is held to the oracle alone (the Pallas kernel refuses a vector
+    shorter than its block), an empty primal block to zeros (the primal
+    oracle's max has no identity); both give zeros.  Each block's result is also
+    the single-block call's bit for bit, and the t and tenant accumulators
+    are ``at + t`` and ``ays + ys``."""
+    rng = np.random.default_rng(n + 3 * m + 11 * k)
+    primal = tuple(rng.normal(size=n).astype(dtype) for _ in range(4))
+    duals = [tuple(rng.normal(size=r).astype(dtype) for _ in range(3)) for r in (m, n)]
+    t, at = (np.asarray(rng.normal(), dtype) for _ in range(2))
+    ys, ays = (rng.normal(size=k).astype(dtype) for _ in range(2))
+    cnt = 6.0
+
+    def tt(vs):
+        return tuple(torch.as_tensor(v) for v in vs)
+
+    got_p, got_t, got_i, got_at, got_ys = pk.check_chunk_stats(
+        tt(primal), tt(duals[0]), tt(duals[1]), *tt((t, at, ys, ays)), cnt
+    )
+    tol = STATS_TOL[dtype]
+    with enable_x64(dtype == np.float64):
+        jp = [jnp.asarray(v, JNP[dtype]) for v in primal]
+        wants_p = ([j_primal_chunk_stats_ref(*jp, cnt),
+                    j_primal_chunk_stats(*jp, cnt, block=STATS_BLOCK)] if n else [])
+        wants_d = []
+        for b in duals:
+            jb = [jnp.asarray(v, JNP[dtype]) for v in b]
+            wants_d.append([j_dual_chunk_stats_ref(*jb, cnt)])
+            if b[0].size:
+                wants_d[-1].append(j_dual_chunk_stats(*jb, cnt, block=STATS_BLOCK))
+    for got, wants, n_exact in [(got_p, wants_p, 3)] + [
+        (g, w, 1) for g, w in zip((got_t, got_i), wants_d)
+    ]:
+        for want in wants:
+            for i, (gv, wv) in enumerate(zip(got, want)):
+                assert gv.dtype == TDT[dtype]
+                if i < n_exact:  # accumulator and maxima: no reordering
+                    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+                else:
+                    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=tol)
+        if not got[0].numel():
+            assert all(float(v) == 0.0 for v in got[1:])
+    singles = [
+        pk.primal_chunk_stats(*tt(primal), cnt),
+        *pk.dual_chunk_stats_pair(tt(duals[0]), tt(duals[1]), cnt),
+    ]
+    for got, single in zip((got_p, got_t, got_i), singles):
+        assert all(torch.equal(a, b) for a, b in zip(got, single))
+    assert got_at.shape == () and torch.equal(got_at, torch.as_tensor(at) + torch.as_tensor(t))
+    assert torch.equal(got_ys, torch.as_tensor(ays) + torch.as_tensor(ys))
+
+
 # ---------------------------------------------------------------------------
 # the fused dual step and scaled adjoint of one PDHG iteration
 # ---------------------------------------------------------------------------
@@ -746,3 +818,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tk_kernel.primal_step(x, y, x[:1], x, x[0], data)
     with pytest.raises(ValueError, match="CUDA"):
         pk_kernel.dual_chunk_stats_pair((y, y, y), (x, x, x), 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk_kernel.check_chunk_stats((x, x, x, x), (y, y, y), (x, x, x), x[0], x[0], x[:1],
+                                    x[:1], 1.0)

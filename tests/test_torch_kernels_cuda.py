@@ -23,7 +23,9 @@ with the primal update as its epilogue) equal the launches they replace
 bit for bit.  The chunk statistics' accumulator and maxima are exact; their
 sums are held to 8 unit roundoffs of the sum (all terms are squares); the
 two-vector ``dual_chunk_stats_pair`` is one launch whose bits are the
-single-vector call's on each vector.
+single-vector call's on each vector, and ``check_chunk_stats`` (every
+statistic of a KKT check with the t and tenant accumulators) one launch
+whose bits are those of the primal call, the pair and torch's two adds.
 Flash attention is held to its plain version (``attention_ref``) row by
 row, |d| <= tol * max|ref row|: the kernel the wrapper picks and, where that
 is the Hopper (TMA + wgmma) kernel, the mma.sync kernel too.  Float32: 1e-5 (both keep float32
@@ -63,7 +65,7 @@ DTYPES = [torch.float64, torch.float32]
 # loop)
 ALLOCATOR_KERNELS = (
     "tree_matvec", "tree_rmatvec", "sla_matvec", "sla_rmatvec", "primal_step",
-    "dual_update", "primal_chunk_stats", "dual_chunk_stats",
+    "dual_update", "check_chunk_stats",
 )
 
 
@@ -520,6 +522,8 @@ def _redesigned(cuda):
     step = _step_inputs(adjoint, rng)
     plan = tk.primal_step_plan(step[-1])
     pair = [tuple(_vec(rng, r, torch.float64, cuda) for _ in range(3)) for r in (pdn.m, pdn.n)]
+    primal = tuple(_vec(rng, pdn.n, torch.float64, cuda) for _ in range(4))
+    accs = _check_accs(rng, 100, torch.float64, cuda)
     return [
         ("tree_matvec", lambda: tk.tree_matvec(x, idx), x),
         ("sla_matvec", lambda: tk.sla_matvec(x, sla.index), x),
@@ -527,6 +531,9 @@ def _redesigned(cuda):
         ("scaled_rmatvec", lambda: tk.scaled_rmatvec(*adjoint), adjoint[0]),
         ("primal_step", lambda: tk.primal_step(*step[:-1], plan), step[1]),
         ("dual_chunk_stats", lambda: pk.dual_chunk_stats_pair(*pair, 3.0), pair[1][0]),
+        ("primal_chunk_stats", lambda: pk.primal_chunk_stats(*primal, 3.0), primal[0]),
+        ("check_chunk_stats", lambda: pk.check_chunk_stats(primal, *pair, *accs, 3.0),
+         primal[0]),
     ]
 
 
@@ -541,7 +548,7 @@ def _equal(a, b):
     return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
 
 
-REDESIGNED = range(6)
+REDESIGNED = range(8)
 
 
 @pytest.mark.parametrize("which", REDESIGNED)
@@ -716,9 +723,55 @@ def test_dual_chunk_stats_pair_matches_plain(cuda, m, n, dtype):
         assert _equal(_tensors(pk.dual_chunk_stats_pair(*pair, 3.0)), _tensors(got))
 
 
+def _check_accs(rng, k, dtype, device):
+    """t and its accumulator (0-d), the k tenant duals and theirs."""
+    t, at = (torch.as_tensor(rng.normal() * 100.0, dtype=dtype, device=device) for _ in range(2))
+    return t, at, _vec(rng, k, dtype, device), _vec(rng, k, dtype, device)
+
+
+# (n, m, k): the tenant fleet's primal and improvement rows, tree rows and
+# tenants; one row each; an empty primal block; no tree rows; past the
+# elementwise grid
+CHECK_SHAPES = [(12_288, 1_637, 100), (1, 1, 1), (0, 5, 0), (1_025, 0, 257),
+                (2_162_689, 31, 3)]
+
+
+@pytest.mark.parametrize("n, m, k", CHECK_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_check_chunk_stats_matches_plain(cuda, n, m, k, dtype):
+    """Every chunk statistic of a KKT check in one launch: the accumulators
+    and maxima exact, the sums within STATS_TOL of the plain version; the
+    bits of the primal call, the dual pair and torch's two adds; the same
+    bits on every launch, and the three ticket counters back at zero."""
+    rng = np.random.default_rng(n + 3 * m + 7 * k)
+    primal = tuple(_vec(rng, n, dtype, cuda) for _ in range(4))
+    tree, imp = (tuple(_vec(rng, r, dtype, cuda) for _ in range(3)) for r in (m, n))
+    accs = _check_accs(rng, k, dtype, cuda)
+    reset_launch_counts()
+    got = pk.check_chunk_stats(primal, tree, imp, *accs, 3.0)
+    assert launch_counts()["check_chunk_stats"] == 1
+    assert not bool(pk._tickets(cuda).any())
+    want = pref.check_chunk_stats_ref(primal, tree, imp, *accs, 3.0)
+    for g, w, n_exact in zip(got[:3], want[:3], (3, 1, 1)):
+        for i, (gv, wv) in enumerate(zip(g, w)):
+            if i < n_exact:  # accumulator and maxima
+                _assert_within(gv, wv, 0.0)
+            else:
+                _assert_within(gv, wv, STATS_TOL[dtype] * float(wv))
+    t, at, ys, ays = accs
+    separate = [pk.primal_chunk_stats(*primal, 3.0), *pk.dual_chunk_stats_pair(tree, imp, 3.0),
+                at + t, ays + ys]
+    assert _equal(_tensors(got), _tensors(separate))
+    assert _equal(_tensors(got[3:]), _tensors(want[3:]))
+    for _ in range(3):
+        assert _equal(_tensors(pk.check_chunk_stats(primal, tree, imp, *accs, 3.0)),
+                      _tensors(got))
+        assert not bool(pk._tickets(cuda).any())
+
+
 def test_tenant_engine_step_runs_through_every_kernel(cuda):
     """A cold engine step on a tenant fleet with every kernel flag launches
-    all eight kernels of the path, certifies, keeps the contracts, lands on the CPU
+    every kernel wrapper of the path, certifies, keeps the contracts, lands on the CPU
     run's iterations, and repeats bit for bit."""
     from repro_torch.core.engine import AllocEngine
     from repro_torch.core.nvpax import NvpaxOptions
@@ -742,11 +795,13 @@ def test_tenant_engine_step_runs_through_every_kernel(cuda):
     counts = launch_counts()
     assert all(counts[k] > 0 for k in ALLOCATOR_KERNELS), counts
     # the PDHG loop: one fused primal step and one fused dual step per
-    # iteration, one launch of each chunk statistic per check; the standalone
-    # adjoints run only outside it (step sizes, KKT checks)
+    # iteration, one statistics launch per check (no standalone primal or
+    # dual chunk statistics); the standalone adjoints run only outside it
+    # (step sizes, KKT checks)
     iterations = sum(res.stats["phase_iterations"])
     assert counts["dual_update"] == counts["primal_step"] == iterations, counts
-    assert counts["dual_chunk_stats"] == counts["primal_chunk_stats"] == iterations // 50, counts
+    assert counts["check_chunk_stats"] == iterations // 50, counts
+    assert counts["dual_chunk_stats"] == counts["primal_chunk_stats"] == 0, counts
     assert counts["dual_prox"] == counts["scaled_rmatvec"] == counts["primal_update"] == 0, counts
     assert counts["tree_rmatvec"] < iterations and counts["sla_rmatvec"] < iterations, counts
     cpu = engine("cpu").step(tele)
