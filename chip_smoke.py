@@ -103,7 +103,28 @@ Phases, each of which raises on failure:
    their plain version's, their bound and ``scaled_dot_product_attention``'s:
    plain, Hopper, mma.sync, Hopper, mma.sync, plain at both serving shapes
    (qwen3-4b's dh 128, stablelm-12b's dh 160), the float32 kernel at (e)'s
-   float32 prefill shape.
+   float32 prefill shape;
+9. certify-first incremental stepping, see :func:`incremental_phase`:
+   (a) two ``AllocEngine`` on the paper fleet at KKT tolerance 1e-9, one
+   with ``incremental=True``, over 25 steps of telemetry refreshed every 5
+   (``TelemetrySim`` seed 0, samples 0-4) with a brownout (root cap x 0.9)
+   at step 12: per step within max(1e-6 W, 5 x the always-full engine's
+   own drift on held steps) of each other, a held step equal to its anchor,
+   at least 60% skips, every breaker kept, no rebuild; each skipped step
+   launches only the certify pass's two ``tree_matvec`` (no PDHG kernel),
+   one skipped step is profiled, and the median walls of skipped and
+   solved steps are printed; (b) an incremental ``PowerController`` on the
+   Appendix B tenant fleet: sample 0 cold, sample 0 again (a full skip whose
+   certify pass launches ``sla_matvec`` too, contracts and breakers kept),
+   then ``reset_warm()`` and sample 1 solved cold with phase 7's
+   iterations;
+10. the paper's trace experiment, see :func:`simulation_phase`:
+   ``DatacenterSim`` on the paper fleet (``TelemetrySim`` seed 0) with the
+   Static and Greedy baselines for 60 control intervals through every
+   kernel flag, the first 4 against the port's CPU run (allocations and
+   the three satisfaction ratios), S_nvpax >= S_static and every breaker
+   on every step; the means of the ratios and the straggler tax, and the
+   wall per interval.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -132,6 +153,7 @@ import torch  # noqa: E402
 import repro_torch.kernels as kernels  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
+from repro_torch.core.engine import AllocEngine  # noqa: E402
 from repro_torch.core.nvpax import NvpaxOptions, optimize  # noqa: E402
 from repro_torch.core.problem import AllocProblem, FleetTopology  # noqa: E402
 from repro_torch.core.solver import SolverOptions  # noqa: E402
@@ -148,7 +170,7 @@ from repro_torch.pdn.tree import build_datacenter  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, build  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
-from repro_torch.power import ControllerConfig, PowerController  # noqa: E402
+from repro_torch.power import ControllerConfig, DatacenterSim, PowerController  # noqa: E402
 from repro_torch.training.step import make_serve_steps  # noqa: E402
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3, 34 TFLOP/s FP64 and
@@ -211,6 +233,25 @@ LIMITS = {
 # the serving path on the tenant fleet: telemetry samples of its cold steps
 ENGINE_SAMPLES = (0, 1, 2)
 SLA_FEAS_TOL = 1e-6  # watts: tenant sums inside [b_min, b_max]
+# phase 9: the quasi-static trace of benchmarks/incremental_bench.py (a
+# telemetry refresh every INC_HOLD steps) at its KKT tolerance, with a
+# brownout; the bench's gate on the skip share; a held step returns its
+# anchor's allocation through the exact repair (within SKIP_TOL watts)
+INC_STEPS = 25
+INC_HOLD = 5
+INC_BROWNOUT_STEP = 12
+INC_BROWNOUT = 0.9
+INC_EPS = 1e-9
+INC_MIN_SKIP_SHARE = 0.6
+SKIP_TOL = 1e-9
+# the kernels a PDHG solve launches and a certified skip must not
+PDHG_KERNELS = ("primal_step", "dual_update", "check_chunk_stats", "scaled_rmatvec",
+                "primal_update", "dual_prox", "primal_chunk_stats", "dual_chunk_stats")
+# phase 10: DatacenterSim control intervals on the card, the first
+# SIM_HELD of them also on the CPU; the ratios' bar
+SIM_STEPS = 60
+SIM_HELD = 4
+RATIO_TOL = 1e-9
 # the kernels of the tenant serving path (phase 7); flash attention is
 # phase 8's, and dual_prox, scaled_rmatvec, primal_update and the standalone
 # chunk statistics stand alone (phases 3 and 6) since the fused dual step,
@@ -1365,6 +1406,17 @@ def main(argv: list[str]) -> int:
 
     # -- 8. the data plane's serving path -------------------------------------
     flash_entries, report["serving_path"] = serving_phase(cuda, smi, args.profile)
+
+    # -- 9. certify-first incremental stepping --------------------------------
+    certify_launches, report["incremental"] = incremental_phase(
+        pdn, layout, engine_opts, cuda, engine_report["samples"]
+    )
+    for entry in entries:
+        if entry["name"] in ("tree_matvec", "sla_matvec"):
+            entry["launches_certify"] = certify_launches[entry["name"]]
+
+    # -- 10. the paper's trace experiment ---------------------------------------
+    report["simulation"] = simulation_phase(pdn, engine_opts, cuda, smi)
     entries.extend(flash_entries)
 
     if args.profile:
@@ -1550,6 +1602,260 @@ def tenant_engine_phase(pdn, layout, kernel_opts, cuda, warm_tenants: bool):
         }
         log(f"[7] warm-carried sample 1 after sample 0: {report['warm_step']}")
     return launches, report
+
+
+def _kernel_calls(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _check_certify_only(tag, calls: dict, tenants: bool) -> None:
+    """A certified skip launches the certify pass's kernels only: two
+    ``tree_matvec`` (the repaired point's residual, Phase I's slack) and,
+    with tenants, ``sla_matvec`` (the residual's tenant sums and the
+    repair's), and no kernel of a PDHG solve."""
+    allowed = {"tree_matvec", "sla_matvec"} if tenants else {"tree_matvec"}
+    if (calls.get("tree_matvec") != 2 or set(calls) - allowed
+            or (tenants and not calls.get("sla_matvec"))):
+        raise AssertionError(f"[{tag}] a skipped step launched {calls}, not the certify pass "
+                             f"alone ({sorted(allowed)})")
+
+
+def incremental_phase(pdn, layout, engine_opts, cuda, tenant_rows):
+    """Phase 9: certify-first stepping on the card.  Returns (the certify
+    passes' kernel launches over the skipped steps of (a) and (b), report).
+
+    (a) An incremental and an always-full ``AllocEngine`` on the paper
+    fleet at KKT tolerance 1e-9 over the quasi-static trace.  The launch
+    counts are set to 0 before each step of the incremental engine and read
+    after it.  (b) An incremental ``PowerController`` on the Appendix B
+    tenant fleet: a cold step, the same step again (a full skip), and after
+    ``reset_warm()`` the next sample solved cold (``tenant_rows``: phase 7's
+    rows, whose iterations it repeats)."""
+    opts = SolverOptions(use_pallas=True, use_pallas_tree=True, eps_abs=INC_EPS,
+                         eps_rel=INC_EPS)
+    full = AllocEngine(pdn, options=NvpaxOptions(solver=opts), device=cuda)
+    inc = AllocEngine(pdn, options=NvpaxOptions(incremental=True, solver=opts), device=cuda)
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    samples = [sim.power(t) for t in range(INC_STEPS // INC_HOLD)]
+    cap0 = float(pdn.node_cap[0])
+    caps = np.asarray(pdn.node_cap, np.float64).copy()
+    log(f"[9] certify-first stepping: two AllocEngine on n={pdn.n}, eps {INC_EPS:g}, "
+        f"{INC_STEPS} steps, telemetry samples 0-{len(samples) - 1} each held {INC_HOLD} steps, "
+        f"root cap x {INC_BROWNOUT} at step {INC_BROWNOUT_STEP}")
+    inc_calls: dict[str, int] = {}
+    certify_calls: dict[str, int] = {}
+    rows, anchor, prev_full, drift = [], None, None, 0.0
+    for t in range(INC_STEPS):
+        tele = samples[t // INC_HOLD]
+        if t == INC_BROWNOUT_STEP:
+            for e in (full, inc):
+                e.set_root_cap(INC_BROWNOUT * cap0)
+            caps[0] = INC_BROWNOUT * cap0
+        sync(cuda)
+        t0 = time.perf_counter()
+        rf = full.step(tele)  # ends in a copy to the host
+        wall_full = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ri = inc.step(tele)
+        wall_inc = time.perf_counter() - t0
+        calls = _kernel_calls(kernels.launch_counts())
+        for key, v in calls.items():
+            inc_calls[key] = inc_calls.get(key, 0) + v
+        stepped = dataclasses.replace(pdn, node_cap=caps)
+        for res in (rf, ri):
+            feasibility(stepped, res.allocation)
+            if not (res.stats["converged"] and res.stats["kkt_certified"]):
+                raise AssertionError(f"[9] step {t} not certified: {dict(res.stats)}")
+        skipped = bool(ri.stats["skipped"])
+        if skipped:
+            _check_certify_only("9", calls, tenants=False)
+            for key, v in calls.items():
+                certify_calls[key] = certify_calls.get(key, 0) + v
+            held = float(np.max(np.abs(ri.allocation - anchor)))
+            if held > SKIP_TOL:
+                raise AssertionError(f"[9] step {t}: a held step moved {held:.3e} W off its anchor")
+        else:
+            anchor = ri.allocation
+        if prev_full is not None and t % INC_HOLD and t != INC_BROWNOUT_STEP:
+            drift = max(drift, float(np.max(np.abs(rf.allocation - prev_full))))
+        prev_full = rf.allocation
+        rows.append({
+            "step": t, "skipped": skipped, "certify_pass": bool(ri.stats["certify_pass"]),
+            "phase_iterations": list(ri.stats["phase_iterations"]),
+            "full_phase_iterations": list(rf.stats["phase_iterations"]),
+            "wall_ms": wall_inc * 1e3, "full_wall_ms": wall_full * 1e3,
+            "vs_full_w": float(np.max(np.abs(ri.allocation - rf.allocation))),
+            "launches": calls,
+        })
+        log(f"[9] step {t}: " + ("skipped" if skipped else "phase I reused" if
+                                 ri.stats["certify_pass"] else "solved")
+            + f", iterations {rows[-1]['phase_iterations']} (full "
+            f"{rows[-1]['full_phase_iterations']}), {wall_inc * 1e3:.1f} ms (full "
+            f"{wall_full * 1e3:.1f} ms), vs full {rows[-1]['vs_full_w']:.2e} W, launches {calls}")
+    bar = max(PARITY_TOL, 5 * drift)
+    worst = max(r["vs_full_w"] for r in rows)
+    n_skip = sum(r["skipped"] for r in rows)
+    log(f"[9] the always-full engine's own drift on held steps {drift:.3e} W; bar "
+        f"max(1e-6, 5 x drift) = {bar:.3e} W; incremental vs full at most {worst:.3e} W "
+        f"(skipped steps {max([r['vs_full_w'] for r in rows if r['skipped']], default=0):.3e}, "
+        f"phase I reused {max([r['vs_full_w'] for r in rows if r['certify_pass'] and not r['skipped']], default=0):.3e}, "
+        f"solved {max([r['vs_full_w'] for r in rows if not r['certify_pass']], default=0):.3e})")
+    if worst > bar:
+        raise AssertionError(f"[9] incremental vs always-full {worst:.3e} W > {bar:.3e} W")
+    if n_skip < INC_MIN_SKIP_SHARE * INC_STEPS:
+        raise AssertionError(f"[9] {n_skip} of {INC_STEPS} steps skipped, under "
+                             f"{INC_MIN_SKIP_SHARE:.0%}")
+    if full.rebuild_count() != 1 or inc.rebuild_count() != 1:
+        raise AssertionError(f"[9] rebuild_count {full.rebuild_count()}, {inc.rebuild_count()}")
+    missing = [k for k in ("tree_matvec", "primal_step", "dual_update") if not inc_calls.get(k)]
+    if missing:
+        raise AssertionError(f"[9] kernels never launched on the incremental path: {missing}")
+    walls = {
+        "skipped_ms": float(np.median([r["wall_ms"] for r in rows if r["skipped"]])),
+        "solved_ms": float(np.median([r["wall_ms"] for r in rows if not r["skipped"]])),
+        "full_ms": float(np.median([r["full_wall_ms"] for r in rows])),
+    }
+    log(f"[9] {n_skip} of {INC_STEPS} steps skipped; median wall: skipped "
+        f"{walls['skipped_ms']:.2f} ms, solved {walls['solved_ms']:.1f} ms, always-full "
+        f"{walls['full_ms']:.1f} ms; rebuild_count 1, 1; incremental path launches {inc_calls}")
+    skip_profile = profiled("one skipped step (9a)", lambda: inc.step(samples[-1]))
+    if not skip_profile["kernel_calls"] or set(skip_profile["kernel_calls"]) != {"tree_matvec"}:
+        raise AssertionError(f"[9] the profiled step launched {skip_profile['kernel_calls']}")
+
+    # (b) the Appendix B tenant fleet
+    ctl = PowerController(
+        pdn, sla=layout.sla_topo(device=cuda), priority=layout.priority,
+        config=ControllerConfig(options=NvpaxOptions(incremental=True, solver=engine_opts)),
+        device=cuda,
+    )
+    owned = layout.tenant_of >= 0
+    s0, s1 = (sim.power(t) for t in (0, 1))
+    cold = ctl.step(s0)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    held = ctl.step(s0)
+    wall_held = time.perf_counter() - t0
+    calls = _kernel_calls(kernels.launch_counts())
+    if not held.stats["skipped"]:
+        raise AssertionError(f"[9b] the repeated tenant step did not certify: {dict(held.stats)}")
+    _check_certify_only("9b", calls, tenants=True)
+    for key, v in calls.items():
+        certify_calls[key] = certify_calls.get(key, 0) + v
+    gap = float(np.max(np.abs(held.allocation - cold.allocation)))
+    if gap > SKIP_TOL:
+        raise AssertionError(f"[9b] the skipped step moved {gap:.3e} W off the cold step")
+    over = feasibility(pdn, held.allocation)
+    sums = np.bincount(layout.tenant_of[owned], weights=held.allocation[owned],
+                       minlength=layout.n_tenants)
+    sla_gap = float(max(np.max(layout.b_min - sums), np.max(sums - layout.b_max)))
+    if sla_gap > SLA_FEAS_TOL:
+        raise AssertionError(f"[9b] a tenant sum leaves its bounds by {sla_gap:.3e} W")
+    ctl.reset_warm()
+    next_cold = ctl.step(s1)
+    want = tenant_rows[1]["phase_iterations"]
+    if (next_cold.stats["certify_pass"] or not next_cold.stats["kkt_certified"]
+            or list(next_cold.stats["phase_iterations"]) != want):
+        raise AssertionError(f"[9b] sample 1 after reset_warm: {dict(next_cold.stats)}, "
+                             f"phase 7's iterations {want}")
+    if ctl.rebuild_count() != 1:
+        raise AssertionError(f"[9b] rebuild_count {ctl.rebuild_count()}")
+    log(f"[9b] tenant fleet: sample 0 cold {list(cold.stats['phase_iterations'])}; again: "
+        f"skipped in {wall_held * 1e3:.2f} ms, launches {calls}, {gap:.1e} W off the cold step, "
+        f"cap excess {over:.2e} W, tenant bound excess {sla_gap:.2e} W; after reset_warm "
+        f"sample 1 solved cold, iterations {list(next_cold.stats['phase_iterations'])} "
+        f"(phase 7's); rebuild_count 1")
+    log(f"[9] the certify passes' launches over the skipped steps: {certify_calls}")
+    report = {
+        "paper_fleet": {"rows": rows, "self_drift_w": drift, "bar_w": bar, "max_vs_full_w": worst,
+                        "skipped": n_skip, "median_walls": walls, "launches": inc_calls,
+                        "skip_profile": skip_profile},
+        "tenant_fleet": {"cold_iterations": list(cold.stats["phase_iterations"]),
+                         "skip_wall_ms": wall_held * 1e3, "skip_launches": calls,
+                         "skip_vs_cold_w": gap, "max_cap_excess_w": over,
+                         "max_tenant_bound_excess_w": sla_gap,
+                         "next_cold_iterations": list(next_cold.stats["phase_iterations"])},
+        "certify_launches": certify_calls,
+    }
+    return certify_calls, report
+
+
+class RecordingController(PowerController):
+    """A ``PowerController`` that keeps every step's allocation, for the
+    checks of phase 10 (``DatacenterSim`` returns metrics only)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.allocations: list[np.ndarray] = []
+
+    def step(self, telemetry, *, active=None):
+        res = super().step(telemetry, active=active)
+        self.allocations.append(res.allocation)
+        return res
+
+
+def simulation_phase(pdn, engine_opts, cuda, smi) -> dict:
+    """Phase 10: ``DatacenterSim`` on the paper fleet with the Static and
+    Greedy baselines, every kernel flag on, against the port's CPU run of
+    its first ``SIM_HELD`` intervals."""
+    config = ControllerConfig(options=NvpaxOptions(solver=engine_opts))
+
+    def run(device, steps):
+        ctl = RecordingController(pdn, config=config, device=device)
+        sim = DatacenterSim.build(pdn, seed=0, controller=ctl)
+        sync(device)
+        t0 = time.perf_counter()
+        out = sim.run(steps)
+        return out, ctl, time.perf_counter() - t0
+
+    log(f"[10] DatacenterSim: n={pdn.n}, TelemetrySim seed 0, {SIM_STEPS} intervals with the "
+        f"Static and Greedy baselines, every kernel flag on")
+    kernels.reset_launch_counts()
+    out, ctl, wall = run(cuda, SIM_STEPS)
+    launches = _kernel_calls(kernels.launch_counts())
+    cpu_out, cpu_ctl, _ = run("cpu", SIM_HELD)
+    for t in range(SIM_HELD):
+        d = float(np.max(np.abs(ctl.allocations[t] - cpu_ctl.allocations[t])))
+        if d > PARITY_TOL:
+            raise AssertionError(f"[10] interval {t}: card vs CPU {d:.3e} W")
+    for key in ("S_nvpax", "S_static", "S_greedy"):
+        d = float(np.max(np.abs(out[key][:SIM_HELD] - cpu_out[key])))
+        if d > RATIO_TOL:
+            raise AssertionError(f"[10] {key} card vs CPU {d:.3e}")
+    for t, a in enumerate(ctl.allocations):
+        feasibility(pdn, a)
+    if not (out["S_nvpax"] >= out["S_static"]).all():
+        bad = int(np.argmin(out["S_nvpax"] - out["S_static"]))
+        raise AssertionError(f"[10] interval {bad}: S_nvpax {out['S_nvpax'][bad]:.6f} < S_static "
+                             f"{out['S_static'][bad]:.6f}")
+    missing = [k for k in ("tree_matvec", "tree_rmatvec", "primal_step", "dual_update",
+                           "check_chunk_stats") if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"[10] kernels never launched: {missing}")
+    w = out["wall_ms"]
+    gap_cpu = max(float(np.max(np.abs(ctl.allocations[t] - cpu_ctl.allocations[t])))
+                  for t in range(SIM_HELD))
+    report = {
+        "steps": SIM_STEPS,
+        "means": {k: float(np.mean(out[k])) for k in ("S_nvpax", "S_static", "S_greedy",
+                                                        "straggler_tax")},
+        "wall_ms": {"mean": float(np.mean(w)), "median": float(np.median(w)),
+                    "p95": float(np.percentile(w, 95)), "first": float(w[0])},
+        "run_s": wall,
+        "vs_cpu_w": gap_cpu,
+        "launches": launches,
+        "card": smi,
+        "per_step": {k: v.tolist() for k, v in out.items()},
+    }
+    m, wm = report["means"], report["wall_ms"]
+    log(f"[10] means over {SIM_STEPS} intervals: S_nvpax {m['S_nvpax']:.6f}, S_static "
+        f"{m['S_static']:.6f}, S_greedy {m['S_greedy']:.6f}, straggler tax "
+        f"{m['straggler_tax']:.6f}; S_nvpax >= S_static and every breaker kept on every "
+        f"interval; first {SIM_HELD} vs the CPU run {gap_cpu:.2e} W, ratios <= {RATIO_TOL:g}")
+    log(f"[10] wall per interval (controller step, host clock): mean {wm['mean']:.1f} ms, "
+        f"median {wm['median']:.1f} ms, p95 {wm['p95']:.1f} ms (first {wm['first']:.1f} ms); "
+        f"{wall:.1f} s for the run with both baselines; on {smi}; launches {launches}")
+    return report
 
 
 def _row_err(got, want) -> float:

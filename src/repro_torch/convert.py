@@ -106,16 +106,9 @@ def solver_options_from_dict(d: Mapping[str, Any]) -> SolverOptions:
     return SolverOptions(**dict(d))
 
 
-# the reference's incremental-mode (certify-first) fields, which the port
-# leaves out until ROADMAP Queue 1 item 9
-_INCREMENTAL_META = ("certify_tol", "certify_margin")
-
-
 def batch_meta_from_dict(d: Mapping[str, Any]) -> BatchMeta:
-    """``BatchMeta`` field by field (the reference engine's ``meta``); its
-    incremental-mode tolerances are dropped, any other unknown field
-    raises."""
-    d = {key: value for key, value in d.items() if key not in _INCREMENTAL_META}
+    """``BatchMeta`` field by field (the reference engine's ``meta``); a
+    field the port does not know raises."""
     unknown = set(d) - set(BatchMeta._fields)
     if unknown:
         raise ValueError(f"unknown engine metadata field(s): {sorted(unknown)}")

@@ -1,5 +1,6 @@
 """nvPAX core: the paper's allocator in PyTorch."""
 
+from repro_torch.core.greedy import greedy_allocate, static_allocate
 from repro_torch.core.nvpax import AllocResult, NvpaxOptions, optimize
 from repro_torch.core.problem import AllocProblem, FleetTopology, StepProblem
 from repro_torch.core.solver import SolveStats, SolverOptions, SolverState
@@ -17,6 +18,8 @@ __all__ = [
     "SolverState",
     "StepProblem",
     "TreeTopo",
+    "greedy_allocate",
     "optimize",
+    "static_allocate",
     "waterfill_arrays",
 ]

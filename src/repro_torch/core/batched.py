@@ -21,9 +21,14 @@ Every step-problem builder (``qp_step``, ``lp_step``, ``saturated_mask``,
 so the host driver (:func:`repro_torch.core.nvpax.optimize`) and this
 program build the same convex programs and differ only in orchestration.
 
+With an incremental ``carry`` the certify pass runs first
+(:mod:`repro_torch.core.solver.certify`); its two flags come to the host in
+one transfer and choose which phases run, where the reference gates its
+loops with traced predicates.  The outputs, warm carry included, are the
+reference's.
+
 Not ported yet (ROADMAP Queue 1 item 8b): ``stack_problems``,
-``optimize_batched`` and the calibration helpers of the K > 1 path; the
-incremental certify-first ``carry`` (item 9).
+``optimize_batched`` and the calibration helpers of the K > 1 path.
 """
 
 from __future__ import annotations
@@ -62,6 +67,10 @@ class BatchMeta(NamedTuple):
     run_phase2: bool
     run_phase3: bool
     eps: float  # regularization weight
+    # incremental certify-first stepping tolerances (watts; see
+    # repro_torch.core.solver.certify); only consulted when a carry is passed
+    certify_tol: float = 1e-9
+    certify_margin: float = 1e-2
 
 
 class BatchedStepState(NamedTuple):
@@ -93,6 +102,8 @@ def batch_meta(ap: AllocProblem, options: NvpaxOptions) -> BatchMeta:
         run_phase2=options.run_phase2,
         run_phase3=options.run_phase3,
         eps=options.eps,
+        certify_tol=options.certify_tol,
+        certify_margin=options.certify_margin,
     )
 
 
@@ -216,6 +227,7 @@ def solve_three_phase(
     opts: solver.SolverOptions,
     warm: phases.WarmCarry | None = None,
     iter_budget: int | None = None,
+    carry: solver.IncrementalCarry | None = None,
     *,
     present: frozenset[int] | None = None,
 ):
@@ -235,9 +247,16 @@ def solve_three_phase(
     out on the host by the caller (:func:`active_levels`); without it the
     problem's tensors are read back once to find them.
 
+    ``carry`` (incremental mode) is the previous accepted step's
+    :class:`~repro_torch.core.solver.certify.IncrementalCarry`: the certify
+    pass runs first, and on success the carried point stands in for the
+    whole program (full skip: Phases II/III return their initial states and
+    ``x_snap``) or for Phase I only (Phase I skip).
+
     Returns ``(x1, x2, x3, warm_carry, stats)``; ``stats`` has the
     reference's keys, with ``stats["truncated"]`` True when refinement work
-    was skipped or cut short by the budget.
+    was skipped or cut short by the budget, and ``stats["skipped"]`` /
+    ``stats["certify_pass"]`` the certify decision (False without a carry).
     """
     n, m, k = ap.n, ap.tree.m, ap.sla.k
     if warm is None:
@@ -247,12 +266,28 @@ def solve_three_phase(
     if present is None:
         present = frozenset(ap.priority_levels(active_only=True))
 
-    p1 = _phase1_scan(ap, meta, opts, w1, present)
+    skip = skip_p1 = False
+    if carry is not None:
+        dec = solver.certify_step(
+            ap, carry, meta.n_depths, tol=meta.certify_tol, margin=meta.certify_margin,
+            opts=opts,
+        )
+        skip, skip_p1 = dec.flags()
+    if skip or skip_p1:
+        # the carried Phase I point stands in for the sweep (both tiers)
+        carried = solver.SolverState(carry.x1, w1.t, w1.y_tree, w1.y_sla, w1.y_imp)
+        p1 = _empty_state(carry.x1, carried, torch.zeros_like(ap.active), False)
+    else:
+        p1 = _phase1_scan(ap, meta, opts, w1, present)
     x1 = p1.x
     truncated = False
 
     def refine(x, sol, opt_set, free_set, iters_before):
-        """One budget-gated max-min phase; returns (state, truncated)."""
+        """One budget-gated max-min phase; returns (state, truncated).  A
+        full skip runs no round and is not a truncation; its allocation is
+        the carried one after the repair."""
+        if skip:
+            return _empty_state(dec.x_snap, sol, torch.zeros_like(ap.active), False), False
         if iter_budget is None:
             return _maxmin_loop(ap, x, opt_set, free_set, meta, opts, sol), False
         if iters_before >= iter_budget:  # the phase never starts
@@ -297,9 +332,9 @@ def solve_three_phase(
         "kkt_res": torch.maximum(torch.maximum(p1.kkt_res, p2.kkt_res), p3.kkt_res),
         "restarts": p1.restarts + p2.restarts + p3.restarts,
         "kkt_hist": p1.kkt_hist + p2.kkt_hist + p3.kkt_hist,
-        # incremental certify outcome (not ported yet: always False)
-        "skipped": False,
-        "certify_pass": False,
+        # incremental certify outcome (False without a carry)
+        "skipped": skip,
+        "certify_pass": skip or skip_p1,
     }
     return x1, x2, x3, phases.WarmCarry(p1.solver, p2.solver, p3.solver), stats
 

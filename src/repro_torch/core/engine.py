@@ -12,7 +12,9 @@ then serves every control step from telemetry alone:
   *full* priority layout, tree-depth count, the pin-free simplification);
 * :meth:`step` runs the one-scenario program
   (:func:`~repro_torch.core.batched.solve_three_phase`) on telemetry
-  pre-processed on the device, warm-started from the previous step;
+  pre-processed on the device, warm-started from the previous step, and
+  with ``NvpaxOptions(incremental=True)`` certified first against the last
+  accepted step's anchor (:mod:`repro_torch.core.solver.certify`);
 * deadlines run in iteration space, from a calibrated per-iteration cost.
 
 The reference pins one compiled program and counts its traces
@@ -42,6 +44,7 @@ from repro_torch.core.batched import (
 )
 from repro_torch.core.nvpax import AllocResult, NvpaxOptions
 from repro_torch.core.problem import AllocProblem, FleetTopology
+from repro_torch.core.solver import certify
 from repro_torch.obs.stats import StepStats
 from repro_torch.pdn.tree import FlatPDN, check_caps_fund_minimums
 
@@ -54,11 +57,13 @@ _UNSET = object()
 _PROBE_FULL_BUDGET = 2**31 - 1
 
 
-def _engine_solve(fleet: FleetTopology, r, priority, active, warm, iter_budget, *, meta, opts,
-                  present):
+def _engine_solve(fleet: FleetTopology, r, priority, active, warm, iter_budget, carry=None, *,
+                  meta, opts, present):
     """The whole control step: request pre-processing on the device (paper
-    section 5.2: clip to the device box, idle devices request ``l``) and the
-    three-phase program with its exact feasibility repair."""
+    section 5.2: clip to the device box, idle devices request ``l``), the
+    certify-first gate when a ``carry`` is given, and the three-phase
+    program with its exact feasibility repair.  Returns the program's
+    ``(x1, x2, x3, warm, stats)`` and the next incremental anchor."""
     r = torch.where(active, torch.clamp(r, fleet.l, fleet.u), fleet.l)
     ap = AllocProblem(
         l=fleet.l,
@@ -70,7 +75,13 @@ def _engine_solve(fleet: FleetTopology, r, priority, active, warm, iter_budget, 
         sla=fleet.sla,
         weight_scale=fleet.weight_scale,
     )
-    return solve_three_phase(ap, meta, opts, warm, iter_budget, present=present)
+    x1, x2, x3, sol, stats = solve_three_phase(
+        ap, meta, opts, warm, iter_budget, carry, present=present
+    )
+    new_carry = certify.update_carry(
+        carry, ap, x1, x3, stats["skipped"], stats["certify_pass"] and not stats["skipped"]
+    )
+    return x1, x2, x3, sol, stats, new_carry
 
 
 class AllocEngine:
@@ -103,11 +114,6 @@ class AllocEngine:
                 "the flight recorder is not ported yet (ROADMAP Queue 1 item 10)"
             )
         self.options = options or NvpaxOptions()
-        if self.options.incremental:
-            raise NotImplementedError(
-                "incremental=True (certify-first stepping) is not ported yet "
-                "(ROADMAP Queue 1 item 9)"
-            )
         self.pdn = pdn
         self.idle_threshold = float(idle_threshold)
         self.dtype = dtype
@@ -138,6 +144,8 @@ class AllocEngine:
             run_phase2=self.options.run_phase2,
             run_phase3=self.options.run_phase3,
             eps=self.options.eps,
+            certify_tol=self.options.certify_tol,
+            certify_margin=self.options.certify_margin,
         )
         # construction-time caps: rescale_supply scales are absolute vs these
         self._node_cap0 = np.asarray(pdn.node_cap, np.float64).copy()
@@ -146,6 +154,9 @@ class AllocEngine:
         self._node_cap_np = self._node_cap0.copy()
         self._subtree_lmin = pdn.subtree_min_power()
         self._warm: phases.WarmCarry | None = None
+        # the incremental (certify-first) anchor, carried only when
+        # options.incremental — see repro_torch.core.solver.certify
+        self._inc_carry: certify.IncrementalCarry | None = None
         self._cost_model: PhaseCostModel | None = None
         self.history: list[dict[str, Any]] = []
 
@@ -167,8 +178,10 @@ class AllocEngine:
         return self._rebuilds
 
     def reset_warm(self) -> None:
-        """Drop carried solver state (the next step cold-starts)."""
+        """Drop carried solver state and the incremental anchor (the next
+        step cold-starts and certifies nothing)."""
         self._warm = None
+        self._inc_carry = None
 
     def _vec(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
@@ -272,7 +285,7 @@ class AllocEngine:
             active = req >= self.idle_threshold
         return req, np.asarray(active, dtype=bool)
 
-    def _solve(self, req, act, warm, budget):
+    def _solve(self, req, act, warm, budget, carry=None):
         return _engine_solve(
             self.fleet,
             torch.as_tensor(req, dtype=self.dtype, device=self.device),
@@ -280,6 +293,7 @@ class AllocEngine:
             torch.as_tensor(act, device=self.device),
             warm,
             budget,
+            carry,
             meta=self.meta,
             opts=self.options.solver,
             present=active_levels(self.priority_np, act),
@@ -338,14 +352,22 @@ class AllocEngine:
         deadline_s: float | None = _UNSET,  # type: ignore[assignment]
     ) -> AllocResult:
         """One control step: telemetry [n] watts -> allocation (caps), warm
-        started from the previous step.  Returns host numpy arrays."""
+        started from the previous step and, with ``options.incremental``,
+        certified first against the last accepted step (a held step skips
+        the solve).  Returns host numpy arrays."""
         req, act = self._preprocess(telemetry, active)
         budget = self._budget(deadline_s)
+        incremental = self.options.incremental
         t0 = time.perf_counter()
-        x1, x2, x3, warm, stats = self._solve(req, act, self._warm, budget)
+        # the anchor stays None unless options.incremental
+        x1, x2, x3, warm, stats, new_carry = self._solve(
+            req, act, self._warm, budget, self._inc_carry
+        )
         allocation = x3.cpu().numpy()  # waits for the device
         wall = time.perf_counter() - t0
         self._warm = warm
+        if incremental:
+            self._inc_carry = new_carry
         res = AllocResult(
             allocation=allocation,
             phase1=x1.cpu().numpy(),
@@ -353,6 +375,7 @@ class AllocEngine:
             warm_state=warm,
             wall_time_s=wall,
             stats=StepStats.from_tensors(stats, iter_budget=budget),
+            carry=new_carry if incremental else None,
         )
         self.history.append(
             {

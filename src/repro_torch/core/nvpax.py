@@ -41,9 +41,15 @@ class NvpaxOptions:
     # idle surplus) are skipped and the best-so-far allocation is returned
     # with stats["truncated"]=True.  Phase I always runs.
     deadline_s: float | None = None
-    # Incremental re-solve (certify the carried solution first) is not
-    # ported yet: ``incremental=True`` raises NotImplementedError.
+    # Incremental re-solve: certify the carried solution against the new
+    # step before solving (see repro_torch.core.solver.certify).  When
+    # enabled, callers thread ``AllocResult.carry`` back in and get
+    # stats["skipped"]/stats["certify_pass"] on every path.  ``certify_tol``
+    # is the "unchanged" comparison tolerance in watts; ``certify_margin``
+    # is the slack margin below which a demand/cap move forces a full solve.
     incremental: bool = False
+    certify_tol: float = 1e-9
+    certify_margin: float = 1e-2
 
 
 @dataclass
@@ -54,6 +60,9 @@ class AllocResult:
     warm_state: Any  # phases.WarmCarry for the next control step
     wall_time_s: float
     stats: dict[str, Any]
+    # incremental-mode anchor for the next step's certify pass (None unless
+    # options.incremental; see repro_torch.core.solver.certify.IncrementalCarry)
+    carry: Any = None
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -64,6 +73,7 @@ def optimize(
     ap: AllocProblem,
     options: NvpaxOptions = NvpaxOptions(),
     warm: phases.WarmCarry | None = None,
+    carry: Any = None,
 ) -> AllocResult:
     """Run Algorithm 3 on one control step's problem.
 
@@ -72,21 +82,68 @@ def optimize(
     dependency — warm and cold steps agree to solver tolerance.  The solve
     runs in the problem's dtype: ``AllocProblem.build(..., dtype=)``, where
     ``repro_torch.compat.float_dtype(x64)`` gives the reference's choice.
+
+    ``carry`` (with ``options.incremental``) is the previous step's
+    :class:`~repro_torch.core.solver.certify.IncrementalCarry` anchor: the
+    carried solution is certified against the new step first, and on success
+    the solve is skipped entirely (``stats["skipped"]``) or restarted after
+    Phase I (``stats["certify_pass"]``).
     """
-    if options.incremental:
-        raise NotImplementedError(
-            "incremental=True (certify-first stepping) is not ported yet "
-            "(ROADMAP Queue 1 item 9)"
-        )
     t0 = time.perf_counter()
 
     def in_budget() -> bool:
         return options.deadline_s is None or time.perf_counter() - t0 < options.deadline_s
 
     truncated = False
-    x1, state, s1 = phases.phase1(
-        ap, options.solver, options.eps, warm.p1 if warm else None
-    )
+    skipped = p1_reused = False
+    if options.incremental and carry is not None:
+        dec = solver_mod.certify_step(
+            ap,
+            carry,
+            ap.n_tree_depths(),
+            tol=options.certify_tol,
+            margin=options.certify_margin,
+            opts=options.solver,
+        )
+        skipped, p1_reused = dec.flags()
+    if skipped:
+        allocation = _host(dec.x_snap)
+        zero = phases.PhaseStats(0, 0, True, 0.0)
+        return AllocResult(
+            allocation=allocation,
+            phase1=_host(carry.x1),
+            phase2=allocation.copy(),
+            warm_state=warm,
+            wall_time_s=time.perf_counter() - t0,
+            stats=StepStats.build(
+                solves=0,
+                iterations=0,
+                phase_iterations=[0, 0, 0],
+                converged=True,
+                skipped=True,
+                certify_pass=True,
+                kkt_certified=True,
+                truncated=False,
+                phase1=zero._asdict(),
+                phase2=zero._asdict(),
+                phase3=zero._asdict(),
+            ),
+            carry=carry,
+        )
+    if p1_reused:
+        x1 = carry.x1
+        s1 = phases.PhaseStats(0, 0, True, 0.0)
+        if warm:
+            w1 = warm.p1
+        else:
+            w1 = solver_mod.SolverState.zeros(
+                ap.n, ap.tree.m, ap.sla.k, ap.l.dtype, ap.l.device
+            )
+        state = w1._replace(x=x1)
+    else:
+        x1, state, s1 = phases.phase1(
+            ap, options.solver, options.eps, warm.p1 if warm else None
+        )
     carry1 = state
     x2 = x1
     s2 = phases.PhaseStats(0, 0, True, 0.0)
@@ -112,6 +169,14 @@ def optimize(
         truncated = True
     carry3 = state
     allocation = _host(x3)  # waits for the device
+    new_carry = None
+    if options.incremental:
+        if p1_reused:
+            new_carry = carry._replace(
+                x=x3, cap=ap.tree.cap, sla_lo=ap.sla.lo, sla_hi=ap.sla.hi
+            )
+        else:
+            new_carry = solver_mod.make_carry(ap, x1, x3)
     wall = time.perf_counter() - t0
     return AllocResult(
         allocation=allocation,
@@ -125,11 +190,12 @@ def optimize(
             phase_iterations=[s1.iterations, s2.iterations, s3.iterations],
             converged=s1.converged and s2.converged and s3.converged,
             skipped=False,
-            certify_pass=False,
+            certify_pass=p1_reused,
             kkt_certified=s1.kkt_certified and s2.kkt_certified and s3.kkt_certified,
             truncated=truncated,
             phase1=s1._asdict(),
             phase2=s2._asdict(),
             phase3=s3._asdict(),
         ),
+        carry=new_carry,
     )

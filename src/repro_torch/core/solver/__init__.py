@@ -13,11 +13,18 @@ the structured constraint matvec of :mod:`repro_torch.core.treeops` (cumsum
   and primal-weight re-estimation;
 * :mod:`~repro_torch.core.solver.termination` — KKT residuals and the
   no-progress/optimal-vertex certificate;
-* :mod:`~repro_torch.core.solver.loop` — the chunked solve loop.
-
-The reference's incremental certify pass (``certify``) is not ported yet.
+* :mod:`~repro_torch.core.solver.loop` — the chunked solve loop;
+* :mod:`~repro_torch.core.solver.certify` — the certify-first pass of
+  incremental stepping (the carried solution checked before a solve).
 """
 
+from repro_torch.core.solver.certify import (
+    CertifyDecision,
+    IncrementalCarry,
+    certify_step,
+    make_carry,
+    update_carry,
+)
 from repro_torch.core.solver.loop import solve
 from repro_torch.core.solver.options import (
     KKT_HIST_BUCKETS,
@@ -46,6 +53,11 @@ __all__ = [
     "kkt_residuals",
     "primal_residual",
     "polish_t",
+    "IncrementalCarry",
+    "CertifyDecision",
+    "certify_step",
+    "make_carry",
+    "update_carry",
     "Scales",
     "StepSizes",
     "make_scales",

@@ -83,8 +83,20 @@ def waterfill_torch(base, opt_mask, tree, u, max_rounds: int = 10_000):
     the tensors' device (on a card, the tree matvec kernels).
 
     ``tree`` is a :class:`repro_torch.core.treeops.TreeTopo`; semantics and
-    freezing order mirror the reference's loop body exactly.  Each round
-    brings its exit test to the host in one transfer.
+    freezing order mirror the reference's loop body, with one addition: a
+    round also freezes the devices under the node(s) whose rate set its
+    raise.  Without it, whether that node tests tight after the raise
+    (``cap - sums <= 1e-9``) depends on the rounding of its prefix-sum
+    difference, about 1e-9 W at the paper fleet's ~5 MW: where it does not,
+    nothing freezes and the sweep exits early, leaving the rest of the
+    budget to Phase III's idle devices.  The reference's ``waterfill_jax``
+    and numpy sweep add their prefix sums in other orders and part ways
+    there by up to 330 W per device at paper scale; with the addition the
+    port's sweep gives the reference engine's allocations on the CPU and on
+    a card alike.  Wherever the reference's sweep does not exit early, the
+    nodes added are ones it finds tight too, up to the rounding of a
+    prefix-sum difference.  Each round brings its exit test to the host in
+    one transfer.
     """
     x = base
     dtype = x.dtype
@@ -102,8 +114,11 @@ def waterfill_torch(base, opt_mask, tree, u, max_rounds: int = 10_000):
         finite = torch.isfinite(t)
         # the numpy sweep stops BEFORE applying a non-finite raise
         x = torch.where(live & finite, x + t, x)
-        # freeze: devices at u, or under any node now tight
-        tight = (tree.cap - tk.tree_matvec(x, tree.index) <= 1e-9) & (n_live > 0)
+        # freeze: devices at u, or under any node now tight or whose rate
+        # set the raise (tight by construction, whatever the rounding)
+        tight = ((tree.cap - tk.tree_matvec(x, tree.index) <= 1e-9) | (node_rate <= t)) & (
+            n_live > 0
+        )
         under_tight = tk.tree_rmatvec(tight.to(dtype), tree.index) > 0.5
         newly = live & ((u - x <= 1e-9) | under_tight)
         done = (~finite) | (~torch.any(newly))  # absorbed or stalled

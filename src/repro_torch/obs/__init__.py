@@ -1,5 +1,7 @@
-"""Host-side observability of the port (per-step statistics)."""
+"""Host-side observability of the port: per-step statistics and host
+wall-clock spans."""
 
+from repro_torch.obs import spans
 from repro_torch.obs.stats import StepStats
 
-__all__ = ["StepStats"]
+__all__ = ["StepStats", "spans"]

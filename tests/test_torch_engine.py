@@ -335,8 +335,10 @@ def test_unported_paths_raise(fleets):
         AllocEngine(pdn, recorder=True, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         PowerController(pdn, recorder=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        AllocEngine(pdn, options=NvpaxOptions(incremental=True), device="cpu")
+    # incremental stepping is ported; its K > 1 form waits for item 8b
+    inc = AllocEngine(pdn, options=NvpaxOptions(incremental=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
+        inc.step_batched(tele)
 
 
 def test_entry_points_need_a_card_or_cpu(fleets):

@@ -142,10 +142,15 @@ def test_deadline_truncates_refinement_phases(small_pdn):
 
 
 def test_unported_paths_raise(small_pdn):
+    """Incremental stepping, once unported here, runs: without a carry it
+    solves in full and returns the next anchor; the paths still unported
+    (K > 1 incremental stepping, ROADMAP Queue 1 item 8b) raise in the
+    engine (tests/test_torch_engine.py)."""
     req, pri = _requests(small_pdn, 6)
     tap = AllocProblem.build(small_pdn, req, priority=pri, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        optimize(tap, NvpaxOptions(incremental=True))
+    res = optimize(tap, NvpaxOptions(incremental=True))
+    assert not res.stats["skipped"] and res.carry is not None
+    np.testing.assert_array_equal(res.allocation, optimize(tap).allocation)
 
 
 def test_device_rule():
