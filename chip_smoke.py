@@ -126,6 +126,23 @@ Phases, each of which raises on failure:
    on every step; the means of the ratios and the straggler tax, and the
    wall per interval.
 
+11. the K-scenario path (one solve for K scenarios, each kernel launch over
+   the K lanes), see :func:`batched_phase`: (a) ``PowerController.what_if``
+   on the paper fleet with 8 ``TelemetrySim`` samples and every kernel flag,
+   each lane against the card's own cold one-scenario step (equal
+   iterations per phase, 1e-9 W, feasible, certified) and lanes 0-1 against
+   the port's CPU run; (b) the Appendix B tenant fleet, 4 cold lanes, each
+   held to phase 7's bars against its one-scenario step; (c) the
+   incremental engine's ``step_batched`` on 8 lanes: an identical batch
+   skips every lane, one dirty lane re-solves alone; (d) the wall of (a)
+   against 8 one-scenario steps, launches per batched step and per PDHG
+   iteration against the one-scenario step's (at most 1.25x), the card's
+   busy share, ``calibrate_phase_cost`` and a ``deadline_s`` truncation on
+   the card.  Phase 3 also holds every allocator kernel's lane axis at the
+   paper's shapes for K in 1, 2, 8 and 33: one launch per call, each lane
+   the bits of a launch on that lane alone, the ticket counters back at
+   zero.
+
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
 measurement) go to ``DIR/chip_smoke.json``, by default under
@@ -153,6 +170,12 @@ import torch  # noqa: E402
 import repro_torch.kernels as kernels  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
+from repro_torch.core.batched import (  # noqa: E402
+    batch_meta,
+    calibrate_phase_cost,
+    optimize_batched,
+    stack_problems,
+)
 from repro_torch.core.engine import AllocEngine  # noqa: E402
 from repro_torch.core.nvpax import NvpaxOptions, optimize  # noqa: E402
 from repro_torch.core.problem import AllocProblem, FleetTopology  # noqa: E402
@@ -252,6 +275,16 @@ PDHG_KERNELS = ("primal_step", "dual_update", "check_chunk_stats", "scaled_rmatv
 SIM_STEPS = 60
 SIM_HELD = 4
 RATIO_TOL = 1e-9
+# phase 3: the lane axis of every allocator kernel, at these lane counts
+LANE_COUNTS = (1, 2, 8, 33)
+# phase 3's digest of the chunk statistics' bits (PRs 19-20's kernels)
+STATS_DIGEST = "94bde1eca9f19d76"
+# phase 11: the K-scenario path; what_if lanes on the paper fleet, cold
+# tenant lanes, the incremental engine's lanes; the launches per PDHG
+# iteration of the K-lane step against the one-scenario step's
+WHATIF_K = 8
+TENANT_K = 4
+LANE_ITER_RATIO = 1.25
 # the kernels of the tenant serving path (phase 7); flash attention is
 # phase 8's, and dual_prox, scaled_rmatvec, primal_update and the standalone
 # chunk statistics stand alone (phases 3 and 6) since the fused dual step,
@@ -1099,10 +1132,14 @@ def main(argv: list[str]) -> int:
     log(f"[3] chunk-stats digest at seeds 20000.. over (n, m, k) in {DIGEST_SHAPES}, float64 "
         f"and float32: {digest} (the separate calls'; the pair's and check_chunk_stats' the "
         "same)")
+    if digest != STATS_DIGEST:
+        raise AssertionError(f"[3] the chunk statistics' digest {digest} is not {STATS_DIGEST}")
+    lane_report = lane_checks(cuda, idx_main, sidx_main)
     report["kernel_checks"] = {
         "count": n_checks[0],
         "device_kernels_per_call": one_launch,
         "chunk_stats_digest": digest,
+        "lanes": lane_report,
         "max_abs_err_f64": max_err,
         "max_rel_err": worst,
         "limits": LIMITS,
@@ -1417,6 +1454,11 @@ def main(argv: list[str]) -> int:
 
     # -- 10. the paper's trace experiment ---------------------------------------
     report["simulation"] = simulation_phase(pdn, engine_opts, cuda, smi)
+
+    # -- 11. the K-scenario path ------------------------------------------------
+    lane_launches, report["batched"] = batched_phase(pdn, layout, engine_opts, cuda, smi)
+    for entry in entries:
+        entry["lane_launches"] = lane_launches.get(entry["name"], 0)
     entries.extend(flash_entries)
 
     if args.profile:
@@ -1856,6 +1898,369 @@ def simulation_phase(pdn, engine_opts, cuda, smi) -> dict:
         f"median {wm['median']:.1f} ms, p95 {wm['p95']:.1f} ms (first {wm['first']:.1f} ms); "
         f"{wall:.1f} s for the run with both baselines; on {smi}; launches {launches}")
     return report
+
+
+def lane_inputs(cuda, tidx, sidx, dtype, lanes: int, seed: int):
+    """Every allocator kernel on ``lanes`` lanes of random inputs over the
+    given tree and tenant indexes: {wrapper: (the call on [lanes, size]
+    inputs, the call on lane j's inputs alone)}, each returning a tuple of
+    outputs.  The primal step and update are called with a per-lane vector
+    step and a per-lane scalar step (two launches)."""
+    gen = np.random.default_rng(seed)
+    n, m, k = tidx.n, tidx.start.shape[0], sidx.k
+    inf = float("inf")
+
+    def vec(size, pos=False):
+        v = torch.as_tensor(gen.normal(size=(lanes, size)), dtype=dtype, device=cuda)
+        return v.abs() + 0.1 if pos else v
+
+    def col(*values):  # one value per lane, [lanes, 1]
+        return torch.as_tensor(gen.choice(values, (lanes, 1)), dtype=dtype, device=cuda)
+
+    x, yt, ys, yi = vec(n), vec(m), vec(k), vec(n)
+    sm = vec(n, True) * (vec(n) > -0.5).to(dtype)
+    d_tree, d_sla, d_imp = vec(m, True), vec(k, True), vec(n, True)
+    blocks = []
+    for size, a in ((m, vec(m)), (k, vec(k)), (n, sm * vec(n))):
+        lo = vec(size)
+        hi = lo + vec(size, True)
+        blocks.append(pref.DualBlock(vec(size), a, vec(size, True), vec(size, True),
+                                     torch.where(vec(size) > 0.5, -inf, lo),
+                                     torch.where(vec(size) > 0.5, inf, hi)))
+    s_t, t_mov, te = col(1.7, 0.3), col(0.0, 1.0), vec(1)
+    w = vec(n).abs() * (vec(n) > -0.5).to(dtype)
+    lo = vec(n) - 1.0
+    data = tk.PrimalStepData(vec(n), w, vec(n), lo, lo + vec(n, True), d_tree, d_sla, d_imp, sm,
+                             tidx, sidx)
+    tau, tau_col = vec(n, True), col(0.37, 0.5)
+    prox = (x, vec(n), vec(n), w, vec(n), lo, lo + vec(n, True))
+    check = ((x, vec(n), vec(n), vec(n)), (yt, vec(m), vec(m)), (yi, vec(n), vec(n)),
+             vec(1), vec(1), ys, vec(k))
+    cnt = gen.integers(1, 9, lanes).astype(np.float64)
+    cnt_dev = torch.as_tensor(cnt, dtype=dtype, device=cuda)  # the lanes' counts, on the card
+    adjoint = (yt, ys, yi, d_tree, d_sla, d_imp, sm, tidx, sidx)
+    dprox = (blocks[0].y, blocks[0].a, blocks[0].sigma, blocks[0].lo, blocks[0].hi)
+
+    def lane(j, args):
+        """Lane j of (nested) arguments; [lanes, 1] columns become 0-d."""
+        if isinstance(args, (tk.TreeIndex, tk.SlaIndex)):  # shared by every lane
+            return args
+        if isinstance(args, tuple):
+            items = [lane(j, a) for a in args]
+            return type(args)(*items) if hasattr(args, "_fields") else tuple(items)
+        if isinstance(args, torch.Tensor):
+            return args[j, 0] if args.shape[-1] == 1 else args[j]
+        return args
+
+    def step(xs, taus, d):
+        return tk.primal_step(*xs, taus, tk.primal_step_plan(d))
+
+    return {
+        "tree_matvec": (lambda: (tk.tree_matvec(x, tidx),),
+                        lambda j: (tk.tree_matvec(x[j], tidx),)),
+        "tree_rmatvec": (lambda: (tk.tree_rmatvec(yt, tidx),),
+                         lambda j: (tk.tree_rmatvec(yt[j], tidx),)),
+        "sla_matvec": (lambda: (tk.sla_matvec(x, sidx),), lambda j: (tk.sla_matvec(x[j], sidx),)),
+        "sla_rmatvec": (lambda: (tk.sla_rmatvec(ys, sidx),),
+                        lambda j: (tk.sla_rmatvec(ys[j], sidx),)),
+        "scaled_rmatvec": (lambda: tk.scaled_rmatvec(*adjoint),
+                           lambda j: tk.scaled_rmatvec(*lane(j, adjoint))),
+        "primal_step": (
+            lambda: step((x, yt, ys, yi), tau, data) + step((x, yt, ys, yi), tau_col, data),
+            lambda j: step(lane(j, (x, yt, ys, yi)), tau[j], lane(j, data))
+            + step(lane(j, (x, yt, ys, yi)), tau_col[j, 0], lane(j, data))),
+        "primal_update": (lambda: pk.primal_update(*prox, tau) + pk.primal_update(*prox, tau_col),
+                          lambda j: pk.primal_update(*lane(j, prox), tau[j])
+                          + pk.primal_update(*lane(j, prox), tau_col[j, 0])),
+        "dual_prox": (lambda: (pk.dual_prox(*dprox),), lambda j: (pk.dual_prox(*lane(j, dprox)),)),
+        "dual_update": (lambda: pk.dual_update(*blocks, s_t, t_mov, te),
+                        lambda j: pk.dual_update(*lane(j, (*blocks, s_t, t_mov, te)))),
+        "check_chunk_stats": (
+            lambda: tuple(flat(pk.check_chunk_stats(*check, cnt_dev))),
+            lambda j: tuple(flat(pk.check_chunk_stats(*lane(j, check), float(cnt[j]))))),
+    }
+
+
+def lane_checks(cuda, tidx, sidx) -> dict:
+    """Phase 3's lane axis: every allocator kernel at the paper's shapes
+    (the fleet's tree, Appendix B's tenants) on K lanes for K in
+    ``LANE_COUNTS``, float64 and float32: one wrapper launch per call (two
+    for the primal step and update, called with a vector and a per-lane
+    scalar step), one kernel on the card per call at K = 8 (torch.profiler),
+    each lane's outputs the bits of the call on that lane alone, and the
+    chunk statistics' ticket counters back at zero."""
+    t0 = time.perf_counter()
+    n_checks = 0
+    for dtype in (torch.float64, torch.float32):
+        for lanes in LANE_COUNTS:
+            cases = lane_inputs(cuda, tidx, sidx, dtype, lanes, seed=30_000 + lanes)
+            for name, (many, one) in cases.items():
+                kernels.reset_launch_counts()
+                got = many()
+                calls = 2 if name in ("primal_step", "primal_update") else 1
+                lane_calls = kernels.lane_launch_counts()[name]
+                if kernels.launch_counts()[name] != calls or lane_calls != calls:
+                    raise AssertionError(f"[3] {name} at K={lanes}: {kernels.launch_counts()}")
+                for j in range(lanes):
+                    want = one(j)
+                    for g, w in zip(got, want):
+                        n_checks += 1
+                        if not torch.equal(g[j].reshape(-1).view(BITS[dtype]),
+                                           w.reshape(-1).view(BITS[dtype])):
+                            raise AssertionError(f"[3] {name} lane {j} of {lanes} ({dtype}) is "
+                                                 "not the one-lane launch's bits")
+            if bool(pk._tickets(cuda, lanes).any()):
+                raise AssertionError(f"[3] the ticket counters are not zero after K={lanes}")
+    per_call = {}
+    for name, (many, _) in lane_inputs(cuda, tidx, sidx, torch.float64, 8, seed=1).items():
+        ran = device_kernels(many, 5)
+        calls = 2 if name in ("primal_step", "primal_update") else 1
+        if len(ran) != 5 * calls:
+            raise AssertionError(f"[3] {name} at K=8: 5 calls ran {len(ran)} kernels: {ran}")
+        per_call[name] = sorted(set(ran))
+    log(f"[3] lane axis: {n_checks} lane-vs-one-lane comparisons at K in {LANE_COUNTS} "
+        f"(n={tidx.n}, m={tidx.start.shape[0]}, k={sidx.k}, float64 and float32), every lane the "
+        f"bits of its one-lane launch, one launch per call, tickets back at zero "
+        f"({time.perf_counter() - t0:.1f} s); at K=8 one kernel on the card per call: {per_call}")
+    return {"comparisons": n_checks, "lane_counts": list(LANE_COUNTS),
+            "device_kernels_per_call_k8": per_call}
+
+
+def _tenant_edges(layout):
+    """Appendix B's (device, tenant) incidence."""
+    dev = np.nonzero(layout.tenant_of >= 0)[0]
+    return dev, layout.tenant_of[dev]
+
+
+def _lane_row(res, j):
+    """Lane j's allocation, Phase I point and iterations."""
+    return res.allocation[j], res.phase1[j], [int(v) for v in res.stats["phase_iterations"][j]]
+
+
+def batched_phase(pdn, layout, engine_opts, cuda, smi):
+    """Phase 11: the K-scenario path.  Returns (each allocator kernel's lane
+    launches over (a) and (b), report).
+
+    (a) ``PowerController.what_if`` on the paper fleet, ``WHATIF_K``
+    ``TelemetrySim`` seed 0 samples, every kernel flag: each lane against
+    the card's own cold one-scenario step of that sample (equal iterations
+    per phase, ``SKIP_TOL`` W), feasible and certified; lanes 0-1 against
+    the port's CPU run (``PARITY_TOL``).  (b) The Appendix B tenant fleet,
+    ``TENANT_K`` cold lanes (``what_if``), each held to phase 7's bars
+    against its cold one-scenario step: certified, Phase I and the useful
+    power min(request, cap) within ``PARITY_TOL``, breakers and contracts
+    kept.  (c) The incremental engine's ``step_batched`` on ``WHATIF_K``
+    lanes at eps 1e-9: a repeated batch skips every lane with the certify
+    pass's launches alone; one dirty lane re-solves, the others hold.  (d)
+    The wall of (a) against the one-scenario steps, the launches per batched
+    step and per PDHG iteration of the slowest lane against the
+    one-scenario step's (torch.profiler), ``calibrate_phase_cost`` and a
+    ``deadline_s`` truncation."""
+    config = ControllerConfig(options=NvpaxOptions(solver=engine_opts))
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    samples = np.stack([sim.power(t) for t in range(WHATIF_K)])
+    report: dict = {"card": smi}
+
+    # (a) what_if on the paper fleet
+    log(f"[11] K-scenario path: PowerController.what_if on n={pdn.n}, K={WHATIF_K} TelemetrySim "
+        "seed 0 samples, every kernel flag")
+    ctl = PowerController(pdn, config=config, device=cuda)
+    ctl.what_if(samples[:2])  # builds the engine
+    sync(cuda)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ctl.what_if(samples)
+    wall_batched = time.perf_counter() - t0
+    lane_launches = dict(kernels.lane_launch_counts())
+    single = PowerController(pdn, config=config, device=cuda)
+    ones, walls = [], []
+    for t in range(WHATIF_K):
+        single.reset_warm()
+        sync(cuda)
+        t0 = time.perf_counter()
+        ones.append(single.step(samples[t]))
+        walls.append(time.perf_counter() - t0)
+    rows = []
+    for j, one in enumerate(ones):
+        x, _, its = _lane_row(res, j)
+        gap = float(np.max(np.abs(x - one.allocation)))
+        over = feasibility(pdn, x)
+        if its != list(one.stats["phase_iterations"]) or gap > SKIP_TOL:
+            raise AssertionError(f"[11a] lane {j}: iterations {its} vs {one.stats['phase_iterations']}"
+                                 f", {gap:.3e} W off its one-scenario step")
+        if not (res.stats["converged"][j] and res.stats["kkt_certified"][j]):
+            raise AssertionError(f"[11a] lane {j} not certified")
+        rows.append({"lane": j, "phase_iterations": its, "vs_single_w": gap,
+                     "max_cap_excess_w": over})
+    cpu = PowerController(pdn, config=config, device="cpu").what_if(samples[:2])
+    cpu_gap = float(np.max(np.abs(res.allocation[:2] - cpu.allocation)))
+    if cpu_gap > PARITY_TOL or not np.array_equal(res.stats["phase_iterations"][:2],
+                                                  cpu.stats["phase_iterations"]):
+        raise AssertionError(f"[11a] lanes 0-1 card vs CPU {cpu_gap:.3e} W")
+    worst = max(r["vs_single_w"] for r in rows)
+    log(f"[11a] {WHATIF_K} lanes: iterations {[r['phase_iterations'] for r in rows]}, each "
+        f"the card's own one-scenario step's, at most {worst:.3e} W off it; lanes 0-1 vs the CPU "
+        f"run {cpu_gap:.3e} W; certified, breakers kept; wall {wall_batched * 1e3:.1f} ms against "
+        f"{sum(walls) * 1e3:.1f} ms for the {WHATIF_K} one-scenario steps (median "
+        f"{np.median(walls) * 1e3:.1f} ms); lane launches {_kernel_calls(lane_launches)}")
+    report["paper_what_if"] = {"rows": rows, "max_vs_single_w": worst, "vs_cpu_w": cpu_gap,
+                               "wall_ms": wall_batched * 1e3,
+                               "single_walls_ms": [w * 1e3 for w in walls]}
+
+    # (b) cold tenant lanes
+    owned = layout.tenant_of >= 0
+    tconfig = ControllerConfig(options=NvpaxOptions(solver=engine_opts))
+    tctl = PowerController(pdn, sla=layout.sla_topo(device=cuda), priority=layout.priority,
+                           config=tconfig, device=cuda)
+    t0 = time.perf_counter()
+    tres = tctl.what_if(samples[:TENANT_K])
+    wall_tenant = time.perf_counter() - t0
+    for key, v in kernels.lane_launch_counts().items():
+        lane_launches[key] = v
+    missing = [k for k in ALLOCATOR_KERNELS if not lane_launches.get(k)]
+    if missing:
+        raise AssertionError(f"[11] kernels never launched over lanes: {missing}")
+    tsingle = PowerController(pdn, sla=layout.sla_topo(device=cuda), priority=layout.priority,
+                              config=tconfig, device=cuda)
+    trows = []
+    for j in range(TENANT_K):
+        tsingle.reset_warm()
+        one = tsingle.step(samples[j])
+        x, x1, its = _lane_row(tres, j)
+        if not (tres.stats["converged"][j] and tres.stats["kkt_certified"][j]):
+            raise AssertionError(f"[11b] lane {j} not certified")
+        p1_gap = float(np.max(np.abs(x1 - one.phase1)))
+        req = np.asarray(samples[j], np.float64) * tconfig.request_margin
+        r_eff = np.where(req >= tconfig.idle_threshold, np.clip(req, pdn.dev_l, pdn.dev_u), 0.0)
+        useful = float(np.max(np.abs(np.minimum(r_eff, x) - np.minimum(r_eff, one.allocation))))
+        over = feasibility(pdn, x)
+        sums = np.bincount(layout.tenant_of[owned], weights=x[owned], minlength=layout.n_tenants)
+        sla_gap = float(max(np.max(layout.b_min - sums), np.max(sums - layout.b_max)))
+        if p1_gap > PARITY_TOL or useful > PARITY_TOL or sla_gap > SLA_FEAS_TOL:
+            raise AssertionError(f"[11b] lane {j}: phase I {p1_gap:.3e} W, useful power "
+                                 f"{useful:.3e} W, tenant bounds {sla_gap:.3e} W")
+        trows.append({"lane": j, "phase_iterations": its,
+                      "single_phase_iterations": list(one.stats["phase_iterations"]),
+                      "phase1_vs_single_w": p1_gap, "useful_vs_single_w": useful,
+                      "caps_vs_single_w": float(np.max(np.abs(x - one.allocation))),
+                      "max_cap_excess_w": over, "max_tenant_bound_excess_w": sla_gap})
+    log(f"[11b] Appendix B tenants, {TENANT_K} cold lanes in {wall_tenant * 1e3:.1f} ms: "
+        + "; ".join(f"lane {r['lane']} {r['phase_iterations']} (one-scenario "
+                    f"{r['single_phase_iterations']}), phase I {r['phase1_vs_single_w']:.1e} W, "
+                    f"useful {r['useful_vs_single_w']:.1e} W, caps {r['caps_vs_single_w']:.1e} W"
+                    for r in trows))
+    report["tenant_what_if"] = {"rows": trows, "wall_ms": wall_tenant * 1e3}
+
+    # (c) the incremental engine on lanes
+    inc_opts = engine_opts._replace(eps_abs=INC_EPS, eps_rel=INC_EPS)
+    inc = AllocEngine(pdn, options=NvpaxOptions(incremental=True, solver=inc_opts), device=cuda)
+    tb = samples * 1.05
+    r1 = inc.step_batched(tb)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    r2 = inc.step_batched(tb)
+    wall_skip = time.perf_counter() - t0
+    skip_calls = _kernel_calls(kernels.launch_counts())
+    held = float(np.max(np.abs(r2.allocation - r1.allocation)))
+    if (not r2.stats["skipped"].all() or r2.stats["iterations"].any() or held > SKIP_TOL
+            or set(skip_calls) != {"tree_matvec"} or skip_calls["tree_matvec"] != 2):
+        raise AssertionError(f"[11c] a repeated batch: skipped {r2.stats['skipped']}, launches "
+                             f"{skip_calls}, {held:.3e} W off")
+    dirty = WHATIF_K // 2
+    tb2 = tb.copy()
+    tb2[dirty] *= 1.05
+    r3 = inc.step_batched(tb2)
+    clean = np.arange(WHATIF_K) != dirty
+    # the always-full engine through the same batches, warm-carried: its
+    # own drift on the repeated batch sets the dirty lane's bar, as phase 9
+    # sets a re-solved step's
+    full = AllocEngine(pdn, options=NvpaxOptions(solver=inc_opts), device=cuda)
+    f1, f2, f3 = (full.step_batched(b) for b in (tb, tb, tb2))
+    drift = float(np.max(np.abs(f2.allocation - f1.allocation)))
+    bar = max(PARITY_TOL, 5 * drift)
+    dirty_gap = float(np.max(np.abs(r3.allocation[dirty] - f3.allocation[dirty])))
+    if (list(r3.stats["skipped"]) != list(clean) or r3.stats["iterations"][clean].any()
+            or float(np.max(np.abs(r3.allocation[clean] - r1.allocation[clean]))) > SKIP_TOL
+            or dirty_gap > bar or inc.rebuild_count() != 1):
+        raise AssertionError(f"[11c] one dirty lane: skipped {r3.stats['skipped']}, the dirty "
+                             f"lane {dirty_gap:.3e} W off the always-full engine's (bar "
+                             f"{bar:.3e} W)")
+    log(f"[11c] incremental engine, {WHATIF_K} lanes: a repeated batch skipped every lane in "
+        f"{wall_skip * 1e3:.2f} ms (launches {skip_calls}); lane {dirty} made dirty re-solved "
+        f"alone ({list(r3.stats['phase_iterations'][dirty])} iterations, {dirty_gap:.2e} W off "
+        f"the always-full engine's lane; its own drift on the repeated batch {drift:.2e} W, bar "
+        f"{bar:.2e} W), the others held; rebuild_count 1")
+    report["incremental"] = {"skip_wall_ms": wall_skip * 1e3, "skip_launches": skip_calls,
+                             "dirty_lane_vs_full_w": dirty_gap, "full_drift_w": drift,
+                             "bar_w": bar}
+
+    # (d) launches per PDHG iteration, busy share, calibration, deadline.
+    # The K-lane step runs as many water-fill rounds as its slowest lane
+    # needs, so it is held to the one-scenario step that launches most
+    # (each sample's cold step profiled), and lane 0's is reported beside it
+    profs = []
+    for t in range(WHATIF_K):
+        single.reset_warm()
+        profs.append(profiled(f"one cold one-scenario paper step, sample {t} (11d)",
+                              lambda: single.step(samples[t]), top=0))
+    prof_one = max(profs, key=lambda p: p["launches"])
+    iters_lane = int(max(sum(r["phase_iterations"]) for r in rows))
+    prof_k = profiled(f"one what_if of K={WHATIF_K} (11d)", lambda: ctl.what_if(samples),
+                      iterations=iters_lane)
+    per_iter_one = prof_one["launches"] / prof_one["pdhg_iterations"]
+    per_iter_0 = profs[0]["launches"] / profs[0]["pdhg_iterations"]
+    per_iter_k = prof_k["launches"] / iters_lane
+    if per_iter_k > LANE_ITER_RATIO * per_iter_one:
+        raise AssertionError(f"[11d] {per_iter_k:.2f} launches per PDHG iteration of the slowest "
+                             f"lane against {per_iter_one:.2f} for one scenario")
+    stacked = stack_problems([
+        AllocProblem.build(pdn, samples[j] * config.request_margin,
+                           topology=ctl._get_engine().fleet) for j in range(WHATIF_K)])
+    meta = batch_meta(stacked, config.options)
+    model = calibrate_phase_cost(stacked, meta, engine_opts)
+    cut = optimize_batched(stacked, dataclasses.replace(config.options, deadline_s=1e-7))
+    if not cut.stats["truncated"].all() or not np.array_equal(cut.allocation, cut.phase1):
+        raise AssertionError("[11d] a 1e-7 s deadline did not truncate every lane to Phase I")
+    log(f"[11d] launches per PDHG iteration: one scenario {per_iter_one:.2f} at most "
+        f"({prof_one['launches']} over {prof_one['pdhg_iterations']}; sample 0 {per_iter_0:.2f}; "
+        f"{[p['launches'] for p in profs]} launches per cold step), K={WHATIF_K} "
+        f"{per_iter_k:.2f} ({prof_k['launches']} over the slowest lane's {iters_lane}; "
+        f"{per_iter_k / per_iter_one:.2f}x, bar {LANE_ITER_RATIO}x; "
+        f"{per_iter_k / per_iter_0:.2f}x sample 0's); busy "
+        f"{100 * prof_one['device_us'] / prof_one['wall_us']:.1f}% (the most-launching one "
+        f"scenario) vs {100 * prof_k['device_us'] / prof_k['wall_us']:.1f}% (K={WHATIF_K}) "
+        f"under the profiler; calibrate_phase_cost at "
+        f"K={WHATIF_K}: {model.p1_s * 1e6:.1f} us per Phase I iteration, {model.p23_s * 1e6:.1f} "
+        f"us per Phase II/III iteration; deadline 1e-7 s: every lane truncated to Phase I, "
+        f"budget {cut.stats['iter_budget']}; on {smi}")
+    # each lane kernel's device time at the paper's shapes: K = 8 lanes in
+    # one launch, one lane, and 8 one-lane launches
+    lane_ms = {}
+    for name, (many, one) in lane_inputs(cuda, tk.tree_index(pdn.node_start, pdn.node_end, pdn.n,
+                                                             cuda),
+                                         tk.sla_index(*_tenant_edges(layout), layout.n_tenants,
+                                                      pdn.n, cuda),
+                                         torch.float64, WHATIF_K, seed=2).items():
+        calls = 2 if name in ("primal_step", "primal_update") else 1
+        k8 = time_calls(many)[0] / calls
+        k1 = time_calls(lambda: one(0))[0] / calls
+        seq = time_calls(lambda: [one(j) for j in range(WHATIF_K)])[0] / calls
+        lane_ms[name] = {"k8_ms": k8, "k1_ms": k1, "eight_k1_ms": seq}
+    log(f"[11d] lane kernels' device time, float64, paper shapes (Appendix B tenants), per "
+        f"launch: K={WHATIF_K} / K=1 / {WHATIF_K} one-lane launches: "
+        + ", ".join(f"{k} {v['k8_ms'] * 1e3:.2f} / {v['k1_ms'] * 1e3:.2f} / "
+                    f"{v['eight_k1_ms'] * 1e3:.2f} us" for k, v in lane_ms.items()))
+    report["timing"] = {"single_profiles": profs, "batched_profile": prof_k,
+                        "lane_kernels_ms": lane_ms,
+                        "launches_per_iteration": {"single_max": per_iter_one,
+                                                   "single_sample0": per_iter_0,
+                                                   "batched": per_iter_k},
+                        "slowest_lane_iterations": iters_lane,
+                        "phase_cost": {"p1_s": model.p1_s, "p23_s": model.p23_s,
+                                       "mix": list(model.mix)},
+                        "deadline_budget": cut.stats["iter_budget"]}
+    report["lane_launches"] = lane_launches
+    return lane_launches, report
 
 
 def _row_err(got, want) -> float:
@@ -2347,9 +2752,10 @@ def stablelm_phase(cuda, profile: bool = False) -> dict:
     return {"report": report, "rows": rows, "launches": launches, "qkv": (q, k, v)}
 
 
-def profiled(tag: str, step) -> dict:
-    """Device busy time, launches and the top kernels of ``step()`` (which
-    ends in a sync), from torch.profiler."""
+def profiled(tag: str, step, iterations: int | None = None, top: int = 12) -> dict:
+    """Device busy time, launches and the ``top`` kernels of ``step()``
+    (which ends in a sync), from torch.profiler; launches per PDHG iteration
+    over the step's iterations, or over ``iterations`` where given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2362,7 +2768,8 @@ def profiled(tag: str, step) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     # a control step's PDHG iterations, over all its solves
     stats = getattr(out, "stats", None)
-    iterations = sum(stats["phase_iterations"]) if stats is not None else None
+    if iterations is None and stats is not None:
+        iterations = int(np.sum(stats["phase_iterations"]))
     del out
     calls = {k: v for k, v in kernels.launch_counts().items() if v}
 
@@ -2373,7 +2780,7 @@ def profiled(tag: str, step) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(dev_us(e) for e in events)
     launches = sum(e.count for e in events)
-    top = sorted(events, key=dev_us, reverse=True)[:12]
+    top = sorted(events, key=dev_us, reverse=True)[:top]
     rows = [{"name": e.key, "calls": e.count, "device_us": dev_us(e)} for e in top]
     log(f"[profile] {tag}: wall {wall_us:.0f} us, device busy {device_us:.0f} us "
         f"({100.0 * device_us / wall_us:.1f}%), {launches} device launches"

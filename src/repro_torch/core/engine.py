@@ -15,6 +15,9 @@ then serves every control step from telemetry alone:
   pre-processed on the device, warm-started from the previous step, and
   with ``NvpaxOptions(incremental=True)`` certified first against the last
   accepted step's anchor (:mod:`repro_torch.core.solver.certify`);
+* :meth:`step_batched` runs K scenarios as one solve
+  (:func:`~repro_torch.core.batched.optimize_batched`), with its own warm
+  carry and incremental anchor per batch size K;
 * deadlines run in iteration space, from a calibrated per-iteration cost.
 
 The reference pins one compiled program and counts its traces
@@ -37,9 +40,11 @@ import torch
 from repro_torch.compat import resolve_device
 from repro_torch.core import phases
 from repro_torch.core.batched import (
+    BatchedAllocResult,
     BatchMeta,
     PhaseCostModel,
     active_levels,
+    optimize_batched,
     solve_three_phase,
 )
 from repro_torch.core.nvpax import AllocResult, NvpaxOptions
@@ -158,6 +163,9 @@ class AllocEngine:
         # options.incremental — see repro_torch.core.solver.certify
         self._inc_carry: certify.IncrementalCarry | None = None
         self._cost_model: PhaseCostModel | None = None
+        # the K-scenario path's warm carry and incremental anchor, per K
+        self._batched_warm: dict[int, phases.WarmCarry] = {}
+        self._inc_batched_carry: dict[int, certify.IncrementalCarry] = {}
         self.history: list[dict[str, Any]] = []
 
     def _build_fleet(self, sla, normalized: bool) -> FleetTopology:
@@ -178,10 +186,13 @@ class AllocEngine:
         return self._rebuilds
 
     def reset_warm(self) -> None:
-        """Drop carried solver state and the incremental anchor (the next
-        step cold-starts and certifies nothing)."""
+        """Drop carried solver state and the incremental anchors, of
+        :meth:`step` and of :meth:`step_batched` (the next step cold-starts
+        and certifies nothing)."""
         self._warm = None
         self._inc_carry = None
+        self._batched_warm.clear()
+        self._inc_batched_carry.clear()
 
     def _vec(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
@@ -390,8 +401,63 @@ class AllocEngine:
         )
         return res
 
-    def step_batched(self, telemetry_batch, **kw):
-        raise NotImplementedError(
-            "step_batched (K scenarios in one solve) is not ported yet "
-            "(ROADMAP Queue 1 item 8b)"
+    def step_batched(
+        self,
+        telemetry_batch: np.ndarray,
+        *,
+        active: np.ndarray | None = None,
+        carry_warm: bool = True,
+    ) -> BatchedAllocResult:
+        """K scenarios in one solve, warm-carried across steps.
+
+        ``telemetry_batch`` is ``[K, n]`` watts; ``active`` is ``[n]``
+        (shared placement) or ``[K, n]``.  The batched solver state is
+        carried per batch size K across consecutive calls (``carry_warm``),
+        and with ``options.incremental`` so is the per-lane certify anchor;
+        disable it for independent what-if sweeps.  ``options.deadline_s``
+        is honoured via the batched iteration-budget mode.  Does not touch
+        :meth:`step`'s state or history.
+        """
+        tb = np.asarray(telemetry_batch, dtype=np.float64)
+        if tb.ndim != 2 or tb.shape[0] == 0:
+            raise ValueError(f"telemetry_batch must be [K, n] with K >= 1, got {tb.shape}")
+        K, n = tb.shape
+        if n != self.n:
+            raise ValueError(f"telemetry_batch n {n} != fleet n {self.n}")
+        if active is not None:
+            active = np.asarray(active, bool)
+            if active.shape == (n,):
+                active = np.broadcast_to(active, (K, n))
+            elif active.shape != (K, n):
+                raise ValueError(f"active must be [{n}] or [{K}, {n}], got {active.shape}")
+        req, act = self._preprocess(tb, active)
+        fl = self.fleet
+        act_dev = torch.as_tensor(np.ascontiguousarray(act), device=self.device)
+        r = torch.as_tensor(req, dtype=self.dtype, device=self.device)
+
+        def lanes(v):
+            return v.expand(K, n).contiguous()
+
+        stacked = AllocProblem(
+            l=lanes(fl.l),
+            u=lanes(fl.u),
+            r=torch.where(act_dev, torch.clamp(r, fl.l, fl.u), fl.l),
+            priority=lanes(self.priority),
+            active=act_dev,
+            tree=fl.tree,
+            sla=fl.sla,
+            weight_scale=lanes(fl.weight_scale),
         )
+        incremental = self.options.incremental and carry_warm
+        res = optimize_batched(
+            stacked,
+            self.options,
+            warm=self._batched_warm.get(K) if carry_warm else None,
+            meta=self.meta,
+            carry=self._inc_batched_carry.get(K) if incremental else None,
+        )
+        if carry_warm:
+            self._batched_warm[K] = res.warm_state
+            if self.options.incremental:
+                self._inc_batched_carry[K] = res.carry
+        return res

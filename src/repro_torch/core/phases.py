@@ -3,7 +3,9 @@ saturation detection.
 
 Orchestration is host-level Python (priority sweep, saturation rounds); the
 inner convex solves are :func:`repro_torch.core.solver.solve`, warm-started
-across rounds.
+across rounds.  The step-problem functions, the repair and the saturation test take
+``[..., n]`` (K lanes of the K-scenario program, see
+:mod:`repro_torch.core.lanes`); the host drivers take one scenario.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import solver
+from repro_torch.core.lanes import lane_max, lane_scalar
 from repro_torch.core.problem import INF, AllocProblem, StepProblem
 from repro_torch.core.treeops import sla_matvec, sla_rmatvec, tree_matvec, tree_rmatvec
 from repro_torch.core.waterfill import waterfill_arrays
@@ -92,7 +95,7 @@ def repair(x: torch.Tensor, ap: AllocProblem, n_depths: int | None = None) -> to
     if n_depths is None:
         n_depths = ap.n_tree_depths()
     l = ap.l
-    n = x.shape[0]
+    n = x.shape[-1]
     # -- tenant upper bounds --
     if ap.sla.k > 0:
         sums = sla_matvec(x, ap.sla)
@@ -103,7 +106,8 @@ def repair(x: torch.Tensor, ap: AllocProblem, n_depths: int | None = None) -> to
         fac_t = torch.where(over, torch.clamp_min(hi - lmin, 0.0) / denom, 1.0)
         # per-device factor: min over covering tenants
         fac_dev = torch.ones_like(x).scatter_reduce_(
-            0, ap.sla.dev, fac_t[ap.sla.ten], reduce="amin"
+            -1, ap.sla.dev.expand(x.shape[:-1] + ap.sla.dev.shape), fac_t[..., ap.sla.ten],
+            reduce="amin",
         )
         x = l + (x - l) * fac_dev
     # -- tree caps, one level at a time (ranges at equal depth are disjoint) --
@@ -118,10 +122,10 @@ def repair(x: torch.Tensor, ap: AllocProblem, n_depths: int | None = None) -> to
             over, torch.clamp_min(tree.cap - lmin_node, 0.0) / denom, 1.0
         )
         # broadcast factors onto (disjoint) ranges via a difference array
-        diff = x.new_zeros(n + 1)
-        diff.index_add_(0, tree.start, fac_node - 1.0)
-        diff.index_add_(0, tree.end, -(fac_node - 1.0))
-        fac_dev = 1.0 + torch.cumsum(diff, 0)[:n]
+        diff = x.new_zeros(x.shape[:-1] + (n + 1,))
+        diff.index_add_(-1, tree.start, fac_node - 1.0)
+        diff.index_add_(-1, tree.end, -(fac_node - 1.0))
+        fac_dev = 1.0 + torch.cumsum(diff, -1)[..., :n]
         x = l + (x - l) * fac_dev
     return torch.clamp(x, ap.l, ap.u)
 
@@ -140,13 +144,13 @@ def saturated_mask(
     at_u = ap.u - x <= tol
     tree_slack = ap.tree.cap - tree_matvec(x, ap.tree)
     tight_tree = (tree_slack <= tol).to(x.dtype)
-    under_tight = tree_rmatvec(tight_tree, ap.tree, x.shape[0]) > 0.5
+    under_tight = tree_rmatvec(tight_tree, ap.tree, x.shape[-1]) > 0.5
     if ap.sla.k > 0:
         sla_slack = torch.where(
             torch.isfinite(ap.sla.hi), ap.sla.hi - sla_matvec(x, ap.sla), INF
         )
         tight_sla = (sla_slack <= tol).to(x.dtype)
-        in_tight_sla = sla_rmatvec(tight_sla, ap.sla, x.shape[0]) > 0.5
+        in_tight_sla = sla_rmatvec(tight_sla, ap.sla, x.shape[-1]) > 0.5
     else:
         in_tight_sla = torch.zeros_like(at_u)
     return opt_mask & (at_u | under_tight | in_tight_sla)
@@ -161,10 +165,6 @@ def _boxes(ap: AllocProblem, pinned: torch.Tensor, pin_val: torch.Tensor):
     lo = torch.where(pinned, pin_val, ap.l)
     hi = torch.where(pinned, pin_val, ap.u)
     return lo, hi
-
-
-def _scalar(like: torch.Tensor, value: float) -> torch.Tensor:
-    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def qp_step(
@@ -196,11 +196,11 @@ def qp_step(
         w=w,
         target=target,
         c=torch.zeros_like(ap.l),
-        c_t=_scalar(ap.l, 0.0),
+        c_t=lane_scalar(ap.l, 0.0),
         lo=lo,
         hi=hi,
-        t_lo=_scalar(ap.l, 0.0),
-        t_hi=_scalar(ap.l, 0.0),
+        t_lo=lane_scalar(ap.l, 0.0),
+        t_hi=lane_scalar(ap.l, 0.0),
         tree_hi=ap.tree.cap,
         sla_lo=ap.sla.lo,
         sla_hi=ap.sla.hi,
@@ -227,15 +227,15 @@ def lp_step(
     )
     lo, hi = _boxes(ap, mask_f, base)
     # max-min raise can never exceed the largest device range
-    t_hi = torch.max(ap.u - ap.l)
+    t_hi = lane_max(ap.u - ap.l)
     return StepProblem(
         w=zeros,
         target=zeros,
         c=c,
-        c_t=_scalar(ap.l, -1.0),
+        c_t=lane_scalar(ap.l, -1.0),
         lo=lo,
         hi=hi,
-        t_lo=_scalar(ap.l, 0.0),
+        t_lo=lane_scalar(ap.l, 0.0),
         t_hi=t_hi,
         tree_hi=ap.tree.cap,
         sla_lo=ap.sla.lo,
@@ -318,7 +318,7 @@ def run_maxmin_phase(
         x_wf = torch.as_tensor(x_wf, dtype=ap.l.dtype, device=ap.l.device)
         return x_wf, state, PhaseStats(0, 0, True, 0.0)
     state = warm if warm is not None else _zeros_state(ap)
-    zero = _scalar(ap.l, 0.0)
+    zero = lane_scalar(ap.l, 0.0)
     # Devices with no slack at entry must be frozen before the first round —
     # otherwise they force t* = 0 and the eps-term would distribute surplus
     # arbitrarily instead of max-min fairly.

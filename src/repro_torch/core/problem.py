@@ -18,6 +18,13 @@ Two levels:
   vacuous); Phases II/III instantiate the max-min LP (w = 0, c_t = -1,
   improvement rows active on the optimized set).  Scalars (``c_t``, ``t_lo``,
   ``t_hi``) are 0-d tensors on the problem's device.
+
+Both also come stacked, K scenarios of the K-scenario program over one
+topology: the fleet leaves (``l``, ``u``, ``r``, ``priority``, ``active``,
+``weight_scale``; a step problem's vectors) are ``[K, n]`` and the step
+problem's scalars ``[K, 1]`` lane columns, while the tree and tenant
+topology and the row bounds stay shared (:mod:`repro_torch.core.lanes`,
+:func:`repro_torch.core.batched.stack_problems`).
 """
 
 from __future__ import annotations
@@ -123,7 +130,8 @@ def _host(v) -> np.ndarray:
 
 
 class AllocProblem(NamedTuple):
-    """One control step's allocation problem (tensors on one device)."""
+    """One control step's allocation problem (tensors on one device); the
+    fleet leaves are ``[n]``, or ``[K, n]`` for K stacked scenarios."""
 
     # fleet
     l: torch.Tensor  # [n] device minimum power
@@ -139,7 +147,7 @@ class AllocProblem(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.l.shape[0]
+        return self.l.shape[-1]
 
     @property
     def idle(self) -> torch.Tensor:
@@ -249,4 +257,4 @@ class StepProblem(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.w.shape[0]
+        return self.w.shape[-1]

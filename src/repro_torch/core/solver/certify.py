@@ -29,7 +29,9 @@ The certificate has two tiers:
 
 Both tiers are conservative by construction.  The decision flags are 0-d
 bool tensors on the problem's device; the callers bring both to the host in
-one transfer and branch.
+one transfer and branch.  A problem of K lanes (``[K, n]``) is certified
+lane by lane: the flags are ``[K, 1]`` columns, its carry has ``[K, ...]``
+leaves, and the host decisions are numpy arrays of K entries.
 """
 
 from __future__ import annotations
@@ -38,7 +40,10 @@ from typing import NamedTuple
 
 import torch
 
+import numpy as np
+
 from repro_torch.core import phases, treeops
+from repro_torch.core.lanes import column, lane_all, lane_max
 from repro_torch.core.problem import AllocProblem
 from repro_torch.core.solver.options import SolverOptions
 from repro_torch.kernels import tree_matvec as tk
@@ -78,14 +83,24 @@ class CertifyDecision(NamedTuple):
     x_snap: torch.Tensor  # [n] carried allocation after the repair projection
     feas_res: torch.Tensor  # max primal-feasibility violation of x_snap (watts)
 
-    def flags(self) -> tuple[bool, bool]:
-        """(skip, skip_p1) on the host, in one transfer."""
+    def flags(self):
+        """(skip, skip_p1) on the host, in one transfer: two bools, or with
+        K lanes two bool arrays of K entries."""
+        if self.skip.ndim:
+            skip, skip_p1 = torch.stack([self.skip, self.skip_p1]).reshape(2, -1).cpu().numpy()
+            return skip, skip_p1
         skip, skip_p1 = torch.stack([self.skip, self.skip_p1]).tolist()
         return skip, skip_p1
 
 
 def make_carry(ap: AllocProblem, x1: torch.Tensor, x3: torch.Tensor) -> IncrementalCarry:
-    """Snapshot a freshly solved step as the next certify anchor."""
+    """Snapshot a freshly solved step as the next certify anchor (with K
+    lanes the shared caps and tenant bounds are repeated per lane)."""
+    lead = ap.l.shape[:-1]
+
+    def per_lane(v):
+        return v.expand(lead + v.shape) if lead else v
+
     return IncrementalCarry(
         x1=x1,
         x=x3,
@@ -93,9 +108,9 @@ def make_carry(ap: AllocProblem, x1: torch.Tensor, x3: torch.Tensor) -> Incremen
         active=ap.active,
         lo=ap.l,
         hi=ap.u,
-        cap=ap.tree.cap,
-        sla_lo=ap.sla.lo,
-        sla_hi=ap.sla.hi,
+        cap=per_lane(ap.tree.cap),
+        sla_lo=per_lane(ap.sla.lo),
+        sla_hi=per_lane(ap.sla.hi),
     )
 
 
@@ -127,9 +142,9 @@ def certify_step(
         # exact equality first: inf == inf must count as unchanged
         return (a == b) | (torch.abs(a - b) <= tol)
 
-    act_same = torch.all(ap.active == carry.active)
-    box_same = torch.all(close(ap.l, carry.lo)) & torch.all(close(ap.u, carry.hi))
-    sla_same = torch.all(close(ap.sla.lo, carry.sla_lo)) & torch.all(
+    act_same = lane_all(ap.active == carry.active)
+    box_same = lane_all(close(ap.l, carry.lo)) & lane_all(close(ap.u, carry.hi))
+    sla_same = lane_all(close(ap.sla.lo, carry.sla_lo)) & lane_all(
         close(ap.sla.hi, carry.sla_hi)
     )
     cap_close = close(ap.tree.cap, carry.cap)
@@ -137,18 +152,18 @@ def certify_step(
 
     # demand fingerprint: every shaped request must match its anchor (no
     # sound "surplus-held" relaxation exists, see the module docstring)
-    all_held = torch.all(torch.abs(ap.r - carry.r) <= tol)
+    all_held = lane_all(torch.abs(ap.r - carry.r) <= tol)
 
     # snap: exact repair projection of the carried point against the new
     # problem, then its primal-feasibility residual
     x_snap = phases.repair(carry.x, ap, n_depths)
-    snap_ok = torch.max(torch.abs(x_snap - carry.x)) <= margin
+    snap_ok = lane_max(torch.abs(x_snap - carry.x)) <= margin
     kx = _tree_sums(x_snap, ap.tree, opts)
     feas_res = torch.maximum(
-        torch.clamp_min(torch.max(kx - ap.tree.cap), 0.0),
+        torch.clamp_min(lane_max(kx - ap.tree.cap), 0.0),
         torch.maximum(
-            torch.clamp_min(torch.max(x_snap - ap.u), 0.0),
-            torch.clamp_min(torch.max(ap.l - x_snap), 0.0),
+            torch.clamp_min(lane_max(x_snap - ap.u), 0.0),
+            torch.clamp_min(lane_max(ap.l - x_snap), 0.0),
         ),
     )
     if ap.sla.k:
@@ -156,19 +171,19 @@ def certify_step(
         feas_res = torch.maximum(
             feas_res,
             torch.maximum(
-                torch.clamp_min(torch.max(ap.sla.lo - sx), 0.0),
-                torch.clamp_min(torch.max(sx - ap.sla.hi), 0.0),
+                torch.clamp_min(lane_max(ap.sla.lo - sx), 0.0),
+                torch.clamp_min(lane_max(sx - ap.sla.hi), 0.0),
             ),
         )
     feas_ok = feas_res <= FEAS_TOL
 
-    skip = base_same & torch.all(cap_close) & all_held & snap_ok & feas_ok
+    skip = base_same & lane_all(cap_close) & all_held & snap_ok & feas_ok
 
     # Phase I skip tier: frozen demands, caps moved but with Phase I slack
     # >= margin under both the old and the new value
     p1_load = _tree_sums(carry.x1, ap.tree, opts)
     p1_slack_ok = p1_load <= torch.minimum(ap.tree.cap, carry.cap) - margin
-    skip_p1 = base_same & all_held & torch.all(cap_close | p1_slack_ok) & ~skip
+    skip_p1 = base_same & all_held & lane_all(cap_close | p1_slack_ok) & ~skip
     return CertifyDecision(skip=skip, skip_p1=skip_p1, x_snap=x_snap, feas_res=feas_res)
 
 
@@ -182,10 +197,16 @@ def update_carry(
 ) -> IncrementalCarry:
     """Next-step anchor: frozen on a full skip, Phase-I-anchored on a Phase I
     skip (new caps + new final allocation), fresh after a full solve.
-    ``skipped``/``p1_reused`` are the host flags of this step's decision."""
+    ``skipped``/``p1_reused`` are the host flags of this step's decision
+    (with K lanes, bool arrays: each lane's anchor follows its own)."""
     fresh = make_carry(ap, x1, x3)
     if carry is None:
         return fresh
+    if isinstance(skipped, np.ndarray):
+        anchor = _pick(skipped | p1_reused, carry, fresh)
+        final = _pick(skipped, carry, fresh)
+        return anchor._replace(x=final.x, active=fresh.active, cap=final.cap,
+                               sla_lo=final.sla_lo, sla_hi=final.sla_hi)
     keep_p1 = skipped or p1_reused
     anchor = carry if keep_p1 else fresh
     final = carry if skipped else fresh
@@ -200,3 +221,9 @@ def update_carry(
         sla_lo=final.sla_lo,
         sla_hi=final.sla_hi,
     )
+
+
+def _pick(mask: np.ndarray, a: IncrementalCarry, b: IncrementalCarry) -> IncrementalCarry:
+    """Lane by lane ``a`` where ``mask`` else ``b``."""
+    col = column(mask, a.x.device)
+    return IncrementalCarry(*(torch.where(col, u, v) for u, v in zip(a, b)))

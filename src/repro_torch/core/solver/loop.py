@@ -13,12 +13,25 @@ waiting for it, and each check computes its decisions on the device and
 brings them to the host in one transfer (three flags: done, restart,
 certified).  Every arithmetic step keeps the reference's order, so the
 iteration counts agree with it.
+
+A step problem of K lanes (``[K, n]``, see :mod:`repro_torch.core.lanes`)
+is K solves in one loop: every launch covers all K lanes, each lane keeps
+its own step sizes, primal weights, averages, restart anchors and counts,
+and the check's transfer brings the three flags of every lane (``[3, K]``).
+A lane that is done keeps its exit state and iteration count while the
+others go on (the reference's while-loop batching rule: the chunk still
+runs on it, and its results are dropped); the loop ends when every lane is
+done.  The host decisions one scenario takes with ``if`` (restart, adopt,
+exit) become lane masks only then, so the one-scenario loop makes the
+launches it did.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core.lanes import column, lane_any, lane_max, lane_sum, select
 from repro_torch.core.problem import StepProblem
 from repro_torch.core.solver import restarts as restarts_mod
 from repro_torch.core.solver import scaling, termination
@@ -57,13 +70,20 @@ def solve(
     sla: SlaTopo,
     init: SolverState,
     opts: SolverOptions = SolverOptions(),
+    live=None,
 ) -> tuple[SolverState, SolveStats]:
     """Solve one unified QP/LP.  Returns (state, stats); ``state.x`` is the
-    allocation *before* the exact feasibility repair done by the caller."""
+    allocation *before* the exact feasibility repair done by the caller.
+
+    With K lanes ``live`` (a host bool array of K entries, default all)
+    names the lanes to solve; the others are done from the start, their
+    returned state the warm start they came with and their count 0."""
     n = prob.n
     dtype = prob.lo.dtype
     dev = prob.lo.device
     m, k = tree.m, sla.k
+    lanes = prob.lo.ndim == 2
+    lead = prob.lo.shape[:-1]  # () for one scenario, (K,) for lanes
 
     sc = scaling.make_scales(prob, tree, sla)
     if opts.precondition:
@@ -98,8 +118,8 @@ def solve(
     imp_lo_s = torch.where(
         torch.isfinite(prob.imp_lo), sc.d_imp * (prob.imp_lo - kpin_imp), -_INF
     )
-    neg_inf_tree = torch.full((m,), -_INF, dtype=dtype, device=dev)
-    pos_inf_imp = torch.full((n,), _INF, dtype=dtype, device=dev)
+    neg_inf_tree = torch.full(lead + (m,), -_INF, dtype=dtype, device=dev)
+    pos_inf_imp = torch.full(lead + (n,), _INF, dtype=dtype, device=dev)
     # the column scaling of the scaled operator and the t column's factor in
     # the adjoint, both constant through the solve
     sm = sc.s * sc.mov
@@ -149,14 +169,14 @@ def solve(
             if fused_primal:
                 x1, xe, xm, yi = tk.primal_step(x, y_tree, y_sla, y_imp, tau_x, step_plan)
                 # summed by torch, in the flag-off path's order
-                gt = gt_scale * torch.sum(yi)
+                gt = gt_scale * lane_sum(yi)
             else:
                 if opts.use_pallas_tree:
                     gx, yi = tk.scaled_rmatvec(
                         y_tree, y_sla, y_imp, sc.d_tree, sc.d_sla, sc.d_imp, sm, tree.index,
                         sla.index,
                     )
-                    gt = gt_scale * torch.sum(yi)
+                    gt = gt_scale * lane_sum(yi)
                 else:
                     gx, gt = scaling.scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc, n)
                 if opts.use_pallas:
@@ -223,14 +243,15 @@ def solve(
     use_cert = opts.noprogress_tol > 0 and opts.noprogress_patience > 0
     if use_cert:
         maxmin_lp = (
-            torch.any(torch.isfinite(prob.imp_lo)) & (prob.c_t < 0) & (sc.t_mov > 0)
+            lane_any(torch.isfinite(prob.imp_lo)) & (prob.c_t < 0) & (sc.t_mov > 0)
         )
     buckets = torch.arange(KKT_HIST_BUCKETS, dtype=torch.int32, device=dev)
+    col = lead + (1,) if lanes else ()  # a per-lane scalar's shape
 
     # In the scaled metric curvature is 1 and variable travel is O(1), so
     # omega = 1 is the natural start for both QP and LP.
     omega = torch.full(
-        (), opts.omega0 if opts.omega0 > 0 else 1.0, dtype=dtype, device=dev
+        col, opts.omega0 if opts.omega0 > 0 else 1.0, dtype=dtype, device=dev
     )
     om_sla = omega
     # scale the warm-start state into the solve metric
@@ -246,19 +267,40 @@ def solve(
     # iterate (no-progress detection)
     rx, ry_tree, ry_sla, ry_imp = x, yt, ys, yi
     px, pt = x, t
-    inf = torch.full((), _INF, dtype=dtype, device=dev)
+    inf = torch.full(col, _INF, dtype=dtype, device=dev)
     pres = dres = cres = inf
     score_prev = inf  # candidate score at the previous check
     score_restart = inf  # score right after the last restart
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    frozen = torch.zeros((), dtype=torch.int32, device=dev)
-    score_hist = torch.zeros(KKT_HIST_BUCKETS, dtype=torch.int32, device=dev)
+    stall = torch.zeros(col, dtype=torch.int32, device=dev)
+    frozen = torch.zeros(col, dtype=torch.int32, device=dev)
+    score_hist = torch.zeros(lead + (KKT_HIST_BUCKETS,), dtype=torch.int32, device=dev)
     chunk = chunks_since = restarts = 0
     done = certified = False
+    if lanes:
+        # host counts per lane; a lane's exit state and stats are kept from
+        # the check it finished at (``fin``), the lanes not to solve from
+        # the start
+        K = lead[0]
+        acount = np.zeros(K)
+        chunks_since = np.zeros(K, np.int64)
+        restarts = np.zeros(K, np.int64)
+        live = np.ones(K, bool) if live is None else np.array(live, bool)
+        fin_iters = np.zeros(K, np.int64)
+        fin_conv = np.ones(K, bool)
+        fin_cert = np.ones(K, bool)
+        fin_restarts = np.zeros(K, np.int64)
+        fin = (x, t, yt, ys, yi, pres, dres, cres, omega, score_hist)
+        done = not live.any()
 
     while not done and chunk < n_chunks:
         x, t, yt, ys, yi = run_chunk(x, t, yt, ys, yi, omega, om_sla)
         cnt = acount + 1.0
+        if lanes:
+            # the lanes' counts on the solve's device, one copy per check
+            cnt = torch.as_tensor(cnt).to(x).reshape(-1, 1)
+            by_count = _by_count(cnt)
+        else:
+            by_count = lambda v: v / cnt  # noqa: E731
         if opts.use_pallas_stats:
             # fused chunk-boundary bookkeeping in one launch: average
             # accumulation, move norms and restart-candidate travel of the
@@ -280,8 +322,8 @@ def solve(
         # average, and the current primal with ZERO duals (the escape hatch
         # when a re-pin invalidates carried duals).
         p, d, cm, score = kkt_score(x, t, yt, ys, yi)
-        xa, ta = ax / cnt, at / cnt
-        yta, ysa, yia = ayt / cnt, ays / cnt, ayi / cnt
+        xa, ta = by_count(ax), by_count(at)
+        yta, ysa, yia = by_count(ayt), by_count(ays), by_count(ayi)
         pa, da, ca, score_a = kkt_score(xa, ta, yta, ysa, yia)
         zt, zs, zi = torch.zeros_like(yt), torch.zeros_like(ys), torch.zeros_like(yi)
         pz, dz, cz, score_z = kkt_score(x, t, zt, zs, zi)
@@ -318,7 +360,7 @@ def solve(
             if opts.use_pallas_stats:
                 move_x = move_num / (1.0 + move_den)
             else:
-                move_x = torch.max(torch.abs(x - px)) / (1.0 + torch.max(torch.abs(x)))
+                move_x = lane_max(torch.abs(x - px)) / (1.0 + lane_max(torch.abs(x)))
             move = torch.maximum(move_x, torch.abs(t - pt) / (1.0 + torch.abs(t)))
             frozen = torch.where(move < opts.noprogress_tol, frozen + 1, 0)
             st_cur = unscale(x, t, yt, ys, yi)
@@ -364,7 +406,14 @@ def solve(
         )
         do_restart = do_restart & (~done_t)
         # the check's one transfer to the host
-        done, restart, certified = torch.stack([done_t, do_restart, done_kkt]).tolist()
+        if lanes:
+            done_l, restart_l, cert_l = torch.stack([done_t, do_restart, done_kkt]).reshape(
+                3, -1).cpu().numpy()
+            restart = bool(restart_l.any())
+            if restart:
+                rcol = column(restart_l, dev)
+        else:
+            done, restart, certified = torch.stack([done_t, do_restart, done_kkt]).tolist()
 
         if restart:
             # primal-weight re-estimate: travel ratio since the anchor, or
@@ -377,26 +426,45 @@ def solve(
                     pick(dyt2_cur, dyt2_avg, dyt2_zero) + pick(dyi2_cur, dyi2_avg, dyi2_zero)
                 )
             else:
-                dx = torch.sqrt(torch.sum((xn - rx) ** 2))
+                dx = torch.sqrt(lane_sum((xn - rx) ** 2))
                 dy = torch.sqrt(
-                    torch.sum((ytn - ry_tree) ** 2) + torch.sum((yin - ry_imp) ** 2)
+                    lane_sum((ytn - ry_tree) ** 2) + lane_sum((yin - ry_imp) ** 2)
                 )
             if use_blockwise:
-                dy_sla = torch.sqrt(torch.sum((ysn - ry_sla) ** 2))
-                omega, om_sla = restarts_mod.update_omega_blocks(
+                dy_sla = torch.sqrt(lane_sum((ysn - ry_sla) ** 2))
+                om_new, om_sla_new = restarts_mod.update_omega_blocks(
                     omega, om_sla, dx, dy, dy_sla, pn, dn, cn, stalled
                 )
+                om_sla = torch.where(rcol, om_sla_new, om_sla) if lanes else om_sla_new
             else:
-                omega = restarts_mod.update_omega(omega, dx, dy, pn, dn, cn, stalled)
+                om_new = restarts_mod.update_omega(omega, dx, dy, pn, dn, cn, stalled)
+            omega = torch.where(rcol, om_new, omega) if lanes else om_new
 
         px, pt = x, t
         # on restart (or exit) adopt the candidate; otherwise keep iterating
         # from the raw iterate
-        if restart or done:
+        if lanes:
+            adopt = restart_l | done_l
+            if adopt.any():
+                x, t, yt, ys, yi = select(adopt, (xn, tn, ytn, ysn, yin), (x, t, yt, ys, yi))
+        elif restart or done:
             x, t, yt, yi = xn, tn, ytn, yin
             if k:
                 ys = ysn
-        if restart:
+        if lanes:
+            score_restart = torch.where(
+                torch.isfinite(score_restart), score_restart, score_cand
+            )
+            if restart:
+                ax, at, ayt, ays, ayi = (torch.where(rcol, 0.0, v)
+                                         for v in (ax, at, ayt, ays, ayi))
+                rx, ry_tree, ry_sla, ry_imp = select(restart_l, (x, yt, ys, yi),
+                                                     (rx, ry_tree, ry_sla, ry_imp))
+                score_restart = torch.where(rcol, score_cand, score_restart)
+            acount = np.where(restart_l, 0.0, acount + 1.0)
+            chunks_since = np.where(restart_l, 0, chunks_since)
+            restarts = restarts + restart_l
+        elif restart:
             ax, at, ayt, ays, ayi = (torch.zeros_like(v) for v in (ax, at, ayt, ays, ayi))
             acount = 0.0
             rx, ry_tree, ry_sla, ry_imp = x, yt, ys, yi
@@ -411,6 +479,25 @@ def solve(
             )
         pres, dres, cres = pn, dn, cn
         score_prev = score_cand
+        if lanes:
+            # lanes that finished at this check keep its state and counts
+            newly = done_l & live
+            if newly.any():
+                fin = select(newly, (x, t, yt, ys, yi, pres, dres, cres, omega, score_hist), fin)
+                fin_iters[newly] = chunk * opts.check_every
+                fin_cert[newly] = cert_l[newly]
+                fin_restarts[newly] = restarts[newly]
+                live &= ~newly
+            done = not live.any()
+
+    if lanes:
+        # the lanes that ran out of iterations end where they are
+        if live.any():
+            fin = select(live, (x, t, yt, ys, yi, pres, dres, cres, omega, score_hist), fin)
+            fin_iters[live] = chunk * opts.check_every
+            fin_conv[live] = fin_cert[live] = False
+            fin_restarts[live] = restarts[live]
+        x, t, yt, ys, yi, pres, dres, cres, omega, score_hist = fin
 
     # return state in original units
     state = unscale(x, t, yt, ys, yi)
@@ -419,14 +506,25 @@ def solve(
         # exit (polish_t is the identity for QPs)
         state = state._replace(t=termination.polish_t(state.x, state.t, prob))
     stats = SolveStats(
-        iterations=chunk * opts.check_every,
+        iterations=fin_iters if lanes else chunk * opts.check_every,
         primal_res=pres,
         dual_res=dres,
         comp_res=cres,
-        converged=bool(done),
+        converged=fin_conv if lanes else bool(done),
         omega=omega,
-        certified=bool(certified),
-        restarts=restarts,
+        certified=fin_cert if lanes else bool(certified),
+        restarts=fin_restarts if lanes else restarts,
         score_hist=score_hist,
     )
     return state, stats
+
+
+def _by_count(cnt: torch.Tensor):
+    """``v / cnt`` with one count per lane (a ``[K, 1]`` column), with the
+    bits the one-scenario loop gets from dividing by a host number: torch
+    divides on the CPU, and on a card multiplies by the reciprocal (taken on
+    the host there, correctly rounded here as well)."""
+    if cnt.device.type == "cuda":
+        inv = torch.reciprocal(cnt)
+        return lambda v: v * inv
+    return lambda v: v / cnt

@@ -82,7 +82,9 @@ class SolverOptions(NamedTuple):
 
 
 class SolverState(NamedTuple):
-    """Warm-startable solver state in ORIGINAL units (primal + duals)."""
+    """Warm-startable solver state in ORIGINAL units (primal + duals); with
+    K lanes every leaf has a leading ``[K]`` axis (``t`` a ``[K, 1]``
+    column)."""
 
     x: torch.Tensor  # [n]
     t: torch.Tensor  # scalar
@@ -91,17 +93,21 @@ class SolverState(NamedTuple):
     y_imp: torch.Tensor  # [n]
 
     @classmethod
-    def zeros(cls, n: int, m: int, k: int, dtype, device) -> "SolverState":
-        def z(*shape):
-            return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(cls, n: int, m: int, k: int, dtype, device, lanes: int | None = None
+              ) -> "SolverState":
+        lead = () if lanes is None else (lanes,)
 
-        return cls(z(n), z(), z(m), z(k), z(n))
+        def z(*shape):
+            return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+        return cls(z(n), z() if lanes is None else z(1), z(m), z(k), z(n))
 
 
 class SolveStats(NamedTuple):
     """Per-solve statistics.  The loop's control flow runs on the host, so
     the counts and exit flags are Python values; residuals stay 0-d tensors
-    on the solve's device."""
+    on the solve's device.  With K lanes the counts and flags are numpy
+    arrays of K entries and the residuals ``[K, 1]`` columns."""
 
     iterations: int
     primal_res: torch.Tensor

@@ -17,11 +17,13 @@ distances since the last restart anchor (:func:`update_omega`); a frozen
 side is a signal, not noise, so travel distances are floored, not gated.
 
 Scores and the stall counter are 0-d tensors on the solve's device; only
-the count of checks since the last restart is a host int.
+the count of checks since the last restart is a host int.  With K lanes
+they are ``[K, 1]`` columns and the count a numpy array of K entries.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["restart_decision", "update_omega", "update_omega_blocks"]
@@ -56,7 +58,12 @@ def restart_decision(
     stalled_now = score_cand >= 0.999 * score_prev
     stall_count = torch.where(stalled_now, stall_count + 1, 0)
     artificial = chunks_since >= restart_every
-    if not adaptive:
+    if isinstance(artificial, np.ndarray):  # lanes: one count per lane
+        artificial = torch.as_tensor(artificial, device=stalled_now.device).reshape(-1, 1)
+        if not adaptive:
+            return artificial, torch.where(artificial, 0, stall_count), torch.zeros_like(
+                stalled_now)
+    elif not adaptive:
         do = torch.full_like(stalled_now, artificial)
         return do, torch.where(do, 0, stall_count), torch.zeros_like(stalled_now)
     # before any restart has anchored the score (inf), only the
@@ -70,7 +77,9 @@ def restart_decision(
     )
     stalled = stall_count >= stall_checks
     do = sufficient | necessary | stalled
-    if artificial:
+    if isinstance(artificial, torch.Tensor):
+        do = do | artificial
+    elif artificial:
         do = torch.ones_like(do)
     return do, torch.where(do, 0, stall_count), stalled
 

@@ -21,6 +21,9 @@ sums + segment sums — never a sparse matrix):
 
    Vacuous improvement rows (``imp_lo = -inf`` — every Phase I row) carry
    zero dual by construction, so they are excluded from the column sums.
+
+Both take a step problem of one scenario or of K lanes; a lane's scalars
+(``s_t``, ``t_mov``, ``tau_t``) are ``[K, 1]`` columns.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.lanes import lane_max, lane_sum
 from repro_torch.core.problem import StepProblem
 from repro_torch.core.treeops import (
     SlaTopo,
@@ -88,14 +92,14 @@ def make_scales(prob: StepProblem, tree: TreeTopo, sla: SlaTopo) -> Scales:
     dtype = prob.lo.dtype
     span = prob.hi - prob.lo
     rng = torch.where(torch.isfinite(span), span, 0.0)
-    range_scale = torch.clamp_min(torch.max(rng), 1.0)
+    range_scale = torch.clamp_min(lane_max(rng), 1.0)
     s = torch.where(
         prob.w > 0, 1.0 / torch.sqrt(torch.clamp_min(prob.w, 1e-30)), range_scale
     )
     s = torch.minimum(s, range_scale * 1e3)  # cap pathological 1/sqrt(w)
     # t appears in every active improvement row; shrink its scale by
     # 1/sqrt(n_imp) so the scaled column norm is O(1).
-    n_imp = torch.sum(torch.isfinite(prob.imp_lo).to(dtype))
+    n_imp = lane_sum(torch.isfinite(prob.imp_lo).to(dtype))
     s_t = range_scale / torch.sqrt(torch.clamp_min(n_imp, 1.0))
 
     mov = (prob.hi - prob.lo > 0).to(dtype)
@@ -105,7 +109,7 @@ def make_scales(prob: StepProblem, tree: TreeTopo, sla: SlaTopo) -> Scales:
     if sla.k > 0:
         d_sla = torch.rsqrt(torch.clamp_min(sla_matvec(s2m, sla), 1.0))
     else:
-        d_sla = s2m.new_zeros(0)
+        d_sla = s2m.new_zeros(s2m.shape[:-1] + (0,))
     d_imp = torch.rsqrt(torch.clamp_min(s2m + s_t * s_t * t_mov, 1.0))
     return Scales(s, s_t, mov, t_mov, d_tree, d_sla, d_imp)
 
@@ -142,7 +146,7 @@ def scaled_rmatvec(y_tree, y_sla, y_imp, tree, sla, sc: Scales, n):
         y_tree, y_sla, y_imp, sc.d_tree, sc.d_sla, sc.d_imp, sc.s * sc.mov, tree.index,
         sla.index,
     )
-    return gx, -sc.s_t * sc.t_mov * torch.sum(yi)
+    return gx, -sc.s_t * sc.t_mov * lane_sum(yi)
 
 
 def pc_step_sizes(
@@ -161,7 +165,7 @@ def pc_step_sizes(
     if sla.k > 0:
         row_sla = sc.d_sla * sla_matvec(sm, sla)
     else:
-        row_sla = sm.new_zeros(0)
+        row_sla = sm.new_zeros(sm.shape[:-1] + (0,))
     row_imp = sc.d_imp * (sm + sc.s_t * sc.t_mov)
 
     # column absolute sums: each device accumulates its covering rows' scales
@@ -170,7 +174,7 @@ def pc_step_sizes(
         + sla_rmatvec(sc.d_sla, sla, n)
         + sc.d_imp * act
     )
-    col_t = sc.s_t * sc.t_mov * torch.sum(sc.d_imp * act)
+    col_t = sc.s_t * sc.t_mov * lane_sum(sc.d_imp * act)
 
     tiny = 1e-12
     theta = torch.full((), theta, dtype=dtype, device=sm.device)
@@ -190,24 +194,26 @@ def uniform_step_sizes(
     ``tau = sigma = theta / ||A||`` with the norm from a power iteration."""
     knorm = torch.clamp_min(estimate_norm(tree, sla, sc, n, power_iters, dtype), 1e-6)
     tau = theta / knorm
+    lead = tau.shape[:-1]  # () for one scenario, (K,) for lanes
     return StepSizes(
-        tau_x=tau.expand(n).clone(),
+        tau_x=tau.expand(lead + (n,)).clone(),
         tau_t=tau.clone(),
-        sig_tree=tau.expand(tree.m).clone(),
-        sig_sla=tau.expand(sla.k).clone(),
-        sig_imp=tau.expand(n).clone(),
+        sig_tree=tau.expand(lead + (tree.m,)).clone(),
+        sig_sla=tau.expand(lead + (sla.k,)).clone(),
+        sig_imp=tau.expand(lead + (n,)).clone(),
     )
 
 
 def estimate_norm(tree, sla, sc: Scales, n, iters, dtype):
     """||D2 K S||_2 via power iteration on (D2 K S)^T (D2 K S)."""
     dev = sc.s.device
+    lead = sc.s.shape[:-1]  # () for one scenario, (K,) for lanes
     scale = torch.sqrt(torch.full((), n + 1, dtype=dtype, device=dev))
-    x = torch.ones(n, dtype=dtype, device=dev) / scale
-    t = torch.ones((), dtype=dtype, device=dev) / scale
+    x = torch.ones(lead + (n,), dtype=dtype, device=dev) / scale
+    t = torch.ones(lead + (1,) if lead else (), dtype=dtype, device=dev) / scale
     for _ in range(iters):
-        nrm = torch.sqrt(torch.sum(x * x) + t * t)
+        nrm = torch.sqrt(lane_sum(x * x) + t * t)
         x, t = x / nrm, t / nrm
         a, b, c = scaled_matvec(x, t, tree, sla, sc)
         x, t = scaled_rmatvec(a, b, c, tree, sla, sc, n)
-    return torch.sqrt(torch.sqrt(torch.sum(x * x) + t * t))  # sqrt ||K^TK v|| ~ ||K||
+    return torch.sqrt(torch.sqrt(lane_sum(x * x) + t * t))  # sqrt ||K^TK v|| ~ ||K||

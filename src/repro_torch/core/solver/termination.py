@@ -13,13 +13,15 @@ no-progress / optimal-vertex certificate.
   exit: given the settled ``x``, the max-min LP's optimal scalar is
   ``clip(min_i(x_i - imp_lo_i), t_lo, t_hi)`` in closed form.
 
-All results are 0-d tensors on the solve's device.
+All results are 0-d tensors on the solve's device, or ``[K, 1]`` lane
+columns for a step problem of K lanes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.lanes import lane_any, lane_max, lane_min, lane_sum
 from repro_torch.core.problem import StepProblem
 from repro_torch.core.solver.options import SolverState
 from repro_torch.core.treeops import (
@@ -41,7 +43,9 @@ def _viol(kx, lo, hi):
 
 
 def _pmax(v):
-    return torch.max(v) if v.shape[0] else v.new_zeros(())
+    if v.shape[-1]:
+        return lane_max(v)
+    return v.new_zeros(v.shape[:-1] + (1,) if v.ndim > 1 else ())
 
 
 def kkt_residuals(state: SolverState, prob: StepProblem, tree: TreeTopo, sla: SlaTopo):
@@ -63,13 +67,13 @@ def kkt_residuals(state: SolverState, prob: StepProblem, tree: TreeTopo, sla: Sl
 
     primal = torch.maximum(torch.maximum(_pmax(p_tree), _pmax(p_sla)), _pmax(p_imp))
     p_scale = 1.0 + torch.maximum(
-        torch.max(torch.abs(kx_tree)),
-        torch.max(torch.abs(kx_imp)),
+        lane_max(torch.abs(kx_tree)),
+        lane_max(torch.abs(kx_imp)),
     )
 
     # dual stationarity on x: s = w (x - target) + c + K^T y, projected on box
     gx = tree_rmatvec(yt, tree, n) + sla_rmatvec(ys, sla, n) + yi
-    gt = -torch.sum(yi)
+    gt = -lane_sum(yi)
     s = prob.w * (x - prob.target) + prob.c + gx
     tol = 1e-9 * (1.0 + torch.abs(prob.hi))
     at_lo = x <= prob.lo + tol
@@ -95,19 +99,19 @@ def kkt_residuals(state: SolverState, prob: StepProblem, tree: TreeTopo, sla: Sl
             torch.where(t_at_hi, torch.clamp_min(s_t, 0.0), torch.abs(s_t)),
         ),
     )
-    dual = torch.maximum(torch.max(dual_x), dual_t)
+    dual = torch.maximum(lane_max(dual_x), dual_t)
     d_scale = (
         1.0
-        + torch.max(torch.abs(prob.w * (x - prob.target) + prob.c))
-        + torch.max(torch.abs(gx))
+        + lane_max(torch.abs(prob.w * (x - prob.target) + prob.c))
+        + lane_max(torch.abs(gx))
     )
 
     # complementarity: y+ pairs with hi slack, y- with lo slack.  Slack is
     # clamped to the primal scale so rows with effectively-unbounded caps
     # (slack >> |Kx|) don't demand y == 0 to machine precision.
     def _comp(y, kx, lo, hi):
-        if y.shape[0] == 0:
-            return x.new_zeros(())
+        if y.shape[-1] == 0:
+            return _pmax(y)
         slack_cap = 1.0 + torch.abs(kx)
         hi_slack = torch.where(
             torch.isfinite(hi),
@@ -120,7 +124,7 @@ def kkt_residuals(state: SolverState, prob: StepProblem, tree: TreeTopo, sla: Sl
             0.0,
         )
         c = torch.clamp_min(y, 0.0) * hi_slack + torch.clamp_min(-y, 0.0) * lo_slack
-        return torch.max(c)
+        return lane_max(c)
 
     comp = torch.maximum(
         torch.maximum(
@@ -130,7 +134,7 @@ def kkt_residuals(state: SolverState, prob: StepProblem, tree: TreeTopo, sla: Sl
         _comp(yi, kx_imp, prob.imp_lo, torch.full_like(prob.imp_lo, _INF)),
     )
     c_scale = p_scale * (
-        1.0 + torch.maximum(torch.max(torch.abs(yt)), torch.max(torch.abs(yi)))
+        1.0 + torch.maximum(lane_max(torch.abs(yt)), lane_max(torch.abs(yi)))
     )
     return primal / p_scale, dual / d_scale, comp / c_scale
 
@@ -144,12 +148,12 @@ def primal_residual(x, t, prob: StepProblem, tree: TreeTopo, sla: SlaTopo):
     primal = torch.maximum(
         torch.maximum(
             _pmax(_viol(kx_tree, -_INF, prob.tree_hi)),
-            _pmax(_viol(kx_sla, prob.sla_lo, prob.sla_hi)) if sla.k else x.new_zeros(()),
+            _pmax(_viol(kx_sla, prob.sla_lo, prob.sla_hi)) if sla.k else _pmax(kx_sla),
         ),
         _pmax(_viol(kx_imp, prob.imp_lo, _INF)),
     )
     p_scale = 1.0 + torch.maximum(
-        torch.max(torch.abs(kx_tree)), torch.max(torch.abs(kx_imp))
+        lane_max(torch.abs(kx_tree)), lane_max(torch.abs(kx_imp))
     )
     return primal / p_scale
 
@@ -163,8 +167,8 @@ def polish_t(x, t, prob: StepProblem):
     when ``t`` is pinned (QP phases) or no improvement row is live.
     """
     fin = torch.isfinite(prob.imp_lo)
-    any_fin = torch.any(fin)
-    t_max = torch.min(torch.where(fin, x - prob.imp_lo, _INF))
+    any_fin = lane_any(fin)
+    t_max = lane_min(torch.where(fin, x - prob.imp_lo, _INF))
     t_new = torch.clamp(t_max, prob.t_lo, prob.t_hi)
     movable = (prob.t_hi - prob.t_lo > 0) & any_fin & (prob.c_t < 0)
     return torch.where(movable, t_new, t)

@@ -13,7 +13,9 @@ The constraint matrix ``K`` stacks three row blocks over the primal vector
 
 Because devices are DFS-ordered, the tree block is a cumulative sum plus two
 gathers, and its transpose is a difference-array scatter plus a cumulative
-sum — O(n + m) with no sparse data structures.  These are the plain PyTorch
+sum — O(n + m) with no sparse data structures.  Every operator takes
+``[..., n]`` (one scenario, or K lanes over the same topology; see
+:mod:`repro_torch.core.lanes`).  These are the plain PyTorch
 operators, with one exception: on a CUDA tensor the sums that scatter (the
 tree adjoint and both tenant sums) go through the deterministic kernels of
 :mod:`repro_torch.kernels.tree_matvec`, because ``index_add_`` on a card
@@ -30,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.lanes import lane_sum
 from repro_torch.kernels import tree_matvec as tk
 from repro_torch.kernels.tree_matvec import SlaIndex, TreeIndex, sla_index, tree_index
 
@@ -124,9 +127,9 @@ class SlaTopo(NamedTuple):
 
 
 def tree_matvec(x: torch.Tensor, tree: TreeTopo) -> torch.Tensor:
-    """Per-node subtree sums of ``x`` — the tree block of ``K z``."""
-    csum = torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
-    return csum[tree.end] - csum[tree.start]
+    """Per-node subtree sums of ``x`` (``[..., n]``) — the tree block of ``K z``."""
+    csum = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), torch.cumsum(x, -1)], -1)
+    return csum[..., tree.end] - csum[..., tree.start]
 
 
 def tree_rmatvec(y: torch.Tensor, tree: TreeTopo, n: int) -> torch.Tensor:
@@ -139,14 +142,14 @@ def tree_rmatvec(y: torch.Tensor, tree: TreeTopo, n: int) -> torch.Tensor:
 def sla_matvec(x: torch.Tensor, sla: SlaTopo) -> torch.Tensor:
     """Per-tenant sums of ``x`` over the incidence list, in edge order."""
     if sla.k == 0:
-        return x.new_zeros(0)
+        return x.new_zeros(x.shape[:-1] + (0,))
     return tk.sla_matvec(x, sla.index)
 
 
 def sla_rmatvec(y: torch.Tensor, sla: SlaTopo, n: int) -> torch.Tensor:
     """Adjoint of :func:`sla_matvec`: device d sums its tenants' duals."""
     if sla.k == 0:
-        return y.new_zeros(n)
+        return y.new_zeros(y.shape[:-1] + (n,))
     return tk.sla_rmatvec(y, sla.index)
 
 
@@ -157,7 +160,7 @@ def full_matvec(x, t, tree: TreeTopo, sla: SlaTopo):
 
 def full_rmatvec(y_tree, y_sla, y_imp, tree: TreeTopo, sla: SlaTopo):
     """``K^T y`` -> (gradient on x, gradient on t)."""
-    n = y_imp.shape[0]
+    n = y_imp.shape[-1]
     gx = tree_rmatvec(y_tree, tree, n) + sla_rmatvec(y_sla, sla, n) + y_imp
-    gt = -torch.sum(y_imp)
+    gt = -lane_sum(y_imp)
     return gx, gt

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.lanes import column, lane_any, lane_min
 from repro_torch.kernels import tree_matvec as tk
 
 __all__ = ["waterfill_arrays", "waterfill_torch"]
@@ -97,12 +98,24 @@ def waterfill_torch(base, opt_mask, tree, u, max_rounds: int = 10_000):
     nodes added are ones it finds tight too, up to the rounding of a
     prefix-sum difference.  Each round brings its exit test to the host in
     one transfer.
+
+    With K lanes (``[K, n]`` ``base`` and ``opt_mask``) every lane sweeps
+    its own rounds in the same launches: a lane that stops keeps its
+    allocation while the others go on, and a round's transfer is the K
+    lanes' exit tests.
     """
     x = base
     dtype = x.dtype
     live = opt_mask.to(torch.bool)
     inf = torch.full((), float("inf"), dtype=dtype, device=x.device)
-    if not bool(live.any()):
+    lanes = x.ndim == 2
+    if lanes:
+        # the lanes still sweeping; a lane that stopped applies no raise
+        going = lane_any(live).reshape(-1).cpu().numpy()
+        if not going.any():
+            return x
+        going_col = column(going, x.device)
+    elif not bool(live.any()):
         return x
     for _ in range(max_rounds):
         lv = live.to(dtype)
@@ -110,8 +123,10 @@ def waterfill_torch(base, opt_mask, tree, u, max_rounds: int = 10_000):
         slack = tree.cap - tk.tree_matvec(x, tree.index)
         node_rate = torch.where(n_live > 0, slack / torch.clamp_min(n_live, 1.0), inf)
         dev_rate = torch.where(live, u - x, inf)
-        t = torch.clamp_min(torch.minimum(torch.min(node_rate), torch.min(dev_rate)), 0.0)
+        t = torch.clamp_min(torch.minimum(lane_min(node_rate), lane_min(dev_rate)), 0.0)
         finite = torch.isfinite(t)
+        if lanes:
+            finite = finite & going_col
         # the numpy sweep stops BEFORE applying a non-finite raise
         x = torch.where(live & finite, x + t, x)
         # freeze: devices at u, or under any node now tight or whose rate
@@ -121,9 +136,16 @@ def waterfill_torch(base, opt_mask, tree, u, max_rounds: int = 10_000):
         )
         under_tight = tk.tree_rmatvec(tight.to(dtype), tree.index) > 0.5
         newly = live & ((u - x <= 1e-9) | under_tight)
-        done = (~finite) | (~torch.any(newly))  # absorbed or stalled
+        done = (~finite) | (~lane_any(newly))  # absorbed or stalled
         live = torch.where(finite, live & ~newly, live)
-        stop, any_live = torch.stack([done, torch.any(live)]).tolist()
-        if stop or not any_live:
-            break
+        if lanes:
+            stop, any_live = torch.stack([done, lane_any(live)]).reshape(2, -1).cpu().numpy()
+            going &= ~stop & any_live
+            if not going.any():
+                break
+            going_col = column(going, x.device)
+        else:
+            stop, any_live = torch.stack([done, torch.any(live)]).tolist()
+            if stop or not any_live:
+                break
     return x

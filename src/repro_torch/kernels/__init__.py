@@ -9,9 +9,11 @@ from repro_torch.kernels.flash_attention import kernel as _flash_kernel
 from repro_torch.kernels.pdhg_update import kernel as _pdhg_kernel
 from repro_torch.kernels.tree_matvec import kernel as _tree_kernel
 
-__all__ = ["launch_counts", "reset_launch_counts"]
+__all__ = ["lane_launch_counts", "launch_counts", "reset_launch_counts"]
 
 _TABLES = (_tree_kernel.LAUNCHES, _pdhg_kernel.LAUNCHES, _flash_kernel.LAUNCHES)
+# the allocator's launches that took [K, size] lanes (the K-scenario path)
+_LANE_TABLES = (_tree_kernel.LANE_LAUNCHES, _pdhg_kernel.LANE_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
@@ -19,7 +21,12 @@ def launch_counts() -> dict[str, int]:
     return {name: count for table in _TABLES for name, count in table.items()}
 
 
+def lane_launch_counts() -> dict[str, int]:
+    """Of those, the allocator kernels' launches over K lanes."""
+    return {name: count for table in _LANE_TABLES for name, count in table.items()}
+
+
 def reset_launch_counts() -> None:
-    for table in _TABLES:
+    for table in _TABLES + _LANE_TABLES:
         for name in table:
             table[name] = 0

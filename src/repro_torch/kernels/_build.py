@@ -69,22 +69,24 @@ _ATTENTION = ("wgmma", "mma", "f32")
 class DualRows(ctypes.Structure):
     """One row block of ``dual_update`` (``csrc/pdhg_update.cu``, ``DualRows<T>``):
     the duals, the matvec's raw output, the row scales, the step sizes (a
-    stride of 1 or 0), the bounds, the output and the row count."""
+    stride of 1 or 0 within a lane, ``sig_lane`` between lanes), the bounds,
+    the output and the row count (a lane's)."""
 
     _fields_ = [
         ("y", _PTR), ("a", _PTR), ("d", _PTR), ("sig", _PTR), ("sig_stride", _I64),
-        ("lo", _PTR), ("hi", _PTR), ("out", _PTR), ("count", _I64),
+        ("sig_lane", _I64), ("lo", _PTR), ("hi", _PTR), ("out", _PTR), ("count", _I64),
     ]
 
 
 class DualUpdateArgs(ctypes.Structure):
     """The fused dual step's arguments, passed by value (``DualUpdateArgs<T>``):
-    the tree, tenant and improvement rows and the 0-d ``s_t``, ``t_mov`` and
-    ``te`` of the improvement rows' t column."""
+    the tree, tenant and improvement rows and the ``s_t``, ``t_mov`` and
+    ``te`` of the improvement rows' t column (one per lane, read through
+    ``scalar_lane``)."""
 
     _fields_ = [
         ("tree", DualRows), ("sla", DualRows), ("imp", DualRows),
-        ("s_t", _PTR), ("t_mov", _PTR), ("te", _PTR),
+        ("s_t", _PTR), ("t_mov", _PTR), ("te", _PTR), ("scalar_lane", _I64),
     ]
 
 
@@ -124,50 +126,60 @@ class AccRows(ctypes.Structure):
 class ChunkStatsArgs(ctypes.Structure):
     """``chunk_stats``' arguments, passed by value (``ChunkStatsArgs<T>``):
     the primal block, two dual blocks, the accumulators, the partial rows of
-    the statistics blocks and their three ticket counters."""
+    the statistics blocks and their three ticket counters (per lane), the
+    lanes' counts (null: the one count passed by value) and the results per
+    lane."""
 
     _fields_ = [
         ("primal", PrimalStatsRows), ("first", StatsRows), ("second", StatsRows),
-        ("acc", AccRows), ("part", _PTR), ("tickets", _PTR),
+        ("acc", AccRows), ("part", _PTR), ("tickets", _PTR), ("cnt", _PTR),
+        ("out_lane", _I64),
     ]
 
 
 class ScaledAdjoint(ctypes.Structure):
     """The scaled adjoint's inputs (``csrc/tree_matvec.cu``, ``ScaledAdjoint<T>``):
     duals and row scales of the tree, tenant and improvement rows, the two
-    CSR indexes, ``s * mov``, the tenant and device counts."""
+    CSR indexes, ``s * mov``, the tenant, device and tree-row counts, and
+    the indexes' lane strides (0: every lane shares one topology)."""
 
     _fields_ = [
         ("y_tree", _PTR), ("d_tree", _PTR), ("cover_ptr", _PTR), ("cover_rows", _PTR),
         ("y_sla", _PTR), ("d_sla", _PTR), ("dev_ptr", _PTR), ("dev_ten", _PTR),
-        ("y_imp", _PTR), ("d_imp", _PTR), ("sm", _PTR), ("k", _I64), ("n", _I64),
+        ("y_imp", _PTR), ("d_imp", _PTR), ("sm", _PTR), ("k", _I64), ("n", _I64), ("m", _I64),
+        ("cover_ptr_lane", _I64), ("cover_rows_lane", _I64), ("dev_ptr_lane", _I64),
+        ("dev_ten_lane", _I64),
     ]
 
 
 class PrimalStepArgs(ctypes.Structure):
     """``primal_step``'s arguments, passed by value (``PrimalStepArgs<T>``):
     the adjoint's, the primal iterate, the prox's data, the step size (a
-    stride of 1 or 0) and the outputs."""
+    stride of 1 or 0 within a lane, ``tau_lane`` between lanes) and the
+    outputs."""
 
     _fields_ = [
         ("adj", ScaledAdjoint), ("x", _PTR), ("c", _PTR), ("w", _PTR), ("target", _PTR),
-        ("lo", _PTR), ("hi", _PTR), ("tau", _PTR), ("tau_stride", _I64),
+        ("lo", _PTR), ("hi", _PTR), ("tau", _PTR), ("tau_stride", _I64), ("tau_lane", _I64),
         ("x1", _PTR), ("xe", _PTR), ("xm", _PTR), ("yi", _PTR),
     ]
 
 
 # argument types of every exported function, by name stem, and the type
 # suffixes of its twins
+# (device, v, v_lane, ptr, ptr_lane, idx, idx_lane, nseg, lanes, out, stream)
+_LISTS = [_INT, _PTR, _I64, _PTR, _I64, _PTR, _I64, _I64, _I64, _PTR, _PTR]
 _SIGNATURES = {
-    "tree_matvec": ([_INT] + [_PTR] * 5 + [_I64, _I64, _PTR], _SOLVER),
-    "primal_update": ([_INT] + [_PTR] * 8 + [_I64, _I64, _PTR, _PTR, _PTR], _SOLVER),
-    "dual_prox": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR, _I64, _PTR, _PTR], _SOLVER),
-    "dual_update": ([_INT, DualUpdateArgs, _PTR], _SOLVER),
-    "scaled_rmatvec": ([_INT] + [_PTR] * 11 + [_I64, _I64] + [_PTR] * 3, _SOLVER),
-    "primal_step": ([_INT, PrimalStepArgs, _PTR], _SOLVER),
-    "segment_sums": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
-    "sla_matvec": ([_INT] + [_PTR] * 3 + [_I64, _PTR, _PTR], _SOLVER),
-    "chunk_stats": ([_INT, ChunkStatsArgs, _F64, _INT, _PTR], _SOLVER),
+    "tree_matvec": ([_INT] + [_PTR] * 5 + [_I64] * 4 + [_PTR], _SOLVER),
+    "primal_update": ([_INT] + [_PTR] * 8 + [_I64] * 4 + [_PTR] * 3, _SOLVER),
+    "dual_prox": ([_INT] + [_PTR] * 3 + [_I64, _I64, _PTR, _PTR, _I64, _I64, _PTR, _PTR],
+                  _SOLVER),
+    "dual_update": ([_INT, DualUpdateArgs, _I64, _PTR], _SOLVER),
+    "scaled_rmatvec": ([_INT, ScaledAdjoint, _I64, _PTR, _PTR, _PTR], _SOLVER),
+    "primal_step": ([_INT, PrimalStepArgs, _I64, _PTR], _SOLVER),
+    "segment_sums": (_LISTS, _SOLVER),
+    "sla_matvec": (_LISTS, _SOLVER),
+    "chunk_stats": ([_INT, ChunkStatsArgs, _F64, _INT, _I64, _PTR], _SOLVER),
     "flash_attention": (
         [_INT] + [_PTR] * 4 + [_I64] * 6 + [ctypes.POINTER(_I64), _F32, _INT, _PTR],
         _ATTENTION,

@@ -67,6 +67,16 @@
 // zero between launches, so the launch replays in a CUDA graph; two calls
 // running at once on two streams would share them (the solver makes one
 // call at a time).
+//
+// Lanes.  Every kernel here also takes K problems in one launch (the
+// allocator's K-scenario path), the lane a grid axis (blockIdx.y): lane L's
+// vectors follow lane L-1's, contiguous [K, size]; a step size or scalar is
+// read through a lane stride of its own (the vector's size, 1 for one
+// scalar per lane, 0 for one shared by every lane).  The chunk statistics
+// give each lane its own partial rows, three ticket counters and count
+// (cnt, read from a device array of K counts, since the lanes restart at
+// different checks), so each lane's bits are those of a launch on that lane
+// alone.
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
@@ -89,14 +99,15 @@ struct DualRows {
   const T* d;
   const T* sig;
   int64_t sig_stride;
+  int64_t sig_lane;
   const T* lo;
   const T* hi;
   T* out;
   int64_t count;
 };
 
-// The three row blocks and the scalars of the improvement rows' t column
-// (_build.DualUpdateArgs).
+// The three row blocks and the scalars of the improvement rows' t column,
+// read at lane * scalar_lane (_build.DualUpdateArgs).
 template <typename T>
 struct DualUpdateArgs {
   DualRows<T> tree;
@@ -105,6 +116,7 @@ struct DualUpdateArgs {
   const T* s_t;
   const T* t_mov;
   const T* te;
+  int64_t scalar_lane;
 };
 
 // The primal block of the chunk statistics: the iterate, the previous
@@ -150,7 +162,10 @@ struct AccRows {
 // check_chunk_stats' blocks, the partial rows of its statistics blocks
 // (primal's, then first's, then second's) and their three ticket counters
 // (_build.ChunkStatsArgs).  Which blocks a launch takes is its `blocks`
-// mask (kPrimal, kFirst, kSecond, kAcc).
+// mask (kPrimal, kFirst, kSecond, kAcc).  With lanes, lane L's results are
+// at out + L * out_lane in each block's `out`, its partial rows and
+// counters follow lane L-1's, and its count is cnt[L] (a null `cnt` means
+// the count passed by value).
 template <typename T>
 struct ChunkStatsArgs {
   PrimalStatsRows<T> primal;
@@ -159,6 +174,8 @@ struct ChunkStatsArgs {
   AccRows<T> acc;
   T* part;
   unsigned* tickets;
+  const T* cnt;
+  int64_t out_lane;
 };
 
 namespace {
@@ -169,74 +186,93 @@ constexpr int64_t kMaxBlocks = 132 * 32;
 using rn::clip;
 using rn::Rn;
 
+// Lane blockIdx.y of `x` etc. ([lanes, n]); tau read at lane * tau_lane.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     primal_update_kernel(const T* __restrict__ x, const T* __restrict__ gx,
                          const T* __restrict__ c, const T* __restrict__ w,
                          const T* __restrict__ target, const T* __restrict__ lo,
                          const T* __restrict__ hi, const T* __restrict__ tau, int64_t tau_stride,
-                         int64_t n, T* __restrict__ x1, T* __restrict__ xe) {
+                         int64_t tau_lane, int64_t n, T* __restrict__ x1, T* __restrict__ xe) {
+  const int64_t lane = blockIdx.y;
+  const int64_t base = lane * n;
+  tau += lane * tau_lane;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += step) {
+    const int64_t li = base + i;
     T v, e;
-    rn::primal_prox(x[i], gx[i], c[i], w[i], target[i], lo[i], hi[i], tau[i * tau_stride], v, e);
-    x1[i] = v;
-    xe[i] = e;
+    rn::primal_prox(x[li], gx[li], c[li], w[li], target[li], lo[li], hi[li], tau[i * tau_stride],
+                    v, e);
+    x1[li] = v;
+    xe[li] = e;
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dual_prox_kernel(const T* __restrict__ y, const T* __restrict__ a,
-                     const T* __restrict__ sigma, int64_t sigma_stride,
+                     const T* __restrict__ sigma, int64_t sigma_stride, int64_t sigma_lane,
                      const T* __restrict__ lo, const T* __restrict__ hi, int64_t n,
                      T* __restrict__ out) {
   using R = Rn<T>;
+  const int64_t lane = blockIdx.y;
+  const int64_t base = lane * n;
+  sigma += lane * sigma_lane;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += step) {
+    const int64_t li = base + i;
     const T s = sigma[i * sigma_stride];
-    const T z = R::add(y[i], R::mul(s, a[i]));
-    out[i] = R::sub(z, R::mul(s, clip(R::div(z, s), lo[i], hi[i])));
+    const T z = R::add(y[li], R::mul(s, a[li]));
+    out[li] = R::sub(z, R::mul(s, clip(R::div(z, s), lo[li], hi[li])));
   }
 }
 
 // Row i of a block, every operation rounded once in the plain version's
 // order: scaled_matvec's product, then dual_prox's z and prox.
+// Row i of lane `lane` of a block: its vectors at lane * count, its step
+// sizes at lane * sig_lane.
 template <typename T, bool kImp>
-__device__ __forceinline__ void dual_row(const DualRows<T>& r, int64_t i, T shift) {
+__device__ __forceinline__ void dual_row(const DualRows<T>& r, int64_t lane, int64_t i,
+                                         T shift) {
   using R = Rn<T>;
-  const T ai = kImp ? R::sub(r.a[i], shift) : r.a[i];
-  const T a = R::mul(r.d[i], ai);
-  const T s = r.sig[i * r.sig_stride];
-  const T z = R::add(r.y[i], R::mul(s, a));
-  r.out[i] = R::sub(z, R::mul(s, clip(R::div(z, s), r.lo[i], r.hi[i])));
+  const int64_t li = lane * r.count + i;
+  const T ai = kImp ? R::sub(r.a[li], shift) : r.a[li];
+  const T a = R::mul(r.d[li], ai);
+  const T s = r.sig[lane * r.sig_lane + i * r.sig_stride];
+  const T z = R::add(r.y[li], R::mul(s, a));
+  r.out[li] = R::sub(z, R::mul(s, clip(R::div(z, s), r.lo[li], r.hi[li])));
 }
 
 // Blocks [0, tree_blocks) take the tree rows, the next sla_blocks the
-// tenant rows, the rest the improvement rows; one row per thread.
+// tenant rows, the rest the improvement rows; one row per thread, of lane
+// blockIdx.y.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dual_update_kernel(DualUpdateArgs<T> p, int64_t tree_blocks, int64_t sla_blocks) {
   using R = Rn<T>;
+  const int64_t lane = blockIdx.y;
   int64_t b = blockIdx.x;
   if (b < tree_blocks) {
     const DualRows<T> r = p.tree;
     const int64_t i = b * kThreads + threadIdx.x;
-    if (i < r.count) dual_row<T, false>(r, i, T(0));
+    if (i < r.count) dual_row<T, false>(r, lane, i, T(0));
     return;
   }
   b -= tree_blocks;
   if (b < sla_blocks) {
     const DualRows<T> r = p.sla;
     const int64_t i = b * kThreads + threadIdx.x;
-    if (i < r.count) dual_row<T, false>(r, i, T(0));
+    if (i < r.count) dual_row<T, false>(r, lane, i, T(0));
     return;
   }
   b -= sla_blocks;
   const DualRows<T> r = p.imp;
   const int64_t i = b * kThreads + threadIdx.x;
+  const int64_t ls = lane * p.scalar_lane;
   // s_t * t_mov * te, left to right as torch evaluates it
-  if (i < r.count) dual_row<T, true>(r, i, R::mul(R::mul(*p.s_t, *p.t_mov), *p.te));
+  if (i < r.count) {
+    dual_row<T, true>(r, lane, i, R::mul(R::mul(p.s_t[ls], p.t_mov[ls]), p.te[ls]));
+  }
 }
 
 constexpr int kStatThreads = 256;
@@ -381,10 +417,38 @@ __device__ void dual_block(const StatsRows<T>& r, T cnt, int64_t b, int64_t nb, 
   finish_block<T, 3, 0>(v, part, b, nb, ticket, r.out, sh, last);
 }
 
+// Lane `lane` of a block: its vectors at lane * count, its results at
+// lane * out_lane.
+template <typename T>
+__device__ __forceinline__ PrimalStatsRows<T> primal_lane(PrimalStatsRows<T> r, int64_t lane,
+                                                           int64_t out_lane) {
+  const int64_t o = lane * r.count;
+  r.x += o;
+  r.px += o;
+  r.rx += o;
+  r.ax += o;
+  r.axn += o;
+  r.out += lane * out_lane;
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ StatsRows<T> dual_lane(StatsRows<T> r, int64_t lane,
+                                                  int64_t out_lane) {
+  const int64_t o = lane * r.count;
+  r.y += o;
+  r.ry += o;
+  r.ay += o;
+  r.ayn += o;
+  r.out += lane * out_lane;
+  return r;
+}
+
 // CTAs [0, bp) take the primal block, the next b0 the first dual block, the
 // next b1 the second, the rest (ba) the accumulators; a block a launch does
 // not take has no CTAs.  Each statistics block's CTAs grid-stride over it as
-// a launch of that block alone would.
+// a launch of that block alone would.  blockIdx.y is the lane: its partial
+// rows, ticket counters and count are its own.
 template <typename T>
 __global__ void __launch_bounds__(kStatThreads)
     chunk_stats_kernel(ChunkStatsArgs<T> a, T cnt, int64_t bp, int64_t b0, int64_t b1,
@@ -392,28 +456,33 @@ __global__ void __launch_bounds__(kStatThreads)
   using R = Rn<T>;
   __shared__ T sh[4 * kStatThreads];
   __shared__ bool last;
+  const int64_t lane = blockIdx.y;
+  if (a.cnt != nullptr) cnt = a.cnt[lane];
+  T* part = a.part + lane * (4 * bp + 3 * (b0 + b1));
+  unsigned* tickets = a.tickets + 3 * lane;
   int64_t b = blockIdx.x;
   if (b < bp) {
-    primal_block(a.primal, cnt, b, bp, a.part, a.tickets, sh, last);
+    primal_block(primal_lane(a.primal, lane, a.out_lane), cnt, b, bp, part, tickets, sh, last);
     return;
   }
   b -= bp;
-  T* part = a.part + 4 * bp;
+  part += 4 * bp;
   if (b < b0) {
-    dual_block(a.first, cnt, b, b0, part, a.tickets + 1, sh, last);
+    dual_block(dual_lane(a.first, lane, a.out_lane), cnt, b, b0, part, tickets + 1, sh, last);
     return;
   }
   b -= b0;
   part += 3 * b0;
   if (b < b1) {
-    dual_block(a.second, cnt, b, b1, part, a.tickets + 2, sh, last);
+    dual_block(dual_lane(a.second, lane, a.out_lane), cnt, b, b1, part, tickets + 2, sh, last);
     return;
   }
   b -= b1;
   const AccRows<T> r = a.acc;
-  if (b == 0 && threadIdx.x == 0) *r.atn = R::add(*r.at, *r.t);
+  const int64_t o = lane * r.count;
+  if (b == 0 && threadIdx.x == 0) r.atn[lane] = R::add(r.at[lane], r.t[lane]);
   for (int64_t i = b * kStatThreads + threadIdx.x; i < r.count; i += ba * kStatThreads) {
-    r.aysn[i] = R::add(r.ays[i], r.ys[i]);
+    r.aysn[o + i] = R::add(r.ays[o + i], r.ys[o + i]);
   }
 }
 
@@ -422,27 +491,38 @@ unsigned grid_for(int64_t n) {
   return static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
+// The grid's y axis holds the lanes.
+constexpr int64_t kMaxLanes = 65535;
+
+bool lanes_ok(int64_t lanes) { return lanes >= 1 && lanes <= kMaxLanes; }
+
 template <typename T>
 int primal_update_impl(int device, const T* x, const T* gx, const T* c, const T* w,
                        const T* target, const T* lo, const T* hi, const T* tau,
-                       int64_t tau_stride, int64_t n, T* x1, T* xe, cudaStream_t stream) {
+                       int64_t tau_stride, int64_t tau_lane, int64_t n, int64_t lanes, T* x1,
+                       T* xe, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    primal_update_kernel<T><<<grid_for(n), kThreads, 0, stream>>>(x, gx, c, w, target, lo, hi,
-                                                                 tau, tau_stride, n, x1, xe);
+    const dim3 grid(grid_for(n), static_cast<unsigned>(lanes));
+    primal_update_kernel<T><<<grid, kThreads, 0, stream>>>(x, gx, c, w, target, lo, hi, tau,
+                                                          tau_stride, tau_lane, n, x1, xe);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dual_prox_impl(int device, const T* y, const T* a, const T* sigma, int64_t sigma_stride,
-                   const T* lo, const T* hi, int64_t n, T* out, cudaStream_t stream) {
+                   int64_t sigma_lane, const T* lo, const T* hi, int64_t n, int64_t lanes, T* out,
+                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    dual_prox_kernel<T><<<grid_for(n), kThreads, 0, stream>>>(y, a, sigma, sigma_stride, lo, hi,
-                                                             n, out);
+    const dim3 grid(grid_for(n), static_cast<unsigned>(lanes));
+    dual_prox_kernel<T><<<grid, kThreads, 0, stream>>>(y, a, sigma, sigma_stride, sigma_lane, lo,
+                                                      hi, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -450,16 +530,18 @@ int dual_prox_impl(int device, const T* y, const T* a, const T* sigma, int64_t s
 int64_t blocks_of(int64_t rows) { return (rows + kThreads - 1) / kThreads; }
 
 template <typename T>
-int dual_update_impl(int device, const DualUpdateArgs<T>& args, cudaStream_t stream) {
+int dual_update_impl(int device, const DualUpdateArgs<T>& args, int64_t lanes,
+                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tree_blocks = blocks_of(args.tree.count);
   const int64_t sla_blocks = blocks_of(args.sla.count);
   const int64_t blocks = tree_blocks + sla_blocks + blocks_of(args.imp.count);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks > 0) {
-    dual_update_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        args, tree_blocks, sla_blocks);
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes));
+    dual_update_kernel<T><<<grid, kThreads, 0, stream>>>(args, tree_blocks, sla_blocks);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -473,18 +555,19 @@ constexpr int kPrimal = 1, kFirst = 2, kSecond = 4, kAcc = 8;
 
 template <typename T>
 int chunk_stats_impl(int device, const ChunkStatsArgs<T>& args, double cnt, int blocks,
-                     cudaStream_t stream) {
+                     int64_t lanes, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks <= 0 || blocks > (kPrimal | kFirst | kSecond | kAcc)) {
+  if (blocks <= 0 || blocks > (kPrimal | kFirst | kSecond | kAcc) || !lanes_ok(lanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t bp = blocks & kPrimal ? stats_blocks(args.primal.count) : 0;
   const int64_t b0 = blocks & kFirst ? stats_blocks(args.first.count) : 0;
   const int64_t b1 = blocks & kSecond ? stats_blocks(args.second.count) : 0;
   const int64_t ba = blocks & kAcc ? stats_blocks(args.acc.count) : 0;
-  chunk_stats_kernel<T><<<static_cast<unsigned>(bp + b0 + b1 + ba), kStatThreads, 0, stream>>>(
-      args, static_cast<T>(cnt), bp, b0, b1, ba);
+  const dim3 grid(static_cast<unsigned>(bp + b0 + b1 + ba), static_cast<unsigned>(lanes));
+  chunk_stats_kernel<T><<<grid, kStatThreads, 0, stream>>>(args, static_cast<T>(cnt), bp, b0, b1,
+                                                           ba);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,44 +575,47 @@ int chunk_stats_impl(int device, const ChunkStatsArgs<T>& args, double cnt, int 
 
 extern "C" {
 
+// Each takes `lanes` lanes of its vectors ([lanes, n]); a step size at
+// lane * tau_lane (sigma_lane) and i * tau_stride (sigma_stride).
 int primal_update_f64(int device, const double* x, const double* gx, const double* c,
                       const double* w, const double* target, const double* lo, const double* hi,
-                      const double* tau, int64_t tau_stride, int64_t n, double* x1, double* xe,
-                      void* stream) {
-  return primal_update_impl<double>(device, x, gx, c, w, target, lo, hi, tau, tau_stride, n, x1,
-                                    xe, static_cast<cudaStream_t>(stream));
+                      const double* tau, int64_t tau_stride, int64_t tau_lane, int64_t n,
+                      int64_t lanes, double* x1, double* xe, void* stream) {
+  return primal_update_impl<double>(device, x, gx, c, w, target, lo, hi, tau, tau_stride,
+                                    tau_lane, n, lanes, x1, xe,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 int primal_update_f32(int device, const float* x, const float* gx, const float* c,
                       const float* w, const float* target, const float* lo, const float* hi,
-                      const float* tau, int64_t tau_stride, int64_t n, float* x1, float* xe,
-                      void* stream) {
-  return primal_update_impl<float>(device, x, gx, c, w, target, lo, hi, tau, tau_stride, n, x1,
-                                   xe, static_cast<cudaStream_t>(stream));
+                      const float* tau, int64_t tau_stride, int64_t tau_lane, int64_t n,
+                      int64_t lanes, float* x1, float* xe, void* stream) {
+  return primal_update_impl<float>(device, x, gx, c, w, target, lo, hi, tau, tau_stride,
+                                   tau_lane, n, lanes, x1, xe, static_cast<cudaStream_t>(stream));
 }
 
 int dual_prox_f64(int device, const double* y, const double* a, const double* sigma,
-                  int64_t sigma_stride, const double* lo, const double* hi, int64_t n,
-                  double* out, void* stream) {
-  return dual_prox_impl<double>(device, y, a, sigma, sigma_stride, lo, hi, n, out,
-                                static_cast<cudaStream_t>(stream));
+                  int64_t sigma_stride, int64_t sigma_lane, const double* lo, const double* hi,
+                  int64_t n, int64_t lanes, double* out, void* stream) {
+  return dual_prox_impl<double>(device, y, a, sigma, sigma_stride, sigma_lane, lo, hi, n, lanes,
+                                out, static_cast<cudaStream_t>(stream));
 }
 
 int dual_prox_f32(int device, const float* y, const float* a, const float* sigma,
-                  int64_t sigma_stride, const float* lo, const float* hi, int64_t n, float* out,
-                  void* stream) {
-  return dual_prox_impl<float>(device, y, a, sigma, sigma_stride, lo, hi, n, out,
-                               static_cast<cudaStream_t>(stream));
+                  int64_t sigma_stride, int64_t sigma_lane, const float* lo, const float* hi,
+                  int64_t n, int64_t lanes, float* out, void* stream) {
+  return dual_prox_impl<float>(device, y, a, sigma, sigma_stride, sigma_lane, lo, hi, n, lanes,
+                               out, static_cast<cudaStream_t>(stream));
 }
 
 // The fused dual step: (y_tree, y_sla, y_imp) -> their outputs, see
-// DualUpdateArgs; the structure is passed by value.
-int dual_update_f64(int device, DualUpdateArgs<double> args, void* stream) {
-  return dual_update_impl<double>(device, args, static_cast<cudaStream_t>(stream));
+// DualUpdateArgs, for each lane; the structure is passed by value.
+int dual_update_f64(int device, DualUpdateArgs<double> args, int64_t lanes, void* stream) {
+  return dual_update_impl<double>(device, args, lanes, static_cast<cudaStream_t>(stream));
 }
 
-int dual_update_f32(int device, DualUpdateArgs<float> args, void* stream) {
-  return dual_update_impl<float>(device, args, static_cast<cudaStream_t>(stream));
+int dual_update_f32(int device, DualUpdateArgs<float> args, int64_t lanes, void* stream) {
+  return dual_update_impl<float>(device, args, lanes, static_cast<cudaStream_t>(stream));
 }
 
 // The chunk statistics of the blocks in the `blocks` mask (1: primal, 2:
@@ -539,17 +625,20 @@ int dual_update_f32(int device, DualUpdateArgs<float> args, void* stream) {
 //            sum ((ax + x)/cnt - rx)^2])
 //   dual:   (ay + y, [sum (y - ry)^2, sum ((ay + y)/cnt - ry)^2, sum ry^2])
 //   accumulators: at + t, ays + ys
-// `part` holds chunk_stats_blocks(count) rows of 4 for the primal block
-// and of 3 for each dual block it takes, `tickets` three zeroed counters,
-// left at zero.  The structure is passed by value.
+// `part` holds, per lane, chunk_stats_blocks(count) rows of 4 for the
+// primal block and of 3 for each dual block it takes, `tickets` three
+// zeroed counters per lane, left at zero.  The structure is passed by
+// value.
 int chunk_stats_f64(int device, ChunkStatsArgs<double> args, double cnt, int blocks,
-                    void* stream) {
-  return chunk_stats_impl<double>(device, args, cnt, blocks, static_cast<cudaStream_t>(stream));
+                    int64_t lanes, void* stream) {
+  return chunk_stats_impl<double>(device, args, cnt, blocks, lanes,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 int chunk_stats_f32(int device, ChunkStatsArgs<float> args, double cnt, int blocks,
-                    void* stream) {
-  return chunk_stats_impl<float>(device, args, cnt, blocks, static_cast<cudaStream_t>(stream));
+                    int64_t lanes, void* stream) {
+  return chunk_stats_impl<float>(device, args, cnt, blocks, lanes,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // Threads in the largest grid a launch uses: a longer vector makes the

@@ -100,6 +100,18 @@
 // loads are in flight with it.  Bound: bytes (0.52 us in float64 at the
 // paper's tenant fleet); what the fusion saves is two launches per
 // iteration and the gx round trip through memory.
+//
+// Lanes.  Every kernel here also takes K problems over one topology in one
+// launch (the allocator's K-scenario path): lane L's vectors follow lane
+// L-1's, contiguous [K, size], and the lane is a grid axis (blockIdx.y; the
+// cooperative tree_matvec strides over lanes x tiles and lanes x rows), so
+// the launches per PDHG iteration do not grow with K.  Each lane runs the
+// one-lane arithmetic in the one-lane order on its own pointers, so a lane's
+// bits are those of a launch on that lane alone.  The index arrays (row
+// ranges, CSR lists) are read through a lane stride of their own, 0 when
+// the lanes share one topology; a stacked fleet of K domains can pass K
+// indexes laid end to end.  The cluster path's clusters are one lane each,
+// grid (tiles, K).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -116,6 +128,10 @@ namespace cg = cooperative_groups;
 // its arguments by value, so these types live outside the anonymous
 // namespace: a parameter type local to this file would give the exported
 // functions internal linkage.
+//
+// With lanes, lane L reads y_tree and d_tree at L*m, y_sla and d_sla at L*k,
+// y_imp, d_imp and sm at L*n, and the two CSR indexes through their own lane
+// strides (0: one topology for every lane).
 template <typename T>
 struct ScaledAdjoint {
   const T* y_tree;
@@ -131,11 +147,17 @@ struct ScaledAdjoint {
   const T* sm;
   int64_t k;
   int64_t n;
+  int64_t m;
+  int64_t cover_ptr_lane;
+  int64_t cover_rows_lane;
+  int64_t dev_ptr_lane;
+  int64_t dev_ten_lane;
 };
 
 // primal_step's arguments: the adjoint's, the primal iterate, the primal
-// prox's data (c, w, target, lo, hi), the step size (a stride of 1 or 0)
-// and the four outputs (_build.PrimalStepArgs).
+// prox's data (c, w, target, lo, hi), the step size (a stride of 1 or 0
+// within a lane, tau_lane between lanes) and the four outputs
+// (_build.PrimalStepArgs); lane L's vectors at L*n.
 template <typename T>
 struct PrimalStepArgs {
   ScaledAdjoint<T> adj;
@@ -147,6 +169,7 @@ struct PrimalStepArgs {
   const T* hi;
   const T* tau;
   int64_t tau_stride;
+  int64_t tau_lane;
   T* x1;
   T* xe;
   T* xm;
@@ -253,27 +276,40 @@ __device__ __forceinline__ T prefix_at(const T* local, const T* offsets, int64_t
   return local[p - 1] + offsets[(p - 1) / kTile];
 }
 
-// out[j] = csum[end_j] - csum[start_j], all in one cooperative launch.
-// `local`, `totals` and `offsets` are written and read back within the
+// out[j] = csum[end_j] - csum[start_j], all in one cooperative launch, for
+// each of `lanes` lanes: the blocks stride over the lanes' tiles, then over
+// the lanes' totals (a block per lane), then over the lanes' rows, so any
+// number of lanes fits the resident grid.  `local`, `totals` and `offsets`
+// (lanes x n, lanes x nb, lanes x nb) are written and read back within the
 // launch, so they are read through the coherent path (no __restrict__).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tree_matvec_kernel(const T* __restrict__ x, int64_t n, const int32_t* __restrict__ start,
-                       const int32_t* __restrict__ end, int64_t m, T* local, T* totals,
-                       T* offsets, T* __restrict__ out) {
+                       const int32_t* __restrict__ end, int64_t m, int64_t row_lane,
+                       int64_t lanes, T* local, T* totals, T* offsets, T* __restrict__ out) {
   __shared__ T sums[kWarps + 1];
   cg::grid_group grid = cg::this_grid();
   const int64_t nb = (n + kTile - 1) / kTile;
-  for (int64_t b = blockIdx.x; b < nb; b += gridDim.x) {
-    const T total = scan_tile(x, n, b, local, 0, sums);
-    if (threadIdx.x == 0) totals[b] = total;
+  for (int64_t w = blockIdx.x; w < lanes * nb; w += gridDim.x) {
+    const int64_t lane = w / nb;
+    const int64_t b = w - lane * nb;
+    const T total = scan_tile(x + lane * n, n, b, local + lane * n, 0, sums);
+    if (threadIdx.x == 0) totals[lane * nb + b] = total;
   }
   grid.sync();
-  if (blockIdx.x == 0) scan_totals(totals, nb, offsets, sums);
+  for (int64_t lane = blockIdx.x; lane < lanes; lane += gridDim.x) {
+    scan_totals(totals + lane * nb, nb, offsets + lane * nb, sums);
+  }
   grid.sync();
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; j < m; j += step) {
-    out[j] = prefix_at(local, offsets, end[j]) - prefix_at(local, offsets, start[j]);
+  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; w < lanes * m;
+       w += step) {
+    const int64_t lane = w / m;
+    const int64_t j = w - lane * m;
+    const T* lp = local + lane * n;
+    const T* lo = offsets + lane * nb;
+    out[w] = prefix_at(lp, lo, end[lane * row_lane + j]) -
+             prefix_at(lp, lo, start[lane * row_lane + j]);
   }
 }
 
@@ -283,7 +319,14 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tree_matvec_cluster(const T* __restrict__ x, int64_t n, const int32_t* __restrict__ start,
-                        const int32_t* __restrict__ end, int64_t m, T* __restrict__ out) {
+                        const int32_t* __restrict__ end, int64_t m, int64_t row_lane,
+                        T* __restrict__ out) {
+  // a cluster per lane (blockIdx.y), its blocks the lane's tiles
+  const int64_t lane = blockIdx.y;
+  x += lane * n;
+  out += lane * m;
+  start += lane * row_lane;
+  end += lane * row_lane;
   __shared__ T local[kTile];
   __shared__ T sums[kWarps + 1];
   __shared__ T tile_total;
@@ -322,12 +365,26 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 __device__ __forceinline__ T add_rn(T a, T b) { return rn::Rn<T>::add(a, b); }
 
+// CSR lists through lane strides of their own.  A lane is blockIdx.y; its
+// values are at lane * v_lane, its outputs at lane * nseg.
+struct Lists {
+  const int32_t* ptr;
+  const int32_t* idx;
+  int64_t ptr_lane;
+  int64_t idx_lane;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-    segment_sums(const T* __restrict__ v, const int32_t* __restrict__ ptr,
-                 const int32_t* __restrict__ idx, int64_t nseg, T* __restrict__ out) {
+    segment_sums(const T* __restrict__ v, int64_t v_lane, Lists lists, int64_t nseg,
+                 T* __restrict__ out) {
+  const int64_t lane = blockIdx.y;
   const int64_t s = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
   if (s >= nseg) return;
+  v += lane * v_lane;
+  out += lane * nseg;
+  const int32_t* __restrict__ ptr = lists.ptr + lane * lists.ptr_lane;
+  const int32_t* __restrict__ idx = lists.idx + lane * lists.idx_lane;
   T acc = T(0);
   const int32_t stop = ptr[s + 1];
   for (int32_t e = ptr[s]; e < stop; ++e) acc = add_rn(acc, v[idx[e]]);
@@ -411,21 +468,40 @@ __device__ __forceinline__ T scaled_adjoint_at(
   return mul_rn(scale, add_rn(g, v));
 }
 
+// The inputs of lane `lane` (see ScaledAdjoint).
+template <typename T>
+__device__ __forceinline__ ScaledAdjoint<T> adjoint_lane(ScaledAdjoint<T> p, int64_t lane) {
+  p.y_tree += lane * p.m;
+  p.d_tree += lane * p.m;
+  p.cover_ptr += lane * p.cover_ptr_lane;
+  p.cover_rows += lane * p.cover_rows_lane;
+  p.y_sla += lane * p.k;
+  p.d_sla += lane * p.k;
+  p.dev_ptr += lane * p.dev_ptr_lane;
+  p.dev_ten += lane * p.dev_ten_lane;
+  p.y_imp += lane * p.n;
+  p.d_imp += lane * p.n;
+  p.sm += lane * p.n;
+  return p;
+}
+
 // scaled_adjoint_at's arguments from a ScaledAdjoint p, and device i
 #define SCALED_ADJOINT_ARGS(p, i)                                                      \
   (p).y_tree, (p).d_tree, (p).cover_ptr, (p).cover_rows, (p).y_sla, (p).d_sla, (p).dev_ptr, \
       (p).dev_ten, (p).y_imp, (p).d_imp, (p).sm, (p).k, (i)
 
-// One thread per device: (gx, yi) of the scaled adjoint.
+// One thread per device of lane blockIdx.y: (gx, yi) of the scaled adjoint.
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
     scaled_rmatvec_kernel(ScaledAdjoint<T> p, T* __restrict__ gx, T* __restrict__ yi) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
   if (i >= p.n) return;
+  const int64_t lane = blockIdx.y;
+  p = adjoint_lane(p, lane);
   T v, scale;
   const T g = scaled_adjoint_at(SCALED_ADJOINT_ARGS(p, i), v, scale);
-  yi[i] = v;
-  gx[i] = g;
+  yi[lane * p.n + i] = v;
+  gx[lane * p.n + i] = g;
 }
 
 // One thread per device: the scaled adjoint, then the primal prox,
@@ -433,36 +509,46 @@ __global__ void __launch_bounds__(kRowThreads)
 // register.
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads) primal_step_kernel(PrimalStepArgs<T> p) {
+  const int64_t n = p.adj.n;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
-  if (i >= p.adj.n) return;
-  const T x = p.x[i];
-  const T c = p.c[i];
-  const T w = p.w[i];
-  const T target = p.target[i];
-  const T lo = p.lo[i];
-  const T hi = p.hi[i];
-  const T tau = p.tau[i * p.tau_stride];
+  if (i >= n) return;
+  const int64_t lane = blockIdx.y;
+  const int64_t li = lane * n + i;  // device i of this lane
+  const T x = p.x[li];
+  const T c = p.c[li];
+  const T w = p.w[li];
+  const T target = p.target[li];
+  const T lo = p.lo[li];
+  const T hi = p.hi[li];
+  const T tau = p.tau[lane * p.tau_lane + i * p.tau_stride];
+  const ScaledAdjoint<T> adj = adjoint_lane(p.adj, lane);
   T v, scale;
-  const T g = scaled_adjoint_at(SCALED_ADJOINT_ARGS(p.adj, i), v, scale);
+  const T g = scaled_adjoint_at(SCALED_ADJOINT_ARGS(adj, i), v, scale);
   T x1, xe;
   rn::primal_prox(x, g, c, w, target, lo, hi, tau, x1, xe);
-  p.yi[i] = v;
-  p.x1[i] = x1;
-  p.xe[i] = xe;
-  p.xm[i] = mul_rn(scale, xe);
+  p.yi[li] = v;
+  p.x1[li] = x1;
+  p.xe[li] = xe;
+  p.xm[li] = mul_rn(scale, xe);
 }
 
 // The same sums, a warp per list: the lanes gather kSlaChunk values of the
 // list at a time, lane 0 adds them in list order.
 template <typename T>
 __global__ void __launch_bounds__(kSlaWarps * 32)
-    gather_sums(const T* __restrict__ v, const int32_t* __restrict__ ptr,
-                const int32_t* __restrict__ idx, int64_t nseg, T* __restrict__ out) {
+    gather_sums(const T* __restrict__ v, int64_t v_lane, Lists lists, int64_t nseg,
+                T* __restrict__ out) {
   __shared__ T staged[kSlaWarps][kSlaChunk];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t s = static_cast<int64_t>(blockIdx.x) * kSlaWarps + warp;
   if (s >= nseg) return;  // the whole warp leaves together
+  // the problem lane (blockIdx.y), not the warp lane above
+  const int64_t plane = blockIdx.y;
+  v += plane * v_lane;
+  out += plane * nseg;
+  const int32_t* __restrict__ ptr = lists.ptr + plane * lists.ptr_lane;
+  const int32_t* __restrict__ idx = lists.idx + plane * lists.idx_lane;
   const int64_t begin = ptr[s];
   const int64_t stop = ptr[s + 1];
   T* buf = staged[warp];
@@ -494,50 +580,64 @@ __global__ void __launch_bounds__(kSlaWarps * 32)
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// The grid of a launch over `lanes` lanes (blockIdx.y), or an error for a
+// count the grid's y axis cannot hold.
+constexpr int64_t kMaxLanes = 65535;
+
+bool lanes_ok(int64_t lanes) { return lanes >= 1 && lanes <= kMaxLanes; }
+
 template <typename T>
-int segment_sums_impl(int device, const T* v, const int32_t* ptr, const int32_t* idx,
-                      int64_t nseg, T* out, cudaStream_t stream) {
+int segment_sums_impl(int device, const T* v, int64_t v_lane, Lists lists, int64_t nseg,
+                      int64_t lanes, T* out, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   if (nseg > 0) {
-    segment_sums<T><<<static_cast<unsigned>(ceil_div(nseg, kRowThreads)), kRowThreads, 0, stream>>>(
-        v, ptr, idx, nseg, out);
+    const dim3 grid(static_cast<unsigned>(ceil_div(nseg, kRowThreads)),
+                    static_cast<unsigned>(lanes));
+    segment_sums<T><<<grid, kRowThreads, 0, stream>>>(v, v_lane, lists, nseg, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int gather_sums_impl(int device, const T* v, const int32_t* ptr, const int32_t* idx,
-                     int64_t nseg, T* out, cudaStream_t stream) {
+int gather_sums_impl(int device, const T* v, int64_t v_lane, Lists lists, int64_t nseg,
+                     int64_t lanes, T* out, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   if (nseg > 0) {
-    gather_sums<T><<<static_cast<unsigned>(ceil_div(nseg, kSlaWarps)), kSlaWarps * 32, 0, stream>>>(
-        v, ptr, idx, nseg, out);
+    const dim3 grid(static_cast<unsigned>(ceil_div(nseg, kSlaWarps)),
+                    static_cast<unsigned>(lanes));
+    gather_sums<T><<<grid, kSlaWarps * 32, 0, stream>>>(v, v_lane, lists, nseg, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int scaled_rmatvec_impl(int device, const ScaledAdjoint<T>& p, T* gx, T* yi,
+int scaled_rmatvec_impl(int device, const ScaledAdjoint<T>& p, int64_t lanes, T* gx, T* yi,
                         cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   if (p.n > 0) {
-    scaled_rmatvec_kernel<T>
-        <<<static_cast<unsigned>(ceil_div(p.n, kRowThreads)), kRowThreads, 0, stream>>>(p, gx,
-                                                                                        yi);
+    const dim3 grid(static_cast<unsigned>(ceil_div(p.n, kRowThreads)),
+                    static_cast<unsigned>(lanes));
+    scaled_rmatvec_kernel<T><<<grid, kRowThreads, 0, stream>>>(p, gx, yi);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int primal_step_impl(int device, const PrimalStepArgs<T>& p, cudaStream_t stream) {
+int primal_step_impl(int device, const PrimalStepArgs<T>& p, int64_t lanes,
+                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   if (p.adj.n > 0) {
-    primal_step_kernel<T>
-        <<<static_cast<unsigned>(ceil_div(p.adj.n, kRowThreads)), kRowThreads, 0, stream>>>(p);
+    const dim3 grid(static_cast<unsigned>(ceil_div(p.adj.n, kRowThreads)),
+                    static_cast<unsigned>(lanes));
+    primal_step_kernel<T><<<grid, kRowThreads, 0, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -575,12 +675,15 @@ cudaError_t allow_large_clusters(int device) {
   return err;
 }
 
-// scratch (the cooperative path's): n tile prefixes, nb totals, nb offsets.
+// scratch (the cooperative path's): per lane n tile prefixes, then per lane
+// nb totals, then per lane nb offsets.
 template <typename T>
 int tree_matvec_impl(int device, const T* x, const int32_t* start, const int32_t* end,
-                     T* scratch, T* out, int64_t n, int64_t m, cudaStream_t stream) {
+                     T* scratch, T* out, int64_t n, int64_t m, int64_t row_lane, int64_t lanes,
+                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!lanes_ok(lanes)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t nb = ceil_div(n, kTile);
   if (nb <= kClusterTiles) {
     const unsigned blocks = nb > 1 ? static_cast<unsigned>(nb) : 1u;
@@ -594,26 +697,28 @@ int tree_matvec_impl(int device, const T* x, const int32_t* start, const int32_t
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(blocks);
+    config.gridDim = dim3(blocks, static_cast<unsigned>(lanes));
     config.blockDim = dim3(kThreads);
     config.dynamicSmemBytes = 0;
     config.stream = stream;
     config.attrs = attr;
     config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, tree_matvec_cluster<T>, x, n, start, end, m, out);
+    err = cudaLaunchKernelEx(&config, tree_matvec_cluster<T>, x, n, start, end, m, row_lane,
+                             out);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
   }
   int resident = 0;
   err = resident_blocks<T>(device, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t grid = nb > ceil_div(m, kThreads) ? nb : ceil_div(m, kThreads);
+  const int64_t rows = ceil_div(lanes * m, kThreads);
+  int64_t grid = lanes * nb > rows ? lanes * nb : rows;
   if (grid > resident) grid = resident;
   if (grid < 1) grid = 1;
   T* local = scratch;
-  T* totals = scratch + n;
-  T* offsets = totals + nb;
-  void* args[] = {&x, &n, &start, &end, &m, &local, &totals, &offsets, &out};
+  T* totals = scratch + lanes * n;
+  T* offsets = totals + lanes * nb;
+  void* args[] = {&x, &n, &start, &end, &m, &row_lane, &lanes, &local, &totals, &offsets, &out};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(tree_matvec_kernel<T>),
                                     dim3(static_cast<unsigned>(grid)), dim3(kThreads), args,
                                     0, stream);
@@ -631,78 +736,81 @@ int tree_scan_tile() { return kTile; }
 // Tiles whose blocks form one cluster; past it the launch is cooperative.
 int tree_cluster_tiles() { return kClusterTiles; }
 
-// out[j] = sum x[start_j:end_j]; scratch holds n + 2 * ceil(n / tile) values.
+// out[j] = sum x[start_j:end_j] for each of `lanes` lanes (x [lanes, n], out
+// [lanes, m]; the row ranges read at lane * row_lane); scratch holds
+// lanes * (n + 2 * ceil(n / tile)) values.
 int tree_matvec_f64(int device, const double* x, const int32_t* start, const int32_t* end,
-                    double* scratch, double* out, int64_t n, int64_t m, void* stream) {
-  return tree_matvec_impl<double>(device, x, start, end, scratch, out, n, m,
+                    double* scratch, double* out, int64_t n, int64_t m, int64_t row_lane,
+                    int64_t lanes, void* stream) {
+  return tree_matvec_impl<double>(device, x, start, end, scratch, out, n, m, row_lane, lanes,
                                   static_cast<cudaStream_t>(stream));
 }
 
 int tree_matvec_f32(int device, const float* x, const int32_t* start, const int32_t* end,
-                    float* scratch, float* out, int64_t n, int64_t m, void* stream) {
-  return tree_matvec_impl<float>(device, x, start, end, scratch, out, n, m,
+                    float* scratch, float* out, int64_t n, int64_t m, int64_t row_lane,
+                    int64_t lanes, void* stream) {
+  return tree_matvec_impl<float>(device, x, start, end, scratch, out, n, m, row_lane, lanes,
                                  static_cast<cudaStream_t>(stream));
 }
 
 // Segmented sums, a thread per list: out[s] = sum of v[idx[e]] over the CSR
-// list of segment s.  tree_rmatvec passes (y, position lists of covering
-// rows, n); sla_rmatvec (y, device lists of tenant ids, n).
-int segment_sums_f64(int device, const double* v, const int32_t* ptr, const int32_t* idx,
-                     int64_t nseg, double* out, void* stream) {
-  return segment_sums_impl<double>(device, v, ptr, idx, nseg, out,
-                                   static_cast<cudaStream_t>(stream));
+// list of segment s, for each lane (v at lane * v_lane, out [lanes, nseg],
+// the lists at lane * ptr_lane and lane * idx_lane).  tree_rmatvec passes
+// (y, position lists of covering rows, n); sla_rmatvec (y, device lists of
+// tenant ids, n).
+int segment_sums_f64(int device, const double* v, int64_t v_lane, const int32_t* ptr,
+                     int64_t ptr_lane, const int32_t* idx, int64_t idx_lane, int64_t nseg,
+                     int64_t lanes, double* out, void* stream) {
+  return segment_sums_impl<double>(device, v, v_lane, Lists{ptr, idx, ptr_lane, idx_lane}, nseg,
+                                   lanes, out, static_cast<cudaStream_t>(stream));
 }
 
-int segment_sums_f32(int device, const float* v, const int32_t* ptr, const int32_t* idx,
-                     int64_t nseg, float* out, void* stream) {
-  return segment_sums_impl<float>(device, v, ptr, idx, nseg, out,
-                                  static_cast<cudaStream_t>(stream));
+int segment_sums_f32(int device, const float* v, int64_t v_lane, const int32_t* ptr,
+                     int64_t ptr_lane, const int32_t* idx, int64_t idx_lane, int64_t nseg,
+                     int64_t lanes, float* out, void* stream) {
+  return segment_sums_impl<float>(device, v, v_lane, Lists{ptr, idx, ptr_lane, idx_lane}, nseg,
+                                  lanes, out, static_cast<cudaStream_t>(stream));
 }
 
 // The scaled adjoint: (gx, yi) = (sm * (tree sums + tenant sums + yi),
-// d_imp * y_imp) over the covering-rows and device-tenant CSR lists; the
-// tenant lists are read only when k > 0.
-int scaled_rmatvec_f64(int device, const double* y_tree, const double* d_tree,
-                       const int32_t* cover_ptr, const int32_t* cover_rows, const double* y_sla,
-                       const double* d_sla, const int32_t* dev_ptr, const int32_t* dev_ten,
-                       const double* y_imp, const double* d_imp, const double* sm, int64_t k,
-                       int64_t n, double* gx, double* yi, void* stream) {
-  const ScaledAdjoint<double> p = {y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
-                                   dev_ptr, dev_ten, y_imp, d_imp, sm, k, n};
-  return scaled_rmatvec_impl<double>(device, p, gx, yi, static_cast<cudaStream_t>(stream));
+// d_imp * y_imp) over the covering-rows and device-tenant CSR lists, for
+// each lane (gx, yi [lanes, n]); the tenant lists are read only when k > 0.
+// The structure is passed by value.
+int scaled_rmatvec_f64(int device, ScaledAdjoint<double> p, int64_t lanes, double* gx,
+                       double* yi, void* stream) {
+  return scaled_rmatvec_impl<double>(device, p, lanes, gx, yi,
+                                     static_cast<cudaStream_t>(stream));
 }
 
-int scaled_rmatvec_f32(int device, const float* y_tree, const float* d_tree,
-                       const int32_t* cover_ptr, const int32_t* cover_rows, const float* y_sla,
-                       const float* d_sla, const int32_t* dev_ptr, const int32_t* dev_ten,
-                       const float* y_imp, const float* d_imp, const float* sm, int64_t k,
-                       int64_t n, float* gx, float* yi, void* stream) {
-  const ScaledAdjoint<float> p = {y_tree, d_tree, cover_ptr, cover_rows, y_sla, d_sla,
-                                  dev_ptr, dev_ten, y_imp, d_imp, sm, k, n};
-  return scaled_rmatvec_impl<float>(device, p, gx, yi, static_cast<cudaStream_t>(stream));
+int scaled_rmatvec_f32(int device, ScaledAdjoint<float> p, int64_t lanes, float* gx, float* yi,
+                       void* stream) {
+  return scaled_rmatvec_impl<float>(device, p, lanes, gx, yi, static_cast<cudaStream_t>(stream));
 }
 
 // The scaled adjoint with the primal update as its epilogue: (x1, xe, xm,
-// yi), see PrimalStepArgs; the structure is passed by value.
-int primal_step_f64(int device, PrimalStepArgs<double> args, void* stream) {
-  return primal_step_impl<double>(device, args, static_cast<cudaStream_t>(stream));
+// yi), see PrimalStepArgs, for each lane; the structure is passed by value.
+int primal_step_f64(int device, PrimalStepArgs<double> args, int64_t lanes, void* stream) {
+  return primal_step_impl<double>(device, args, lanes, static_cast<cudaStream_t>(stream));
 }
 
-int primal_step_f32(int device, PrimalStepArgs<float> args, void* stream) {
-  return primal_step_impl<float>(device, args, static_cast<cudaStream_t>(stream));
+int primal_step_f32(int device, PrimalStepArgs<float> args, int64_t lanes, void* stream) {
+  return primal_step_impl<float>(device, args, lanes, static_cast<cudaStream_t>(stream));
 }
 
 // The same sums, a warp per list: sla_matvec passes (x, tenant lists of
 // device ids, k).
-int sla_matvec_f64(int device, const double* x, const int32_t* ptr, const int32_t* idx,
-                   int64_t k, double* out, void* stream) {
-  return gather_sums_impl<double>(device, x, ptr, idx, k, out,
-                                  static_cast<cudaStream_t>(stream));
+int sla_matvec_f64(int device, const double* x, int64_t v_lane, const int32_t* ptr,
+                   int64_t ptr_lane, const int32_t* idx, int64_t idx_lane, int64_t k,
+                   int64_t lanes, double* out, void* stream) {
+  return gather_sums_impl<double>(device, x, v_lane, Lists{ptr, idx, ptr_lane, idx_lane}, k,
+                                  lanes, out, static_cast<cudaStream_t>(stream));
 }
 
-int sla_matvec_f32(int device, const float* x, const int32_t* ptr, const int32_t* idx,
-                   int64_t k, float* out, void* stream) {
-  return gather_sums_impl<float>(device, x, ptr, idx, k, out, static_cast<cudaStream_t>(stream));
+int sla_matvec_f32(int device, const float* x, int64_t v_lane, const int32_t* ptr,
+                   int64_t ptr_lane, const int32_t* idx, int64_t idx_lane, int64_t k,
+                   int64_t lanes, float* out, void* stream) {
+  return gather_sums_impl<float>(device, x, v_lane, Lists{ptr, idx, ptr_lane, idx_lane}, k,
+                                 lanes, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,10 +1,13 @@
 """Plain PyTorch versions of the fused PDHG update kernels: the CPU path of
-:mod:`.ops` and the oracle the CUDA kernels are held against."""
+:mod:`.ops` and the oracle the CUDA kernels are held against.  Each takes
+``[..., n]``: a vector, or ``[K, n]`` for K lanes, whose per-lane scalars
+(step sizes, ``t``, the chunk statistics) are ``[K, 1]`` columns."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -66,13 +69,24 @@ def dual_update_ref(tree: DualBlock, sla: DualBlock, imp: DualBlock, s_t, t_mov,
 
 def _max_abs(v):
     # the reference pads to whole blocks with zeros, so an empty vector's max is 0
-    return torch.max(torch.abs(v)) if v.shape[0] else v.new_zeros(())
+    if v.ndim == 1:
+        return torch.max(torch.abs(v)) if v.shape[0] else v.new_zeros(())
+    return torch.abs(v).amax(-1, keepdim=True) if v.shape[-1] else v.new_zeros(v.shape[0], 1)
+
+
+def _sum(v):
+    return torch.sum(v) if v.ndim == 1 else v.sum(-1, keepdim=True)
 
 
 def _true_div(v, cnt):
     # a 0-d tensor on v's device: torch's CUDA division by a host number
-    # multiplies by its reciprocal, the kernels and the reference divide
-    return v / v.new_full((), cnt)
+    # multiplies by its reciprocal, the kernels and the reference divide.
+    # With lanes ``cnt`` holds one count per lane.
+    if v.ndim == 1:
+        return v / v.new_full((), cnt)
+    if not isinstance(cnt, torch.Tensor):
+        cnt = torch.as_tensor(np.array(cnt, np.float64))
+    return v / cnt.to(v).reshape(-1, 1)
 
 
 def primal_chunk_stats_ref(x, px, rx, ax, cnt):
@@ -83,8 +97,8 @@ def primal_chunk_stats_ref(x, px, rx, ax, cnt):
         axn,
         _max_abs(x - px),
         _max_abs(x),
-        torch.sum((x - rx) ** 2),
-        torch.sum((_true_div(axn, cnt) - rx) ** 2),
+        _sum((x - rx) ** 2),
+        _sum((_true_div(axn, cnt) - rx) ** 2),
     )
 
 
@@ -94,9 +108,9 @@ def dual_chunk_stats_ref(y, ry, ay, cnt):
     ayn = ay + y
     return (
         ayn,
-        torch.sum((y - ry) ** 2),
-        torch.sum((_true_div(ayn, cnt) - ry) ** 2),
-        torch.sum(ry * ry),
+        _sum((y - ry) ** 2),
+        _sum((_true_div(ayn, cnt) - ry) ** 2),
+        _sum(ry * ry),
     )
 
 

@@ -16,6 +16,11 @@ same iteration as its epilogue, its fixed inputs checked once per solve
 output and scratch with ``torch.empty``, launches one kernel on the current stream,
 raises on a non-zero ``cudaGetLastError``, and counts its launches in
 :data:`LAUNCHES`.
+
+Every wrapper also takes K lanes of its vectors, ``[K, size]`` contiguous,
+over the one index it is given (the K-scenario path): one launch covers
+the K lanes, each lane's result the bits of a launch on that lane alone;
+such a launch is also counted in :data:`LANE_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.tree_matvec.ref import PrimalStepData
 
 __all__ = [
+    "LANE_LAUNCHES",
     "LAUNCHES",
     "PrimalStepPlan",
     "SlaIndex",
@@ -52,6 +58,11 @@ LAUNCHES = {
     "scaled_rmatvec": 0,
     "primal_step": 0,
 }
+# the launches above that took [K, size] lanes
+LANE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+
+# the grid's y axis holds the lanes (csrc/tree_matvec.cu)
+MAX_LANES = 65_535
 
 
 class TreeIndex(NamedTuple):
@@ -168,15 +179,32 @@ def sla_index(dev, ten, k: int, n: int, device) -> SlaIndex:
     )
 
 
-def _check_vec(name: str, v: torch.Tensor, size: int) -> None:
+def _check_vec(name: str, v: torch.Tensor, size: int, lead: tuple = ()) -> None:
+    """``v`` a contiguous float CUDA tensor of shape ``lead + (size,)``:
+    ``lead`` is ``()`` for one vector, ``(K,)`` for K lanes."""
     if v.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {v.device}")
     if v.dtype not in (torch.float64, torch.float32):
         raise TypeError(f"{name} must be float64 or float32, got {v.dtype}")
-    if v.shape != (size,) or not v.is_contiguous():
+    if v.shape != tuple(lead) + (size,) or not v.is_contiguous():
         raise ValueError(
-            f"{name} must be contiguous of shape ({size},), got {tuple(v.shape)}"
+            f"{name} must be contiguous of shape {tuple(lead) + (size,)}, got {tuple(v.shape)}"
         )
+
+
+def _lead(v: torch.Tensor) -> tuple:
+    """``()`` for a vector, ``(K,)`` for K lanes of vectors."""
+    if v.ndim not in (1, 2):
+        raise ValueError(f"expected a vector or [K, size] lanes, got shape {tuple(v.shape)}")
+    if v.ndim == 2 and not 1 <= v.shape[0] <= MAX_LANES:
+        raise ValueError(f"{v.shape[0]} lanes: a launch takes 1 to {MAX_LANES}")
+    return tuple(v.shape[:-1])
+
+
+def _count(name: str, lead: tuple) -> None:
+    LAUNCHES[name] += 1
+    if lead:
+        LANE_LAUNCHES[name] += 1
 
 
 def _check_index(idx: TreeIndex, device: torch.device) -> None:
@@ -197,19 +225,21 @@ def _raise_on(err: int, name: str) -> None:
 
 def tree_matvec(x: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
     """out[j] = sum x[start_j:end_j]: one launch scans the tiles, waits for
-    all of them, and gathers the rows."""
+    all of them, and gathers the rows (for each lane of ``[K, n]`` lanes)."""
     n = idx.n
     m = idx.start.shape[0]
-    _check_vec("x", x, n)
+    lead = _lead(x)
+    lanes = lead[0] if lead else 1
+    _check_vec("x", x, n, lead)
     _check_index(idx, x.device)
-    out = torch.empty(m, dtype=x.dtype, device=x.device)
+    out = torch.empty(lead + (m,), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
     lib = _build.library()
     nb = (n + lib.tree_scan_tile() - 1) // lib.tree_scan_tile()
-    # the cooperative path's tile prefixes, totals and offsets; the cluster
-    # path keeps them on chip
-    size = n + 2 * nb if nb > lib.tree_cluster_tiles() else 0
+    # the cooperative path's tile prefixes, totals and offsets, per lane;
+    # the cluster path keeps them on chip
+    size = lanes * (n + 2 * nb) if nb > lib.tree_cluster_tiles() else 0
     scratch = torch.empty(size, dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"tree_matvec_{_suffix(x.dtype)}")
     err = fn(
@@ -221,10 +251,12 @@ def tree_matvec(x: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
         out.data_ptr(),
         n,
         m,
+        0,  # one topology for every lane
+        lanes,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(err, "tree_matvec")
-    LAUNCHES["tree_matvec"] += 1
+    _count("tree_matvec", lead)
     return out
 
 
@@ -232,7 +264,7 @@ def tree_rmatvec(y: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
     """Adjoint: out[i] = sum of y over the rows covering position i, in
     ascending row order: one segmented-sum launch over the covering-rows
     CSR."""
-    _check_vec("y", y, idx.start.shape[0])
+    _check_vec("y", y, idx.start.shape[0], _lead(y))
     _check_index(idx, y.device)
     return _segment_sums("tree_rmatvec", y, idx.cover_ptr, idx.cover_rows, idx.n)
 
@@ -246,45 +278,52 @@ def _check_sla_index(idx: SlaIndex, device: torch.device) -> None:
 
 def _segment_sums(name, v, ptr, ids, nseg, entry="segment_sums"):
     """Sums over CSR lists through ``entry``: ``segment_sums`` (a thread per
-    list) or ``sla_matvec`` (a warp per list)."""
-    out = torch.empty(nseg, dtype=v.dtype, device=v.device)
+    list) or ``sla_matvec`` (a warp per list); each lane of ``v`` over the
+    same lists."""
+    lead = tuple(v.shape[:-1])
+    out = torch.empty(lead + (nseg,), dtype=v.dtype, device=v.device)
     if ids.shape[0] == 0:
         return out.zero_()  # no edges: zeros without a launch
     fn = getattr(_build.library(), f"{entry}_{_suffix(v.dtype)}")
     err = fn(
         v.device.index,
         v.data_ptr(),
+        v.shape[-1],  # a lane's values
         ptr.data_ptr(),
+        0,  # one index for every lane
         ids.data_ptr(),
+        0,
         nseg,
+        lead[0] if lead else 1,
         out.data_ptr(),
         torch.cuda.current_stream(v.device).cuda_stream,
     )
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _count(name, lead)
     return out
 
 
 def sla_matvec(x: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
     """out[t] = sum of x over tenant t's devices, in edge order: a warp per
     tenant gathers, one lane adds."""
-    _check_vec("x", x, idx.n)
+    _check_vec("x", x, idx.n, _lead(x))
     _check_sla_index(idx, x.device)
     return _segment_sums("sla_matvec", x, idx.ten_ptr, idx.ten_dev, idx.k, entry="sla_matvec")
 
 
 def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
     """Adjoint: out[d] = sum of y over device d's tenants, in edge order."""
-    _check_vec("y", y, idx.k)
+    _check_vec("y", y, idx.k, _lead(y))
     _check_sla_index(idx, y.device)
     return _segment_sums("sla_rmatvec", y, idx.dev_ptr, idx.dev_ten, idx.n)
 
 
 def _check_like(like: torch.Tensor, named) -> None:
-    """Each (name, vector, size) of ``named`` contiguous of that size, of
-    ``like``'s float dtype and CUDA device."""
+    """Each (name, vector, size) of ``named`` contiguous of that size, with
+    ``like``'s lanes, float dtype and CUDA device."""
+    lead = _lead(like)
     for name, v, size in named:
-        _check_vec(name, v, size)
+        _check_vec(name, v, size, lead)
         if v.dtype != like.dtype or v.device != like.device:
             raise ValueError(f"{name} must be {like.dtype} on {like.device}")
 
@@ -310,31 +349,33 @@ def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: Tre
                         ("y_tree", y_tree, m), ("d_tree", d_tree, m),
                         ("y_sla", y_sla, k), ("d_sla", d_sla, k)))
     _check_indexes(tree_idx, sla_idx, y_imp.device)
+    lead = _lead(y_imp)
     gx = torch.empty_like(y_imp)
     yi = torch.empty_like(y_imp)
+    adj = _adjoint(y_tree, d_tree, y_sla, d_sla, y_imp, d_imp, sm, tree_idx, sla_idx)
     fn = getattr(_build.library(), f"scaled_rmatvec_{_suffix(y_imp.dtype)}")
-    err = fn(
-        y_imp.device.index,
-        y_tree.data_ptr(),
-        d_tree.data_ptr(),
-        tree_idx.cover_ptr.data_ptr(),
-        tree_idx.cover_rows.data_ptr(),
-        y_sla.data_ptr(),
-        d_sla.data_ptr(),
-        sla_idx.dev_ptr.data_ptr(),
-        sla_idx.dev_ten.data_ptr(),
-        y_imp.data_ptr(),
-        d_imp.data_ptr(),
-        sm.data_ptr(),
-        k,
-        n,
-        gx.data_ptr(),
-        yi.data_ptr(),
-        torch.cuda.current_stream(y_imp.device).cuda_stream,
-    )
+    err = fn(y_imp.device.index, adj, lead[0] if lead else 1, gx.data_ptr(), yi.data_ptr(),
+             torch.cuda.current_stream(y_imp.device).cuda_stream)
     _raise_on(err, "scaled_rmatvec")
-    LAUNCHES["scaled_rmatvec"] += 1
+    _count("scaled_rmatvec", lead)
     return gx, yi
+
+
+def _adjoint(y_tree, d_tree, y_sla, d_sla, y_imp, d_imp, sm, tree_idx, sla_idx):
+    """The ``ScaledAdjoint`` of these tensors (``None`` duals: a null
+    pointer, filled in per call), the indexes shared by every lane."""
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    return _build.ScaledAdjoint(
+        y_tree=ptr(y_tree), d_tree=ptr(d_tree), cover_ptr=tree_idx.cover_ptr.data_ptr(),
+        cover_rows=tree_idx.cover_rows.data_ptr(), y_sla=ptr(y_sla), d_sla=ptr(d_sla),
+        dev_ptr=sla_idx.dev_ptr.data_ptr(), dev_ten=sla_idx.dev_ten.data_ptr(),
+        y_imp=ptr(y_imp), d_imp=ptr(d_imp), sm=ptr(sm), k=sla_idx.k, n=tree_idx.n,
+        m=tree_idx.start.shape[0], cover_ptr_lane=0, cover_rows_lane=0, dev_ptr_lane=0,
+        dev_ten_lane=0,
+    )
 
 
 class PrimalStepPlan(NamedTuple):
@@ -357,12 +398,8 @@ def primal_step_plan(data: PrimalStepData) -> PrimalStepPlan:
         ("c", n), ("w", n), ("target", n), ("lo", n), ("hi", n), ("d_tree", m), ("d_sla", k),
         ("d_imp", n), ("sm", n))])
     _check_indexes(tree_idx, sla_idx, like.device)
-    adj = _build.ScaledAdjoint(
-        d_tree=data.d_tree.data_ptr(), cover_ptr=tree_idx.cover_ptr.data_ptr(),
-        cover_rows=tree_idx.cover_rows.data_ptr(), d_sla=data.d_sla.data_ptr(),
-        dev_ptr=sla_idx.dev_ptr.data_ptr(), dev_ten=sla_idx.dev_ten.data_ptr(),
-        d_imp=data.d_imp.data_ptr(), sm=data.sm.data_ptr(), k=k, n=n,
-    )
+    adj = _adjoint(None, data.d_tree, None, data.d_sla, None, data.d_imp, data.sm, tree_idx,
+                   sla_idx)
     fixed = _build.PrimalStepArgs(
         adj=adj, c=data.c.data_ptr(), w=data.w.data_ptr(), target=data.target.data_ptr(),
         lo=data.lo.data_ptr(), hi=data.hi.data_ptr(),
@@ -375,18 +412,25 @@ def primal_step(x, y_tree, y_sla, y_imp, tau, plan: PrimalStepPlan):
     """(x1, xe, xm, yi) of :func:`.ref.primal_step_ref`, bit for bit, in one
     launch: the scaled adjoint of (y_tree, y_sla, y_imp), then the primal
     prox and extrapolation of ``x`` with step ``tau`` (a [n] vector or a 0-d
-    tensor) and ``xm = sm * xe``.  Only the per-call inputs are checked; the
-    plan's were checked when it was made."""
+    tensor; with K lanes a ``[K, n]`` vector, a ``[K, 1]`` column or one 0-d
+    tensor for every lane) and ``xm = sm * xe``.  Only the per-call inputs
+    are checked; the plan's were checked when it was made."""
     if not isinstance(plan, PrimalStepPlan):
         raise TypeError("primal_step on a card takes a PrimalStepPlan (primal_step_plan)")
     like = plan.data.sm
-    n, m, k = plan.fixed.adj.n, plan.data.d_tree.shape[0], plan.fixed.adj.k
+    lead = tuple(like.shape[:-1])
+    n, m, k = plan.fixed.adj.n, plan.fixed.adj.m, plan.fixed.adj.k
     _check_like(like, (("x", x, n), ("y_tree", y_tree, m), ("y_sla", y_sla, k),
                        ("y_imp", y_imp, n)))
     if not isinstance(tau, torch.Tensor) or tau.dtype != like.dtype or tau.device != like.device:
         raise ValueError(f"tau must be a {like.dtype} tensor on {like.device}")
-    if tau.ndim:
-        _check_vec("tau", tau, n)
+    if tau.ndim == 0:
+        tau_stride = tau_lane = 0
+    elif lead and tau.shape == lead + (1,):
+        tau_stride, tau_lane = 0, 1
+    else:
+        _check_vec("tau", tau, n, lead)
+        tau_stride, tau_lane = 1, n
     x1, xe, xm, yi = (torch.empty_like(x) for _ in range(4))
     args = _build.PrimalStepArgs.from_buffer_copy(plan.fixed)
     args.adj.y_tree = y_tree.data_ptr()
@@ -394,9 +438,11 @@ def primal_step(x, y_tree, y_sla, y_imp, tau, plan: PrimalStepPlan):
     args.adj.y_imp = y_imp.data_ptr()
     args.x = x.data_ptr()
     args.tau = tau.data_ptr()
-    args.tau_stride = 1 if tau.ndim else 0
+    args.tau_stride = tau_stride
+    args.tau_lane = tau_lane
     args.x1, args.xe, args.xm, args.yi = (v.data_ptr() for v in (x1, xe, xm, yi))
-    err = plan.fn(x.device.index, args, torch.cuda.current_stream(x.device).cuda_stream)
+    err = plan.fn(x.device.index, args, lead[0] if lead else 1,
+                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "primal_step")
-    LAUNCHES["primal_step"] += 1
+    _count("primal_step", lead)
     return x1, xe, xm, yi

@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the tree and tenant matvec kernels: the CPU path of
-:mod:`.ops` and the oracle the CUDA kernels are held against."""
+:mod:`.ops` and the oracle the CUDA kernels are held against.  Each takes
+``[..., n]``: a vector, or ``[K, n]`` for K lanes over the same rows, each
+lane's row summed as the vector would be."""
 
 from __future__ import annotations
 
@@ -22,31 +24,32 @@ __all__ = [
 
 def tree_matvec_ref(x, start, end):
     """Subtree sums over DFS-contiguous ranges: out[j] = sum x[start_j:end_j]."""
-    csum = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device), torch.cumsum(x, 0)])
-    return csum[end] - csum[start]
+    zero = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    csum = torch.cat([zero, torch.cumsum(x, -1)], -1)
+    return csum[..., end] - csum[..., start]
 
 
 def tree_rmatvec_ref(y, start, end, n):
     """Adjoint: device i accumulates the duals of the rows covering it.
     Difference-array scatter (row order, as a sequential ``index_add_``)
     plus a prefix sum."""
-    diff = torch.zeros(n + 1, dtype=y.dtype, device=y.device)
-    diff.index_add_(0, start, y)
-    diff.index_add_(0, end, -y)
-    return torch.cumsum(diff, 0)[:n]
+    diff = torch.zeros(y.shape[:-1] + (n + 1,), dtype=y.dtype, device=y.device)
+    diff.index_add_(-1, start, y)
+    diff.index_add_(-1, end, -y)
+    return torch.cumsum(diff, -1)[..., :n]
 
 
 def sla_matvec_ref(x, dev, ten, k):
     """Per-tenant sums over the incidence edge list:
     out[t] = sum_{e: ten_e = t} x[dev_e], added in edge order."""
-    out = torch.zeros(k, dtype=x.dtype, device=x.device)
-    return out.index_add_(0, ten, x[dev])
+    out = torch.zeros(x.shape[:-1] + (k,), dtype=x.dtype, device=x.device)
+    return out.index_add_(-1, ten, x[..., dev])
 
 
 def sla_rmatvec_ref(y, dev, ten, n):
     """Adjoint: out[d] = sum_{e: dev_e = d} y[ten_e], added in edge order."""
-    out = torch.zeros(n, dtype=y.dtype, device=y.device)
-    return out.index_add_(0, dev, y[ten])
+    out = torch.zeros(y.shape[:-1] + (n,), dtype=y.dtype, device=y.device)
+    return out.index_add_(-1, dev, y[..., ten])
 
 
 def scaled_rmatvec_ref(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx, sla_idx):
@@ -92,7 +95,8 @@ def primal_step_ref(x, y_tree, y_sla, y_imp, tau, data: PrimalStepData):
     it in three launches: :func:`scaled_rmatvec_ref`, then the primal prox
     and extrapolation (``primal_update_ref``), then the column scaling of
     the two matvecs' input, ``xm = sm * xe``.  ``tau`` is a [n] vector or a
-    0-d tensor.  Returns ``(x1, xe, xm, yi)``."""
+    0-d tensor (with lanes, ``[K, n]`` or a ``[K, 1]`` column).  Returns
+    ``(x1, xe, xm, yi)``."""
     gx, yi = scaled_rmatvec_ref(y_tree, y_sla, y_imp, data.d_tree, data.d_sla, data.d_imp,
                                 data.sm, data.tree_idx, data.sla_idx)
     x1, xe = primal_update_ref(x, gx, data.c, data.w, data.target, data.lo, data.hi, tau)

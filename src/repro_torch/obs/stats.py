@@ -5,7 +5,8 @@ subclasses ``dict`` so consumers can index it (``stats["total_solves"]``,
 ``stats.get("skipped", False)``); the canonical *and* alias spellings are
 both present as keys, and canonical fields are additionally readable as
 attributes (``stats.solves``).  :meth:`StepStats.from_tensors` is the
-counterpart of the reference's ``from_jit`` for the one-scenario engine.
+counterpart of the reference's ``from_jit`` for the one-scenario engine,
+:meth:`StepStats.from_lanes` for K scenarios.
 """
 
 from __future__ import annotations
@@ -100,6 +101,29 @@ class StepStats(dict):
             kkt_res=float(host(stats["kkt_res"])),
             restarts=int(stats["restarts"]),
             kkt_hist=host(stats["kkt_hist"]),
+            **extras,
+        )
+
+    @classmethod
+    def from_lanes(cls, stats: dict, **extras: Any) -> "StepStats":
+        """Convert the stats dict of the K-lane program
+        (:func:`repro_torch.core.batched.optimize_batched`; counts and flags
+        numpy arrays of K entries, ``kkt_res`` a ``[K, 1]`` and ``kkt_hist`` a
+        ``[K, buckets]`` device tensor) to per-scenario host arrays, with
+        ``phase_iterations`` ``[K, 3]`` — the reference's ``from_jit``."""
+        pi = np.stack([np.asarray(stats[f"iterations_p{i}"]) for i in (1, 2, 3)], axis=-1)
+        return cls.build(
+            solves=np.asarray(stats["solves"]),
+            iterations=np.asarray(stats["iterations"]),
+            phase_iterations=pi,
+            converged=np.asarray(stats["converged"]),
+            skipped=np.asarray(stats["skipped"]),
+            certify_pass=np.asarray(stats["certify_pass"]),
+            kkt_certified=np.asarray(stats["kkt_certified"]),
+            truncated=np.asarray(stats["truncated"]),
+            kkt_res=stats["kkt_res"].reshape(-1).cpu().numpy(),
+            restarts=np.asarray(stats["restarts"]),
+            kkt_hist=stats["kkt_hist"].cpu().numpy(),
             **extras,
         )
 

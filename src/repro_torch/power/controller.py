@@ -31,6 +31,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.compat import resolve_device
+from repro_torch.core.batched import optimize_batched
 from repro_torch.core.engine import AllocEngine
 from repro_torch.core.nvpax import AllocResult, NvpaxOptions, optimize
 from repro_torch.core.problem import AllocProblem, FleetTopology
@@ -205,13 +206,61 @@ class PowerController:
         )
         return res
 
-    def step_batched(self, telemetry_batch, **kw):
-        raise NotImplementedError(
-            "step_batched (K what-if scenarios in one solve) is not ported yet "
-            "(ROADMAP Queue 1 item 8b)"
-        )
+    # -- batched what-if evaluation ----------------------------------------
 
-    def what_if(self, telemetry_batch, **kw):
-        raise NotImplementedError(
-            "what_if (stateless step_batched) is not ported yet (ROADMAP Queue 1 item 8b)"
-        )
+    def step_batched(
+        self,
+        telemetry_batch: np.ndarray,
+        *,
+        active: np.ndarray | None = None,
+        carry_warm: bool = True,
+    ):
+        """Evaluate K candidate telemetry scenarios in one solve.
+
+        ``telemetry_batch`` is ``[K, n]`` watts (e.g. MPC candidate futures,
+        per-tenant perturbations, robustness samples); ``active`` is either
+        ``[n]`` (shared job placement across scenarios) or ``[K, n]``.
+
+        Applies the same request pre-processing, failure masking and supply
+        scaling as :meth:`step` but does NOT advance the controller's
+        allocation state or history.  With ``carry_warm`` (default), the
+        batched solver warm start is carried across consecutive calls of the
+        same batch size — an iteration-count optimization that preserves
+        solution *quality* but, on tenant-SLA fleets, may pick a different
+        equal-quality vertex of the eps-degenerate max-min LPs.  Use
+        :meth:`what_if` (``carry_warm=False``) when call-to-call determinism
+        matters.  Returns a
+        :class:`repro_torch.core.batched.BatchedAllocResult` with ``[K, n]``
+        feasible allocations.
+        """
+        telemetry_batch = np.asarray(telemetry_batch, dtype=np.float64)
+        if telemetry_batch.ndim != 2 or telemetry_batch.shape[0] == 0:
+            raise ValueError(
+                f"telemetry_batch must be [K, n] with K >= 1, got {telemetry_batch.shape}"
+            )
+        K, n = telemetry_batch.shape
+        if active is not None:
+            active = np.asarray(active, bool)
+            if active.shape not in ((n,), (K, n)):
+                raise ValueError(f"active must be [{n}] or [{K}, {n}], got {active.shape}")
+        if self.config.use_engine:
+            req = np.where(self.failed, 0.0, telemetry_batch * self.config.request_margin)
+            if active is not None:
+                active = active & ~self.failed
+            return self._get_engine().step_batched(req, active=active, carry_warm=carry_warm)
+        if active is None:
+            act_rows = [None] * K
+        elif active.shape == (n,):
+            act_rows = [active] * K
+        else:
+            act_rows = [active[k] for k in range(K)]
+        # the prebuilt topology is shared across scenarios, so per-scenario
+        # builds are telemetry-only and stacking skips the equality compare
+        aps = [self._build_problem(telemetry_batch[k], act_rows[k]) for k in range(K)]
+        return optimize_batched(aps, self.config.options)
+
+    def what_if(self, telemetry_batch: np.ndarray, **kw):
+        """Strictly stateless :meth:`step_batched` (MPC / scenario-sweep
+        reads): no warm carry, so identical inputs give identical outputs."""
+        kw.setdefault("carry_warm", False)
+        return self.step_batched(telemetry_batch, **kw)

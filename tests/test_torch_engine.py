@@ -29,6 +29,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import batched  # noqa: E402
 from repro_torch.core.engine import AllocEngine  # noqa: E402
 from repro_torch.core.nvpax import NvpaxOptions  # noqa: E402
+from repro_torch.core.problem import AllocProblem  # noqa: E402
 from repro_torch.core.solver import SolverOptions  # noqa: E402
 from repro_torch.pdn.tenants import assign_tenants  # noqa: E402
 from repro_torch.pdn.tree import build_from_level_sizes  # noqa: E402
@@ -325,20 +326,20 @@ def test_unported_paths_raise(fleets):
     eng = AllocEngine(pdn, device="cpu")
     ctl = PowerController(pdn, device="cpu")
     tele = np.full((2, pdn.n), 300.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        eng.step_batched(tele)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        ctl.step_batched(tele)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        ctl.what_if(tele)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         AllocEngine(pdn, recorder=True, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         PowerController(pdn, recorder=True, device="cpu")
-    # incremental stepping is ported; its K > 1 form waits for item 8b
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        batched.optimize_batched(
+            batched.stack_problems([AllocProblem.build(pdn, t, device="cpu") for t in tele]),
+            rec=object(),
+        )
+    # the K-scenario path (item 8b) is ported, incremental form included
     inc = AllocEngine(pdn, options=NvpaxOptions(incremental=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        inc.step_batched(tele)
+    for res in (eng.step_batched(tele), ctl.step_batched(tele), ctl.what_if(tele),
+                inc.step_batched(tele)):
+        assert res.allocation.shape == (2, pdn.n)
 
 
 def test_entry_points_need_a_card_or_cpu(fleets):

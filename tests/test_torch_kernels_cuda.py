@@ -1025,3 +1025,180 @@ def test_prefill_runs_the_flash_kernel_and_matches_the_cpu(cuda):
     plain_logits, _ = blocked.prefill(params, tokens.to(cuda))
     assert not any(n for key, n in launch_counts().items() if key.startswith("flash")), launch_counts()
     torch.testing.assert_close(logits, plain_logits, rtol=0, atol=2e-5)
+
+
+# -- the lane axis (the K-scenario path) ------------------------------------
+
+
+def _lane_cases(cuda, dtype, lanes, n, m, k, seed):
+    """Every allocator kernel on ``lanes`` lanes of random inputs over one
+    tree of about m rows over n positions and k tenants: {wrapper: (the
+    call on [lanes, size] inputs, the call on lane j's inputs alone)}, each
+    returning a tuple of outputs."""
+    from repro_torch.kernels.pdhg_update.ref import DualBlock
+
+    gen = np.random.default_rng(seed)
+    s, e = _nested_rows(gen, n, m)
+    s[:2], e[:2] = [0, n // 2], [n, n]
+    tidx = tk.tree_index(s, e, n, cuda)
+    sidx = tk.sla_index(gen.integers(0, n, 8 * k), gen.integers(0, k, 8 * k), k, n, cuda)
+    m = len(s)
+    inf = float("inf")
+
+    def vec(size, pos=False):
+        v = torch.as_tensor(gen.normal(size=(lanes, size)), dtype=dtype, device=cuda)
+        return v.abs() + 0.1 if pos else v
+
+    def col(*values):  # one value per lane, [lanes, 1]
+        return torch.as_tensor(gen.choice(values, (lanes, 1)), dtype=dtype, device=cuda)
+
+    x, yt, ys, yi = vec(n), vec(m), vec(k), vec(n)
+    sm = vec(n, pos=True) * (vec(n) > -0.5).to(dtype)
+    d_tree, d_sla, d_imp = vec(m, True), vec(k, True), vec(n, True)
+    blocks = []
+    for size, a in ((m, vec(m)), (k, vec(k)), (n, sm * vec(n))):
+        lo = vec(size)
+        hi = lo + vec(size, True)
+        blocks.append(DualBlock(vec(size), a, vec(size, True), vec(size, True),
+                                torch.where(vec(size) > 0.5, -inf, lo),
+                                torch.where(vec(size) > 0.5, inf, hi)))
+    s_t, t_mov, te = col(1.7, 0.3), col(0.0, 1.0), vec(1)
+    w = vec(n).abs() * (vec(n) > -0.5).to(dtype)
+    lo = vec(n) - 1.0
+    data = tk.PrimalStepData(vec(n), w, vec(n), lo, lo + vec(n, True), d_tree, d_sla, d_imp, sm,
+                             tidx, sidx)
+    tau, tau_col = vec(n, True), col(0.37, 0.5)
+    prox = (x, vec(n), vec(n), w, vec(n), lo, lo + vec(n, True))
+    check = ((x, vec(n), vec(n), vec(n)), (yt, vec(m), vec(m)), (yi, vec(n), vec(n)),
+             vec(1), vec(1), ys, vec(k))
+    cnt = gen.integers(1, 9, lanes).astype(np.float64)
+    cnt_dev = torch.as_tensor(cnt, dtype=dtype, device=cuda)  # the lanes' counts, on the card
+    adjoint = (yt, ys, yi, d_tree, d_sla, d_imp, sm, tidx, sidx)
+
+    def lane(j, args):
+        """Lane j of (nested) arguments: [lanes, 1] columns become 0-d."""
+        if isinstance(args, (tk.TreeIndex, tk.SlaIndex)):  # shared by every lane
+            return args
+        if isinstance(args, tuple):
+            return type(args)(*(lane(j, a) for a in args)) if hasattr(args, "_fields") else (
+                tuple(lane(j, a) for a in args))
+        if isinstance(args, torch.Tensor):
+            return args[j, 0] if args.shape[-1:] == (1,) else args[j]
+        return args
+
+    def plan_of(d):
+        return tk.primal_step_plan(d)
+
+    return {
+        "tree_matvec": (lambda: (tk.tree_matvec(x, tidx),),
+                        lambda j: (tk.tree_matvec(x[j], tidx),)),
+        "tree_rmatvec": (lambda: (tk.tree_rmatvec(yt, tidx),),
+                         lambda j: (tk.tree_rmatvec(yt[j], tidx),)),
+        "sla_matvec": (lambda: (tk.sla_matvec(x, sidx),), lambda j: (tk.sla_matvec(x[j], sidx),)),
+        "sla_rmatvec": (lambda: (tk.sla_rmatvec(ys, sidx),),
+                        lambda j: (tk.sla_rmatvec(ys[j], sidx),)),
+        "scaled_rmatvec": (lambda: tk.scaled_rmatvec(*adjoint),
+                           lambda j: tk.scaled_rmatvec(*lane(j, adjoint))),
+        "primal_step": (
+            lambda: tk.primal_step(x, yt, ys, yi, tau, plan_of(data))
+            + tk.primal_step(x, yt, ys, yi, tau_col, plan_of(data)),
+            lambda j: tk.primal_step(x[j], yt[j], ys[j], yi[j], tau[j], plan_of(lane(j, data)))
+            + tk.primal_step(x[j], yt[j], ys[j], yi[j], tau_col[j, 0], plan_of(lane(j, data)))),
+        "primal_update": (lambda: pk.primal_update(*prox, tau) + pk.primal_update(*prox, tau_col),
+                          lambda j: pk.primal_update(*lane(j, prox), tau[j])
+                          + pk.primal_update(*lane(j, prox), tau_col[j, 0])),
+        "dual_prox": (lambda: (pk.dual_prox(*blocks[0][:2], blocks[0].sigma, *blocks[0][4:]),),
+                      lambda j: (pk.dual_prox(*lane(j, (blocks[0][0], blocks[0][1],
+                                                       blocks[0].sigma, *blocks[0][4:]))),)),
+        "dual_update": (lambda: pk.dual_update(*blocks, s_t, t_mov, te),
+                        lambda j: pk.dual_update(*lane(j, (*blocks, s_t, t_mov, te)))),
+        "check_chunk_stats": (
+            lambda: tuple(_flat(pk.check_chunk_stats(*check, cnt_dev))),
+            lambda j: tuple(_flat(pk.check_chunk_stats(*lane(j, check), float(cnt[j]))))),
+    }
+
+
+def _flat(out):
+    return [v for o in out for v in (o if isinstance(o, tuple) else (o,))]
+
+
+# (n, m, k): the paper fleet's shapes with Appendix B's tenants, and past
+# tree_matvec's one-cluster size (its cooperative path)
+LANE_SHAPES = [(12_288, 1_637, 100), (16_385, 1_637, 7)]
+
+
+@pytest.mark.parametrize("n, m, k", LANE_SHAPES)
+@pytest.mark.parametrize("lanes", [1, 2, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lane_kernels_give_each_lane_its_one_lane_bits(cuda, n, m, k, lanes, dtype):
+    """Every allocator kernel on [K, size] lanes is one launch per call (the
+    primal step and primal update are called with a per-lane vector and a
+    per-lane scalar step: two), and lane j of each output has the bits of
+    the call on lane j's inputs alone; the chunk statistics' ticket counters
+    are back at zero."""
+    cases = _lane_cases(cuda, dtype, lanes, n, m, k, seed=lanes)
+    for name, (many, one) in cases.items():
+        reset_launch_counts()
+        got = many()
+        calls = 2 if name in ("primal_step", "primal_update") else 1
+        assert launch_counts()[name] == calls, (name, launch_counts())
+        for j in range(lanes):
+            want = one(j)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(_bits(g[j].reshape(-1)), _bits(w.reshape(-1))), (name, j)
+    assert not bool(pk._tickets(cuda, lanes).any())
+
+
+def test_lane_kernels_reject_what_they_cannot_launch(cuda):
+    """A lane count past the grid's y axis raises, as does a lane tensor
+    whose lanes disagree with the other inputs'."""
+    tidx = tk.tree_index([0], [4], 4, cuda)
+    with pytest.raises(ValueError, match="lanes"):
+        tk.tree_matvec(torch.zeros(tk.MAX_LANES + 1, 4, dtype=torch.float64, device=cuda), tidx)
+    y = torch.zeros(2, 5, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        pk.dual_prox(y, y[:1], 0.5, y, y)
+
+
+def test_batched_solve_runs_the_lane_kernels(cuda):
+    """``optimize_batched`` with every kernel flag on a tenant fleet: every
+    allocator kernel launched, each launch over the K lanes, and each lane
+    the card's own cold one-scenario engine step (equal iterations per
+    phase and exit certificate, 1e-9 W), inside the contracts."""
+    from repro_torch.core.batched import optimize_batched
+    from repro_torch.core.engine import AllocEngine
+    from repro_torch.core.nvpax import NvpaxOptions
+    from repro_torch.core.problem import AllocProblem
+    from repro_torch.core.solver import SolverOptions
+    from repro_torch.kernels import lane_launch_counts
+    from repro_torch.pdn.tenants import assign_tenants
+
+    pdn = build_from_level_sizes([2, 3, 2], gpus_per_server=4)
+    lay = assign_tenants(pdn, n_tenants=4, devices_per_tenant=8, seed=1)
+    opts = NvpaxOptions(
+        solver=SolverOptions(use_pallas=True, use_pallas_tree=True, use_pallas_stats=True)
+    )
+    tb = np.random.default_rng(1).uniform(100, 650, (3, pdn.n))
+    eng = AllocEngine(pdn, sla=lay.sla_topo(device=cuda), priority=lay.priority, options=opts,
+                      device=cuda)
+    res = eng.step_batched(tb, carry_warm=False)  # warm the library and allocator
+    reset_launch_counts()
+    res = eng.step_batched(tb, carry_warm=False)
+    counts, lane_counts = launch_counts(), lane_launch_counts()
+    assert all(counts[k] > 0 for k in ALLOCATOR_KERNELS), counts
+    assert all(lane_counts[k] == counts[k] for k in ALLOCATOR_KERNELS), (counts, lane_counts)
+    assert res.stats["converged"].all()
+    owned = lay.tenant_of >= 0
+    for j in range(len(tb)):
+        eng.reset_warm()
+        one = eng.step(tb[j])
+        assert list(res.stats["phase_iterations"][j]) == one.stats["phase_iterations"]
+        assert res.stats["kkt_certified"][j] == one.stats["kkt_certified"]
+        np.testing.assert_allclose(res.allocation[j], one.allocation, rtol=0, atol=1e-9)
+        sums = np.bincount(lay.tenant_of[owned], weights=res.allocation[j][owned], minlength=4)
+        assert (sums >= lay.b_min - 1e-6).all() and (sums <= lay.b_max + 1e-6).all()
+    aps = [AllocProblem.build(pdn, t, sla=lay.sla_topo(device=cuda), priority=lay.priority)
+           for t in tb]
+    np.testing.assert_allclose(optimize_batched(aps, opts).allocation, res.allocation, rtol=0,
+                               atol=1e-9)
