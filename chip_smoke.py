@@ -142,6 +142,24 @@ Phases, each of which raises on failure:
    paper's shapes for K in 1, 2, 8 and 33: one launch per call, each lane
    the bits of a launch on that lane alone, the ticket counters back at
    zero.
+12. the multi-domain fleet, see :func:`fleet_phase`: (a) the tree and
+   tenant kernels over an index of 4 hall topologies of the paper fleet
+   (hall 3 rebuilt to 20 racks, Appendix B's tenants split at the cut),
+   each lane the bits of a one-lane launch on its own index, each kernel
+   held to its plain version on the same ``[K, ...]`` topology, with their
+   device times at K = 4 and K = 1; (b) ``FleetOrchestrator(build_datacenter(),
+   level=1)`` stacked with every kernel flag for 5 steps against loop mode
+   on the card and the port's CPU run (1e-9 W, equal iterations), every
+   row of the datacenter kept, its walls, launches per PDHG iteration and
+   busy share beside the monolithic engine's; (c) the reference's subtree
+   parity case at paper size (1e-6 W); (d) churn with one rebuild within
+   the padding (``rebuild_count()`` moves only there); (e) ``DatacenterSim``
+   in fleet mode for 20 intervals, with prefetch (the same S values), and
+   the cross-tenant scenario, also through every kernel flag against the
+   CPU run at the quality level; (f) one cold stacked step of the paper's
+   datacenter with Appendix B's tenants split at the cut (its launches are
+   the kernels line's ``launches_tenant_fleet``), its wall and
+   ``primal_step``'s share of the device time.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -158,6 +176,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -180,6 +199,7 @@ from repro_torch.core.engine import AllocEngine  # noqa: E402
 from repro_torch.core.nvpax import NvpaxOptions, optimize  # noqa: E402
 from repro_torch.core.problem import AllocProblem, FleetTopology  # noqa: E402
 from repro_torch.core.solver import SolverOptions  # noqa: E402
+from repro_torch.fleet import FleetLifecycle, FleetOrchestrator, split_pdn  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -187,8 +207,9 @@ from repro_torch.kernels.pdhg_update import kernel as pk  # noqa: E402
 from repro_torch.kernels.pdhg_update import ref as pref  # noqa: E402
 from repro_torch.kernels.tree_matvec import kernel as tk  # noqa: E402
 from repro_torch.kernels.tree_matvec import ref as tref  # noqa: E402
+from repro_torch.pdn.hierarchy_gen import homogeneous_fleet  # noqa: E402
 from repro_torch.pdn.telemetry import TelemetrySim, TraceConfig  # noqa: E402
-from repro_torch.pdn.tenants import appendix_b_layout  # noqa: E402
+from repro_torch.pdn.tenants import appendix_b_layout, assign_cross_domain_tenants  # noqa: E402
 from repro_torch.pdn.tree import build_datacenter  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, build  # noqa: E402
@@ -275,6 +296,10 @@ PDHG_KERNELS = ("primal_step", "dual_update", "check_chunk_stats", "scaled_rmatv
 SIM_STEPS = 60
 SIM_HELD = 4
 RATIO_TOL = 1e-9
+# torch.profiler traces of one one-kernel-per-call check before a trace
+# with no device activity at all fails it, and the empty traces seen
+TRACE_ATTEMPTS = 3
+TRACE_RETRIES: list[dict] = []
 # phase 3: the lane axis of every allocator kernel, at these lane counts
 LANE_COUNTS = (1, 2, 8, 33)
 # phase 3's digest of the chunk statistics' bits (PRs 19-20's kernels)
@@ -525,17 +550,30 @@ def scaled_adjoint_csr(adjoint, device):
 
 def device_kernels(fn, calls: int) -> list[str]:
     """Names of the kernels the card ran during ``calls`` calls of ``fn``
-    (warmed first), from torch.profiler's CUDA activity."""
+    (warmed first), from torch.profiler's CUDA activity.  A trace with no
+    device activity at all is traced again, up to ``TRACE_ATTEMPTS`` times,
+    and each such trace is logged beside the launches the wrappers counted
+    in it and kept in ``TRACE_RETRIES``; a trace with any activity is
+    returned as it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        counted = sum(kernels.launch_counts().values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ran:
+            break
+        counted = sum(kernels.launch_counts().values()) - counted
+        TRACE_RETRIES.append({"attempt": attempt, "calls": calls, "counted_launches": counted})
+        log(f"[trace] attempt {attempt} of {TRACE_ATTEMPTS}: torch.profiler saw no device "
+            f"activity in {calls} calls whose wrappers counted {counted} launches")
+    return ran
 
 
 def sync(device) -> None:
@@ -1459,12 +1497,20 @@ def main(argv: list[str]) -> int:
     lane_launches, report["batched"] = batched_phase(pdn, layout, engine_opts, cuda, smi)
     for entry in entries:
         entry["lane_launches"] = lane_launches.get(entry["name"], 0)
+
+    # -- 12. the multi-domain fleet ---------------------------------------------
+    fleet_launches, tenant_fleet_launches, report["fleet"] = fleet_phase(
+        pdn, layout, engine_opts, cuda, smi)
+    for entry in entries:
+        entry["launches_fleet"] = fleet_launches.get(entry["name"], 0)
+        entry["launches_tenant_fleet"] = tenant_fleet_launches.get(entry["name"], 0)
     entries.extend(flash_entries)
 
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
         report["profile_tenant"] = profile_tenant_step(pdn, layout, engine_opts)
 
+    report["trace_retries"] = TRACE_RETRIES
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[card] {smi}")
     print(json.dumps({"kernels": entries}), flush=True)
@@ -2261,6 +2307,553 @@ def batched_phase(pdn, layout, engine_opts, cuda, smi):
                         "deadline_budget": cut.stats["iter_budget"]}
     report["lane_launches"] = lane_launches
     return lane_launches, report
+
+
+FLEET_STEPS = 5
+FLEET_SIM_STEPS = 20
+FLEET_PARITY_TOL = 1e-9  # watts: stacked vs loop and card vs CPU, equal iterations
+FLEET_MONO_TOL = 1e-6  # watts: fleet vs the monolithic engine (the reference's bar)
+FLEET_RACKS = 20  # phase 12's rebuilt hall, inside the 24-rack padding
+
+
+def _hall(racks: int):
+    """One hall of the paper's geometry with ``racks`` racks, rebased as a
+    domain (``split_pdn`` at level 1 of a one-hall datacenter)."""
+    return split_pdn(build_datacenter(n_halls=1, racks_per_hall=racks), 1).domains[0].pdn
+
+
+def _fleet_lanes(pdn, layout):
+    """Phase 12a's K = 4 topologies: the paper fleet's 4 hall domains, hall
+    3 replaced by a ``FLEET_RACKS``-rack hall, and Appendix B's tenants
+    split at the cut (the rebuilt hall keeps its first devices' edges),
+    padded as the stacked fleet pads them.  Returns (N, starts, ends, devs,
+    tens, rows)."""
+    part = split_pdn(pdn, 1, tenants=layout)
+    pdns = [d.pdn for d in part.domains]
+    pdns[3] = _hall(FLEET_RACKS)
+    edges = [part.sla.edges(k) for k in range(part.k)]
+    keep = edges[3][0] < pdns[3].n
+    edges[3] = (edges[3][0][keep], edges[3][1][keep])
+    N, M = max(p.n for p in pdns), max(p.m for p in pdns)
+    E = max(d.shape[0] for d, _ in edges)
+    rows = part.sla.max_rows + 1  # one inert pad row, as the fleet pads
+    starts = np.full((4, M), N, np.int64)
+    ends = np.full((4, M), N, np.int64)
+    devs = np.zeros((4, E), np.int64)
+    tens = np.full((4, E), rows - 1, np.int64)
+    for k, (p, (d, t)) in enumerate(zip(pdns, edges)):
+        starts[k, : p.m], ends[k, : p.m] = p.node_start, p.node_end
+        devs[k, : d.shape[0]], tens[k, : t.shape[0]] = d, t
+    return N, starts, ends, devs, tens, rows
+
+
+def fleet_lane_kernels(pdn, layout, cuda, smi) -> dict:
+    """Phase 12a: the tree and tenant kernels over an index of 4 hall
+    topologies (``_fleet_lanes``), float64 and float32: one launch per call,
+    each lane the bits of a one-lane launch on its own index; each kernel
+    against its plain version (``ref.py``) on the same inputs and ``[K, M]``
+    / ``[K, E]`` topology: the tree and tenant sums at phase 3's ``LIMITS``
+    over each lane's sum of |input| on the card and, for the tenant sums,
+    the CPU plain version's bits; the scaled adjoint and the primal step
+    bit for bit, as phase 3 holds them; then each kernel's device time at
+    K = 4 topologies and at K = 1 (lane 0's index)."""
+    N, starts, ends, devs, tens, rows = _fleet_lanes(pdn, layout)
+    K, M = starts.shape
+    tidx = tk.tree_index(starts, ends, N, cuda)
+    sidx = tk.sla_index(devs, tens, rows, N, cuda)
+    topo = {a: torch.as_tensor(v) for a, v in (("start", starts), ("end", ends), ("dev", devs),
+                                                ("ten", tens))}
+    topo_card = {a: v.to(cuda) for a, v in topo.items()}
+    plain_err: dict[str, dict[str, float]] = {}
+    ones = [(tk.tree_index(starts[j], ends[j], N, cuda),
+             tk.sla_index(devs[j], tens[j], rows, N, cuda)) for j in range(K)]
+    n_checks = 0
+    timing = {}
+    for dtype in (torch.float64, torch.float32):
+        gen = np.random.default_rng(40_000)
+
+        def vec(size, pos=False):
+            v = torch.as_tensor(gen.normal(size=(K, size)), dtype=dtype, device=cuda)
+            return v.abs() + 0.1 if pos else v
+
+        x, yt, ys, yi = vec(N), vec(M), vec(rows), vec(N)
+        dt, ds, di, sm = vec(M, True), vec(rows, True), vec(N, True), vec(N, True)
+        c, w, target, lo = vec(N), vec(N, True), vec(N), vec(N) - 1.0
+        hi, tau = lo + vec(N, True), vec(N, True)
+        data = tk.PrimalStepData(c, w, target, lo, hi, dt, ds, di, sm, tidx, sidx)
+        plan = tk.primal_step_plan(data)
+        one_plans = [tk.primal_step_plan(tk.PrimalStepData(
+            c[j], w[j], target[j], lo[j], hi[j], dt[j], ds[j], di[j], sm[j], *ones[j]))
+            for j in range(K)]
+        cases = {
+            "tree_matvec": (lambda: (tk.tree_matvec(x, tidx),),
+                            lambda j: (tk.tree_matvec(x[j], ones[j][0]),)),
+            "tree_rmatvec": (lambda: (tk.tree_rmatvec(yt, tidx),),
+                             lambda j: (tk.tree_rmatvec(yt[j], ones[j][0]),)),
+            "sla_matvec": (lambda: (tk.sla_matvec(x, sidx),),
+                           lambda j: (tk.sla_matvec(x[j], ones[j][1]),)),
+            "sla_rmatvec": (lambda: (tk.sla_rmatvec(ys, sidx),),
+                            lambda j: (tk.sla_rmatvec(ys[j], ones[j][1]),)),
+            "scaled_rmatvec": (
+                lambda: tk.scaled_rmatvec(yt, ys, yi, dt, ds, di, sm, tidx, sidx),
+                lambda j: tk.scaled_rmatvec(yt[j], ys[j], yi[j], dt[j], ds[j], di[j], sm[j],
+                                            *ones[j])),
+            "primal_step": (lambda: tk.primal_step(x, yt, ys, yi, tau, plan),
+                            lambda j: tk.primal_step(x[j], yt[j], ys[j], yi[j], tau[j],
+                                                     one_plans[j])),
+        }
+        for name, (many, one) in cases.items():
+            kernels.reset_launch_counts()
+            got = many()
+            if kernels.launch_counts()[name] != 1 or kernels.lane_launch_counts()[name] != 1:
+                raise AssertionError(f"[12a] {name}: {kernels.launch_counts()}")
+            for j in range(K):
+                for g, wv in zip(got, one(j)):
+                    n_checks += 1
+                    if not torch.equal(g[j].reshape(-1).view(BITS[dtype]),
+                                       wv.reshape(-1).view(BITS[dtype])):
+                        raise AssertionError(f"[12a] {name} lane {j} ({dtype}) is not the bits of "
+                                             "its one-lane launch on its own index")
+            if dtype == torch.float64:
+                timing[name] = {"k4_ms": time_calls(many)[0], "k1_ms": time_calls(lambda: one(0))[0]}
+        n_checks += fleet_lane_plain(cases, (x, yt, ys, yi, tau, data), topo, topo_card, N, rows,
+                                     plain_err)
+    log(f"[12a] per-lane topology: {n_checks} lane-vs-one-lane comparisons over 4 hall domains "
+        f"(N={N} padded, devices {[int(e.max()) for e in ends]}, M={M}, {rows} tenant rows, "
+        f"E={devs.shape[1]} edges a lane), float64 and float32: every lane the bits of its "
+        "one-lane launch on its own index, one launch per call")
+    log(f"[12a] against the plain versions on the [K, ...] topology: largest |d| / lane sum of "
+        "|input| (limit) " + ", ".join(
+            f"{k} {d} {v:.2e} ({LIMITS[k][d]:.1e})" for k, e in plain_err.items()
+            for d, v in e.items())
+        + "; tenant sums the CPU plain version's bits; scaled_rmatvec and primal_step the bits of "
+        "their plain compositions")
+    log(f"[12a] device time per launch, float64, K=4 topologies / K=1 (lane 0's), on {smi}: "
+        + ", ".join(f"{k} {v['k4_ms'] * 1e3:.2f} / {v['k1_ms'] * 1e3:.2f} us"
+                    for k, v in timing.items()))
+    return {"comparisons": n_checks, "padded_n": N, "rows": M, "tenant_rows": rows,
+            "edges": int(devs.shape[1]), "timing": timing, "plain_rel_err": plain_err}
+
+
+def fleet_lane_plain(cases, inputs, topo, topo_card, n: int, rows: int, worst: dict) -> int:
+    """Phase 12a's kernels over K topologies against their plain versions
+    on the same card inputs: the tree and tenant sums within ``LIMITS`` of
+    the card's plain version, |d| over the lane's sum of |input| (``worst``
+    keeps the largest by kernel and dtype), and the tenant sums the CPU
+    plain version's bits; ``scaled_rmatvec`` and ``primal_step`` the bits of
+    their plain compositions (the deterministic segment sums, then the
+    plain update).  Returns the number of comparisons."""
+    x, yt, ys, yi, tau, data = inputs
+    key = str(x.dtype).split(".")[-1]
+    n_checks = 0
+    for name, v, plain, gather in (
+        ("tree_matvec", x, lambda v_, t: tref.tree_matvec_ref(v_, t["start"], t["end"]), None),
+        ("tree_rmatvec", yt,
+         lambda v_, t: tref.tree_rmatvec_ref(v_, t["start"], t["end"], n), None),
+        ("sla_matvec", x, lambda v_, t: tref.sla_matvec_ref(v_, t["dev"], t["ten"], rows), "dev"),
+        ("sla_rmatvec", ys, lambda v_, t: tref.sla_rmatvec_ref(v_, t["dev"], t["ten"], n), "ten"),
+    ):
+        got = cases[name][0]()[0]
+        want = plain(v, topo_card)
+        terms = v if gather is None else tref.take(v, topo_card[gather])
+        scale = terms.abs().sum(-1, keepdim=True)
+        rel = torch.where(got == want, 0.0, (got - want).abs()) / scale
+        n_checks += 1
+        if not bool((rel <= LIMITS[name][key]).all()):
+            raise AssertionError(f"[12a] {name} ({key}) leaves its plain version on the lanes' "
+                                 f"own topology: max |d| / scale {float(rel.max()):.3e} > "
+                                 f"{LIMITS[name][key]:.3e}")
+        worst.setdefault(name, {})[key] = max(worst.get(name, {}).get(key, 0.0),
+                                              float(rel.max()))
+        if gather is not None:
+            n_checks += 1
+            if not torch.equal(got.cpu(), plain(v.cpu(), topo)):
+                raise AssertionError(f"[12a] {name} ({key}) is not the bits of its CPU plain "
+                                     "version on the lanes' own topology")
+    for name, want in (
+        ("scaled_rmatvec", tref.scaled_rmatvec_ref(yt, ys, yi, *data[5:])),
+        ("primal_step", tref.primal_step_ref(x, yt, ys, yi, tau, data)),
+    ):
+        for g, w in zip(cases[name][0](), want):
+            n_checks += 1
+            if not torch.equal(g.view(BITS[x.dtype]), w.view(BITS[x.dtype])):
+                raise AssertionError(f"[12a] {name} ({key}) differs from its plain composition "
+                                     f"in {int((g != w).sum())} of {g.numel()} values")
+    return n_checks
+
+
+def _fleet_feasible(orch, x, grants):
+    """Every domain's own rows under its current boxes and caps, its sum
+    under its grant, and every coordinator row above the cut; the largest
+    excess in watts."""
+    offs = orch._offsets()
+    over = -np.inf
+    for k, p in enumerate(orch._local_pdn):
+        xk = x[offs[k]:offs[k + 1]]
+        csum = np.concatenate([[0.0], np.cumsum(xk)])
+        over = max(over, float(np.max(csum[p.node_end] - csum[p.node_start] - orch._node_cap[k])),
+                   float(xk.sum() - grants[k]))
+        if (xk < orch._dev_l[k] - 1e-9).any() or (xk > orch._dev_u[k] + 1e-9).any():
+            raise AssertionError(f"domain {k}'s allocation leaves its device boxes")
+    if over > FEAS_TOL:
+        raise AssertionError(f"a domain row exceeds its cap by {over:.3e} W")
+    sums = np.array([x[offs[k]:offs[k + 1]].sum() for k in range(orch.k)])
+    orch.coordinator.check(sums, coord_cap=orch.coordinator.cap * orch._feed_scale,
+                           tol=FEAS_TOL)
+    return over
+
+
+class RecordingOrchestrator(FleetOrchestrator):
+    """A ``FleetOrchestrator`` that keeps every step's allocation, for phase
+    12e's checks (``DatacenterSim`` returns metrics only)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.allocations: list[np.ndarray] = []
+
+    def step(self, telemetry, *, active=None):
+        res = super().step(telemetry, active=active)
+        self.allocations.append(res.allocation)
+        return res
+
+
+def tenant_fleet_quality(tag, pdn_, lay, x, power, active, want=None) -> dict:
+    """A tenant fleet's allocation at the quality level: every breaker
+    (``FEAS_TOL``) and tenant bound (``SLA_FEAS_TOL``) kept and, against
+    ``want`` (the same step on the CPU), the total power within
+    ``FLEET_MONO_TOL`` and every device's useful power, min(request, cap),
+    within ``PARITY_TOL``, the requests as ``DatacenterSim`` forms them.
+    The tenant LPs are eps-degenerate, so the caps themselves are reported,
+    not held.  Returns the gaps in watts."""
+    feasibility(pdn_, x)
+    owned = lay.tenant_of >= 0
+    sums = np.bincount(lay.tenant_of[owned], weights=x[owned], minlength=lay.n_tenants)
+    excess = float(max(np.max(lay.b_min - sums), np.max(sums - lay.b_max)))
+    if excess > SLA_FEAS_TOL:
+        raise AssertionError(f"{tag}: a tenant sum leaves its bounds by {excess:.3e} W")
+    gaps = {"tenant_bound_excess_w": excess}
+    if want is None:
+        return gaps
+    r = np.where(active, np.clip(power, pdn_.dev_l, pdn_.dev_u), pdn_.dev_l)
+    gaps.update(total_w=abs(float(x.sum() - want.sum())),
+                useful_w=float(np.max(np.abs(np.minimum(r, x) - np.minimum(r, want)))),
+                max_abs_w=float(np.max(np.abs(x - want))))
+    if gaps["total_w"] > FLEET_MONO_TOL or gaps["useful_w"] > PARITY_TOL:
+        raise AssertionError(f"{tag}: card vs CPU {gaps}")
+    return gaps
+
+
+def paper_tenant_fleet(pdn, layout, opts, tele, act, cuda, smi) -> tuple[dict, dict]:
+    """Phase 12f: the paper's datacenter cut into its 4 halls with Appendix
+    B's tenants split at the cut, one cold stacked step with every kernel
+    flag (the launch counts set to 0 just before it and read just after):
+    every lane converged, every breaker and tenant bound kept, each
+    allocator kernel launched over the domains' lanes.  Then the same cold
+    step again under torch.profiler (``reset_warm``): the same bits, and
+    the share of the device time in ``primal_step``, whose tenant adjoint
+    walks device 0's list of pad edges on one thread.  Returns (launch
+    counts, report)."""
+    orch = FleetOrchestrator(pdn, level=1, tenants=layout, mode="stacked", options=opts,
+                             device=cuda)
+    sync(cuda)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = orch.step(tele, active=act)
+    sync(cuda)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts())
+    lanes = dict(kernels.lane_launch_counts())
+    missing = [k for k in ALLOCATOR_KERNELS if not launches[k] or lanes[k] != launches[k]]
+    its = res.stats["phase_iterations"]
+    if missing or not res.stats["converged"].all():
+        raise AssertionError(f"[12f] converged {res.stats['converged']}; kernels not launched "
+                             f"over the domains' lanes: {missing} ({_kernel_calls(launches)})")
+    gaps = tenant_fleet_quality("[12f]", pdn, layout, res.allocation, tele, act)
+    orch.reset_warm()
+    again = []
+    prof = profiled("one cold stacked tenant fleet step (12f)",
+                    lambda: slowest_lane_step(orch, tele, act, again), top=16)
+    if not np.array_equal(again[0].allocation, res.allocation):
+        raise AssertionError("[12f] a repeated cold step differs by "
+                             f"{float(np.max(np.abs(again[0].allocation - res.allocation))):.3e} W")
+    primal_us = sum(r["device_us"] for r in prof["top"] if "primal_step" in r["name"])
+    slowest = int(np.max(np.sum(its, 1)))
+    pads = [orch._E - orch._sla.edges(k)[0].size for k in range(orch.k)]
+    log(f"[12f] tenant fleet, 4 halls x 3,072 devices, Appendix B's {layout.n_tenants} tenants "
+        f"split at the cut ({orch._E} edges a lane, of them {pads} pad edges on device 0): one "
+        f"cold stacked step, iterations {its.tolist()}, wall "
+        f"{wall * 1e3:.1f} ms, launches {_kernel_calls(launches)} "
+        f"({prof['launches'] / slowest:.2f} device launches per PDHG iteration of the slowest "
+        f"lane's {slowest}, profiled), primal_step {100 * primal_us / prof['device_us']:.1f}% of "
+        f"the device time ({primal_us:.0f} of {prof['device_us']:.0f} us, busy "
+        f"{100 * prof['device_us'] / prof['wall_us']:.1f}% of the profiled wall); every breaker "
+        f"and tenant bound kept, a repeated cold step the same bits; on {smi}")
+    return launches, {"phase_iterations": its.tolist(), "wall_ms": wall * 1e3, "pad_edges": pads,
+                      "launches": launches, "quality": gaps, "profile": prof,
+                      "primal_step_device_us": primal_us,
+                      "primal_step_share": primal_us / prof["device_us"]}
+
+
+def slowest_lane_step(orch, tele, act, keep=None):
+    """A stacked fleet step whose stats count the slowest domain's
+    iterations (for launches per PDHG iteration); the result goes into
+    ``keep`` where given."""
+    r = orch.step(tele, active=act)
+    if keep is not None:
+        keep.append(r)
+    return types.SimpleNamespace(
+        stats={"phase_iterations": [int(np.max(np.sum(r.stats["phase_iterations"], 1)))]})
+
+
+def fleet_phase(pdn, layout, engine_opts, cuda, smi) -> tuple[dict, dict, dict]:
+    """Phase 12: the multi-domain fleet.  Returns (each allocator kernel's
+    launches over 12b's stacked steps, over 12f's cold tenant fleet step,
+    report).
+
+    (a) :func:`fleet_lane_kernels`.  (b) ``FleetOrchestrator(build_datacenter(),
+    level=1)`` stacked with every kernel flag, ``FLEET_STEPS`` ``TelemetrySim``
+    seed 0 samples: every row of the full PDN feasible and every lane
+    converged; against the port's CPU run of the same steps and against the
+    loop mode on the card, ``FLEET_PARITY_TOL`` W and equal iterations; the
+    walls, launches per PDHG iteration and busy share (torch.profiler)
+    beside the monolithic engine's step.  (c) The reference's parity case
+    at paper size: ``homogeneous_fleet(4, racks_per_domain=24,
+    servers_per_rack=16, gpus_per_server=8)``, subtree grants, against the
+    monolithic ``AllocEngine`` on the card to ``FLEET_MONO_TOL``.  (d)
+    Churn on (b)'s fleet: a leave and a join, a derated domain feed and a
+    rebuild of hall 3 to ``FLEET_RACKS`` racks; ``rebuild_count()`` moves
+    only on the rebuild, every step feasible.  (e) ``DatacenterSim`` in
+    fleet mode for ``FLEET_SIM_STEPS`` intervals (S values, wall per
+    interval), ``prefetch=True`` giving the same S values, and the
+    cross-tenant scenario with every tenant minimum margin >= 0, as
+    ``cross_tenant()`` builds it and through every kernel flag (each
+    allocator kernel launched, every launch over the domains' lanes), the
+    latter held to the CPU run of the same intervals by
+    :func:`tenant_fleet_quality`.  (f) :func:`paper_tenant_fleet`."""
+    report: dict = {"card": smi}
+    report["lane_kernels"] = fleet_lane_kernels(pdn, layout, cuda, smi)
+    opts = NvpaxOptions(solver=engine_opts)
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    samples = [sim.power(t) for t in range(FLEET_STEPS)]
+    actives = [sim.active_mask(t) for t in range(FLEET_STEPS)]
+
+    def drive(orch):
+        out, walls = [], []
+        for tele, act in zip(samples, actives):
+            sync(cuda)
+            t0 = time.perf_counter()
+            out.append(orch.step(tele, active=act))
+            walls.append(time.perf_counter() - t0)
+        return out, walls
+
+    # (b) the stacked fleet on the paper's datacenter; the launch counts are
+    # set to 0 just before its steps and read just after
+    stacked = FleetOrchestrator(pdn, level=1, mode="stacked", options=opts, device=cuda)
+    if stacked.k != 4 or stacked.rebuild_count() != 1:
+        raise AssertionError(f"[12b] {stacked.k} domains, {stacked.rebuild_count()} builds")
+    sync(cuda)
+    kernels.reset_launch_counts()
+    res_s, walls_s = drive(stacked)
+    sync(cuda)
+    fleet_launches = dict(kernels.launch_counts())
+    lane_launches = dict(kernels.lane_launch_counts())
+    path = ("tree_matvec", "tree_rmatvec", "primal_step", "dual_update", "check_chunk_stats")
+    missing = [k for k in path if not fleet_launches[k] or lane_launches[k] != fleet_launches[k]]
+    if missing:
+        raise AssertionError(f"[12b] kernels not launched over the domains' lanes: {missing} "
+                             f"({fleet_launches}, lanes {lane_launches})")
+    loop = FleetOrchestrator(pdn, level=1, mode="loop", options=opts, device=cuda)
+    res_l, walls_l = drive(loop)
+    cpu = FleetOrchestrator(pdn, level=1, mode="stacked", options=opts, device="cpu")
+    res_c, _ = drive(cpu)
+    mono = AllocEngine(pdn, options=opts, device=cuda)
+    mono.step(samples[0], active=actives[0])
+    mono.reset_warm()
+    walls_m, rows = [], []
+    for t, (tele, act) in enumerate(zip(samples, actives)):
+        sync(cuda)
+        t0 = time.perf_counter()
+        rm = mono.step(tele, active=act)
+        walls_m.append(time.perf_counter() - t0)
+        rs, rl, rc = res_s[t], res_l[t], res_c[t]
+        over = feasibility(pdn, rs.allocation)  # every row, the datacenter root included
+        its = rs.stats["phase_iterations"]
+        gaps = {"loop": float(np.max(np.abs(rs.allocation - rl.allocation))),
+                "cpu": float(np.max(np.abs(rs.allocation - rc.allocation)))}
+        if (not rs.stats["converged"].all() or gaps["loop"] > FLEET_PARITY_TOL
+                or gaps["cpu"] > FLEET_PARITY_TOL
+                or not np.array_equal(its, rl.stats["phase_iterations"])
+                or not np.array_equal(its, rc.stats["phase_iterations"])):
+            raise AssertionError(f"[12b] step {t}: iterations {its.tolist()} (loop "
+                                 f"{rl.stats['phase_iterations'].tolist()}, CPU "
+                                 f"{rc.stats['phase_iterations'].tolist()}), gaps {gaps}, "
+                                 f"converged {rs.stats['converged']}")
+        rows.append({"step": t, "phase_iterations": its.tolist(), "vs_loop_w": gaps["loop"],
+                     "vs_cpu_w": gaps["cpu"], "max_cap_excess_w": over,
+                     "grants_w": rs.grants.tolist(), "mono_phase_iterations":
+                     list(rm.stats["phase_iterations"]),
+                     "vs_mono_w": float(np.max(np.abs(rs.allocation - rm.allocation)))})
+    if stacked.rebuild_count() != 1:
+        raise AssertionError("[12b] the stacked fleet rebuilt its tensors while stepping")
+    prof_s = profiled("one warm stacked fleet step (12b)",
+                      lambda: slowest_lane_step(stacked, samples[0], actives[0]))
+    prof_m = profiled("one warm monolithic engine step (12b)",
+                      lambda: mono.step(samples[0], active=actives[0]))
+    per_s = prof_s["launches"] / prof_s["pdhg_iterations"]
+    per_m = prof_m["launches"] / prof_m["pdhg_iterations"]
+    med = {k: float(np.median(v) * 1e3) for k, v in
+           (("stacked", walls_s), ("loop", walls_l), ("mono", walls_m))}
+    log(f"[12b] stacked fleet, 4 halls x 3,072 devices, {FLEET_STEPS} TelemetrySim seed 0 steps: "
+        f"iterations {[r['phase_iterations'] for r in rows]}; vs loop on the card "
+        f"{max(r['vs_loop_w'] for r in rows):.2e} W, vs the CPU "
+        f"{max(r['vs_cpu_w'] for r in rows):.2e} W (equal iterations); every row of the full "
+        f"PDN kept; walls stacked {[round(w * 1e3, 1) for w in walls_s]} ms, loop (4 domain "
+        f"steps) {[round(w * 1e3, 1) for w in walls_l]} ms, monolithic engine "
+        f"{[round(w * 1e3, 1) for w in walls_m]} ms (medians {med}); launches per PDHG "
+        f"iteration stacked {per_s:.2f} ({prof_s['launches']} over the slowest lane's "
+        f"{prof_s['pdhg_iterations']}), monolithic {per_m:.2f}; busy "
+        f"{100 * prof_s['device_us'] / prof_s['wall_us']:.1f}% vs "
+        f"{100 * prof_m['device_us'] / prof_m['wall_us']:.1f}%; launches over the 5 stacked "
+        f"steps {_kernel_calls(fleet_launches)}; on {smi}")
+    report["stacked"] = {"rows": rows, "walls_ms": {"stacked": [w * 1e3 for w in walls_s],
+                                                   "loop": [w * 1e3 for w in walls_l],
+                                                   "mono": [w * 1e3 for w in walls_m]},
+                         "median_ms": med, "launches_per_iteration": {"stacked": per_s,
+                                                                      "mono": per_m},
+                         "profile_stacked": prof_s, "profile_mono": prof_m,
+                         "launches": fleet_launches}
+
+    # (c) the reference's parity case at paper size
+    hpdn = homogeneous_fleet(4, racks_per_domain=24, servers_per_rack=16, gpus_per_server=8,
+                             root_oversub=1.0)
+    sub = FleetOrchestrator(hpdn, level=1, coordinator_mode="subtree", options=opts, device=cuda)
+    hmono = AllocEngine(hpdn, options=opts, device=cuda)
+    rng = np.random.default_rng(0)
+    gaps_c = []
+    for t in range(3):
+        tele = rng.uniform(80, 680, hpdn.n)
+        rf, rm = sub.step(tele), hmono.step(tele)
+        gap = float(np.max(np.abs(rf.allocation - rm.allocation)))
+        tot = abs(float(rf.allocation.sum() - rm.allocation.sum()))
+        feasibility(hpdn, rf.allocation)
+        if gap > FLEET_MONO_TOL or tot > FLEET_MONO_TOL or not rf.stats["converged"].all():
+            raise AssertionError(f"[12c] step {t}: {gap:.3e} W per device, {tot:.3e} W total "
+                                 "off the monolithic engine")
+        gaps_c.append({"per_device_w": gap, "total_w": tot,
+                       "phase_iterations": rf.stats["phase_iterations"].tolist()})
+    log(f"[12c] homogeneous_fleet(4) at paper size (n={hpdn.n}), subtree grants, {sub.mode}, "
+        f"cold + 2 warm steps vs the monolithic engine: per device "
+        f"{max(g['per_device_w'] for g in gaps_c):.2e} W, total "
+        f"{max(g['total_w'] for g in gaps_c):.2e} W (bar {FLEET_MONO_TOL:g})")
+    report["parity_subtree"] = gaps_c
+
+    # (d) churn on (b)'s fleet
+    life = FleetLifecycle(stacked)
+    tele, act = samples[1], actives[1]
+    churn = []
+
+    def churn_step(tag):
+        res = stacked.step(tele_now[0], active=act_now[0])
+        over = _fleet_feasible(stacked, res.allocation, res.grants)
+        if not res.stats["converged"].all():
+            raise AssertionError(f"[12d] {tag}: not converged")
+        churn.append({"event": tag, "rebuilds": stacked.rebuild_count(), "max_excess_w": over,
+                      "phase_iterations": res.stats["phase_iterations"].tolist()})
+        return res
+
+    tele_now, act_now = [tele], [act]
+    left = np.array([5, 3_100, 9_000])
+    life.device_leave(left)
+    res = churn_step("leave 3 devices")
+    if np.abs(res.allocation[left]).max() > 0.0:
+        raise AssertionError("[12d] a left device got power")
+    stacked.set_domain_supply(2, 0.9)
+    churn_step("hall 2 feed x 0.9")
+    life.device_join(left)
+    churn_step("rejoin")
+    before = stacked.rebuild_count()
+    stacked.rebuild_domain(3, _hall(FLEET_RACKS))
+    keep = np.r_[0:3 * 3_072, 3 * 3_072:3 * 3_072 + _hall(FLEET_RACKS).n]
+    tele_now[0], act_now[0] = tele[keep], act[keep]
+    churn_step(f"hall 3 rebuilt to {FLEET_RACKS} racks")
+    counts = [c["rebuilds"] for c in churn]
+    if counts[:3] != [before] * 3 or counts[3] != before + 1 or life.n_left:
+        raise AssertionError(f"[12d] rebuild counts {counts} (before the rebuild {before})")
+    log(f"[12d] churn on the stacked fleet: " + "; ".join(
+        f"{c['event']}: rebuilds {c['rebuilds']}, iterations {c['phase_iterations']}, max excess "
+        f"{c['max_excess_w']:.2e} W" for c in churn))
+    report["churn"] = churn
+
+    # (e) the simulator in fleet mode, and the cross-tenant scenario
+    def fleet_sim():
+        orch = FleetOrchestrator(pdn, level=1, options=opts, device=cuda)
+        return DatacenterSim.build(pdn, seed=0, orchestrator=orch)
+
+    out = fleet_sim().run(FLEET_SIM_STEPS)
+    pre = fleet_sim().run(FLEET_SIM_STEPS, prefetch=True)
+    for key in ("S_nvpax", "S_static", "S_greedy"):
+        if not np.array_equal(out[key], pre[key]):
+            raise AssertionError(f"[12e] prefetch changed {key}")
+    if (out["S_nvpax"] < out["S_static"] - 1e-9).any():
+        raise AssertionError("[12e] S_nvpax below S_static")
+    cross = DatacenterSim.cross_tenant(device=cuda).run(FLEET_SIM_STEPS // 4)
+    # the same scenario through every kernel flag, on the card and on the CPU
+    hpdn = homogeneous_fleet(4)
+    lay = assign_cross_domain_tenants(hpdn, 1, lo_frac=0.5, hi_frac=0.8, seed=0)
+
+    def flagged_cross(device):
+        orch = RecordingOrchestrator(hpdn, level=1, tenants=lay, options=opts, device=device)
+        sim_ = DatacenterSim.build(hpdn, seed=0, orchestrator=orch, tenants=lay)
+        kernels.reset_launch_counts()
+        out_ = sim_.run(FLEET_SIM_STEPS // 4)
+        sync(device)
+        return out_, orch.allocations, sim_.trace
+
+    cross_flags, cross_x, trace = flagged_cross(cuda)
+    cross_lanes = dict(kernels.lane_launch_counts())
+    cross_launches = dict(kernels.launch_counts())
+    missing = [k for k in ALLOCATOR_KERNELS
+               if not cross_launches[k] or cross_lanes[k] != cross_launches[k]]
+    if missing or min(cross["sla_min_margin"].min(),
+                      cross_flags["sla_min_margin"].min()) < -SLA_FEAS_TOL:
+        raise AssertionError(f"[12e] cross-tenant margins {cross['sla_min_margin']} / "
+                             f"{cross_flags['sla_min_margin']}; kernels not launched over the "
+                             f"domains' lanes: {missing} ({_kernel_calls(cross_launches)})")
+    cross_cpu, cross_cpu_x, _ = flagged_cross("cpu")
+    cross_gaps = [tenant_fleet_quality(f"[12e] interval {t}", hpdn, lay, x, trace.power(t),
+                                       trace.active_mask(t), want=cross_cpu_x[t])
+                  for t, x in enumerate(cross_x)]
+    w = out["wall_ms"]
+    log(f"[12e] DatacenterSim in fleet mode, {FLEET_SIM_STEPS} intervals: S_nvpax "
+        f"{out['S_nvpax'].mean():.6f}, S_static {out['S_static'].mean():.6f}, S_greedy "
+        f"{out['S_greedy'].mean():.6f}; wall per interval mean {w.mean():.1f} ms, median "
+        f"{np.median(w):.1f}, p95 {np.percentile(w, 95):.1f} (prefetch: mean "
+        f"{pre['wall_ms'].mean():.1f} ms, same S values); cross-tenant scenario "
+        f"({FLEET_SIM_STEPS // 4} intervals): S_nvpax {cross['S_nvpax'].mean():.6f}, worst tenant "
+        f"minimum margin {cross['sla_min_margin'].min():.3f} W; with every kernel flag S_nvpax "
+        f"{cross_flags['S_nvpax'].mean():.6f}, worst margin "
+        f"{cross_flags['sla_min_margin'].min():.3f} W, launches "
+        f"{_kernel_calls(cross_launches)}, each over the 4 domains' lanes; against the CPU run "
+        f"of the same intervals: total power {max(g['total_w'] for g in cross_gaps):.2e} W (bar "
+        f"{FLEET_MONO_TOL:g}), useful power {max(g['useful_w'] for g in cross_gaps):.2e} W (bar "
+        f"{PARITY_TOL:g}), per device {max(g['max_abs_w'] for g in cross_gaps):.2e} W, S_nvpax "
+        f"{float(np.max(np.abs(cross_flags['S_nvpax'] - cross_cpu['S_nvpax']))):.2e}; every "
+        f"breaker and tenant bound kept")
+    report["simulation"] = {
+        "S_nvpax": out["S_nvpax"].tolist(), "S_static": out["S_static"].tolist(),
+        "S_greedy": out["S_greedy"].tolist(), "wall_ms": w.tolist(),
+        "prefetch_wall_ms": pre["wall_ms"].tolist(),
+        "cross_tenant": {"S_nvpax": cross["S_nvpax"].tolist(),
+                         "sla_min_margin": cross["sla_min_margin"].tolist(),
+                         "flags_S_nvpax": cross_flags["S_nvpax"].tolist(),
+                         "flags_sla_min_margin": cross_flags["sla_min_margin"].tolist(),
+                         "flags_vs_cpu": cross_gaps,
+                         "flags_cpu_S_nvpax": cross_cpu["S_nvpax"].tolist(),
+                         "launches": cross_launches}}
+
+    tenant_launches, report["tenant_fleet"] = paper_tenant_fleet(pdn, layout, opts, samples[0],
+                                                                  actives[0], cuda, smi)
+    return fleet_launches, tenant_launches, report
 
 
 def _row_err(got, want) -> float:

@@ -1,8 +1,9 @@
 """PyTorch port of the nvPAX allocator for NVIDIA Hopper GPUs.
 
 The package mirrors :mod:`repro` module for module (``core/``,
-``core/solver/``, ``kernels/``, ``pdn/``, ``obs/``, ``power/``, and of the
-data plane ``configs/``, ``models/``, ``training/``, ``launch/``) and is
+``core/solver/``, ``kernels/``, ``pdn/``, ``fleet/``, ``obs/``, ``power/``,
+and of the data plane ``configs/``, ``models/``, ``training/``,
+``launch/``) and is
 held against it by the ``tests/test_torch_*.py`` parity tests.  It imports only ``torch``,
 ``numpy`` and the standard library.
 

@@ -17,7 +17,14 @@ import torch
 from repro_torch.core import solver
 from repro_torch.core.lanes import lane_max, lane_scalar
 from repro_torch.core.problem import INF, AllocProblem, StepProblem
-from repro_torch.core.treeops import sla_matvec, sla_rmatvec, tree_matvec, tree_rmatvec
+from repro_torch.core.treeops import (
+    index_add,
+    sla_matvec,
+    sla_rmatvec,
+    take,
+    tree_matvec,
+    tree_rmatvec,
+)
 from repro_torch.core.waterfill import waterfill_arrays
 
 __all__ = [
@@ -104,13 +111,16 @@ def repair(x: torch.Tensor, ap: AllocProblem, n_depths: int | None = None) -> to
         over = sums > hi
         denom = torch.clamp_min(sums - lmin, 1e-30)
         fac_t = torch.where(over, torch.clamp_min(hi - lmin, 0.0) / denom, 1.0)
-        # per-device factor: min over covering tenants
+        # per-device factor: min over covering tenants (each lane's own
+        # edges with a per-lane incidence)
+        dev = ap.sla.dev if ap.sla.dev.ndim == x.ndim else ap.sla.dev.expand(
+            x.shape[:-1] + ap.sla.dev.shape)
         fac_dev = torch.ones_like(x).scatter_reduce_(
-            -1, ap.sla.dev.expand(x.shape[:-1] + ap.sla.dev.shape), fac_t[..., ap.sla.ten],
-            reduce="amin",
+            -1, dev, take(fac_t, ap.sla.ten), reduce="amin",
         )
         x = l + (x - l) * fac_dev
-    # -- tree caps, one level at a time (ranges at equal depth are disjoint) --
+    # -- tree caps, one level at a time (ranges at equal depth are disjoint;
+    # with per-lane trees each lane sweeps its own, to the deepest lane's depth) --
     tree = ap.tree
     lmin_node = tree_matvec(l, tree)
     for d in range(n_depths):
@@ -123,8 +133,8 @@ def repair(x: torch.Tensor, ap: AllocProblem, n_depths: int | None = None) -> to
         )
         # broadcast factors onto (disjoint) ranges via a difference array
         diff = x.new_zeros(x.shape[:-1] + (n + 1,))
-        diff.index_add_(-1, tree.start, fac_node - 1.0)
-        diff.index_add_(-1, tree.end, -(fac_node - 1.0))
+        index_add(diff, tree.start, fac_node - 1.0)
+        index_add(diff, tree.end, -(fac_node - 1.0))
         fac_dev = 1.0 + torch.cumsum(diff, -1)[..., :n]
         x = l + (x - l) * fac_dev
     return torch.clamp(x, ap.l, ap.u)

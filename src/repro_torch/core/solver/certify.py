@@ -95,11 +95,12 @@ class CertifyDecision(NamedTuple):
 
 def make_carry(ap: AllocProblem, x1: torch.Tensor, x3: torch.Tensor) -> IncrementalCarry:
     """Snapshot a freshly solved step as the next certify anchor (with K
-    lanes the shared caps and tenant bounds are repeated per lane)."""
+    lanes shared caps and tenant bounds are repeated per lane; per-lane
+    ones, a stacked fleet's, are kept as they are)."""
     lead = ap.l.shape[:-1]
 
     def per_lane(v):
-        return v.expand(lead + v.shape) if lead else v
+        return v.expand(lead + v.shape) if lead and v.ndim < ap.l.ndim else v
 
     return IncrementalCarry(
         x1=x1,

@@ -15,7 +15,10 @@ Because devices are DFS-ordered, the tree block is a cumulative sum plus two
 gathers, and its transpose is a difference-array scatter plus a cumulative
 sum — O(n + m) with no sparse data structures.  Every operator takes
 ``[..., n]`` (one scenario, or K lanes over the same topology; see
-:mod:`repro_torch.core.lanes`).  These are the plain PyTorch
+:mod:`repro_torch.core.lanes`).  A topology built from K host topologies
+(``[K, m]`` rows, ``[K, E]`` edges: the K domains of a stacked fleet, see
+:meth:`TreeTopo.make`) gives each of K lanes its own: the gathers read each
+lane's entries and the kernels each lane's index.  These are the plain PyTorch
 operators, with one exception: on a CUDA tensor the sums that scatter (the
 tree adjoint and both tenant sums) go through the deterministic kernels of
 :mod:`repro_torch.kernels.tree_matvec`, because ``index_add_`` on a card
@@ -35,6 +38,7 @@ import torch
 from repro_torch.core.lanes import lane_sum
 from repro_torch.kernels import tree_matvec as tk
 from repro_torch.kernels.tree_matvec import SlaIndex, TreeIndex, sla_index, tree_index
+from repro_torch.kernels.tree_matvec.ref import index_add, take
 
 __all__ = [
     "TreeTopo",
@@ -45,6 +49,8 @@ __all__ = [
     "sla_rmatvec",
     "full_matvec",
     "full_rmatvec",
+    "index_add",
+    "take",
 ]
 
 
@@ -61,30 +67,35 @@ class TreeTopo(NamedTuple):
 
     ``start``/``end`` are int64 for torch indexing; ``index`` holds the
     int32 copies and CSR lists the CUDA kernels take, made once per
-    topology by :meth:`make`.
+    topology by :meth:`make`.  Built from ``[K, m]`` arrays, every leaf has
+    a lane axis: lane j's tree is row j (a stacked fleet's domain j).
     """
 
-    start: torch.Tensor  # [m] int64
-    end: torch.Tensor  # [m] int64
-    cap: torch.Tensor  # [m] float
-    depth: torch.Tensor  # [m] int64 (root = 0); used by the feasibility repair
+    start: torch.Tensor  # [m] int64, or [K, m]
+    end: torch.Tensor  # [m] int64, or [K, m]
+    cap: torch.Tensor  # [m] float, or [K, m]
+    depth: torch.Tensor  # [m] int64 (root = 0), or [K, m]; used by the feasibility repair
     index: TreeIndex
 
     @property
     def m(self) -> int:
-        return self.start.shape[0]
+        return self.start.shape[-1]
 
     @classmethod
-    def make(cls, start, end, cap, depth, n: int, *, dtype, device) -> "TreeTopo":
-        """Build from host arrays (numpy or CPU tensors)."""
+    def make(cls, start, end, cap, depth, n: int, *, dtype, device,
+             cover_capacity: int | None = None) -> "TreeTopo":
+        """Build from host arrays (numpy or CPU tensors), ``[m]`` or K
+        topologies' ``[K, m]`` (each lane's covering-rows list padded to
+        ``cover_capacity``, see :func:`repro_torch.kernels.tree_matvec.tree_index`)."""
         start = np.asarray(start, np.int64)
         end = np.asarray(end, np.int64)
+        kw = {} if start.ndim == 1 else {"capacity": cover_capacity}
         return cls(
             start=_as_index(start, device),
             end=_as_index(end, device),
             cap=_as_float(cap, dtype, device),
             depth=_as_index(depth, device),
-            index=tree_index(start, end, n, device),
+            index=tree_index(start, end, n, device, **kw),
         )
 
 
@@ -96,18 +107,19 @@ class SlaTopo(NamedTuple):
     assumed.  ``lo``/``hi`` are aggregate bounds (+-inf when absent).
     ``index`` holds the int32 copies and CSR lists the CUDA kernels take,
     made once per topology by :meth:`make`; re-pinning the bounds
-    (``_replace(lo=..., hi=...)``) keeps it.
+    (``_replace(lo=..., hi=...)``) keeps it.  Built from ``[K, E]`` edges and
+    ``[K, k]`` bounds, lane j's incidence is row j.
     """
 
-    dev: torch.Tensor  # [nnz] int64
-    ten: torch.Tensor  # [nnz] int64
-    lo: torch.Tensor  # [k] float
-    hi: torch.Tensor  # [k] float
+    dev: torch.Tensor  # [nnz] int64, or [K, nnz]
+    ten: torch.Tensor  # [nnz] int64, or [K, nnz]
+    lo: torch.Tensor  # [k] float, or [K, k]
+    hi: torch.Tensor  # [k] float, or [K, k]
     index: SlaIndex
 
     @property
     def k(self) -> int:
-        return self.lo.shape[0]
+        return self.lo.shape[-1]
 
     @classmethod
     def make(cls, dev, ten, lo, hi, *, n: int, dtype, device) -> "SlaTopo":
@@ -118,7 +130,7 @@ class SlaTopo(NamedTuple):
             ten=_as_index(ten, device),
             lo=lo,
             hi=_as_float(hi, dtype, device),
-            index=sla_index(dev, ten, lo.shape[0], n, device),
+            index=sla_index(dev, ten, lo.shape[-1], n, device),
         )
 
     @classmethod
@@ -129,7 +141,7 @@ class SlaTopo(NamedTuple):
 def tree_matvec(x: torch.Tensor, tree: TreeTopo) -> torch.Tensor:
     """Per-node subtree sums of ``x`` (``[..., n]``) — the tree block of ``K z``."""
     csum = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), torch.cumsum(x, -1)], -1)
-    return csum[..., tree.end] - csum[..., tree.start]
+    return take(csum, tree.end) - take(csum, tree.start)
 
 
 def tree_rmatvec(y: torch.Tensor, tree: TreeTopo, n: int) -> torch.Tensor:

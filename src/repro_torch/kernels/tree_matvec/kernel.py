@@ -20,7 +20,12 @@ raises on a non-zero ``cudaGetLastError``, and counts its launches in
 Every wrapper also takes K lanes of its vectors, ``[K, size]`` contiguous,
 over the one index it is given (the K-scenario path): one launch covers
 the K lanes, each lane's result the bits of a launch on that lane alone;
-such a launch is also counted in :data:`LANE_LAUNCHES`.
+such a launch is also counted in :data:`LANE_LAUNCHES`.  An index built
+from K topologies (``[K, m]`` rows, ``[K, E]`` edges: a stacked fleet's
+domains) carries a lane axis of its own: its arrays are laid end to end per
+lane, and each kernel reads lane L's topology at L times the array's lane
+stride (the stride is 0 for an index shared by every lane).  Such an index
+takes exactly its K lanes.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ __all__ = [
     "primal_step",
     "primal_step_plan",
     "sla_index",
+    "sla_index_update",
     "sla_matvec",
     "sla_rmatvec",
     "scaled_rmatvec",
     "tree_index",
+    "tree_index_update",
     "tree_matvec",
     "tree_rmatvec",
 ]
@@ -72,13 +79,28 @@ class TreeIndex(NamedTuple):
     CSR drives the adjoint as one segmented sum without atomics: the rows
     with ``start_j <= i < end_j`` are ``cover_rows[cover_ptr[i]:cover_ptr[i + 1]]``,
     in ascending row order.
+
+    Built from K topologies every array has a leading lane axis: lane L's
+    rows are ``start[L]``/``end[L]``, its pointers ``cover_ptr[L]`` index its
+    own list ``cover_rows[L]``, which is padded to the index's capacity (the
+    longest list it was sized for), so that :func:`tree_index_update` can
+    rewrite one lane in place.
     """
 
-    start: torch.Tensor  # [m] int32
-    end: torch.Tensor  # [m] int32
-    cover_ptr: torch.Tensor  # [n + 1] int32
-    cover_rows: torch.Tensor  # [sum(end - start)] int32
+    start: torch.Tensor  # [m] int32, or [K, m]
+    end: torch.Tensor  # [m] int32, or [K, m]
+    cover_ptr: torch.Tensor  # [n + 1] int32, or [K, n + 1]
+    cover_rows: torch.Tensor  # [sum(end - start)] int32, or [K, capacity]
     n: int
+
+    @property
+    def m(self) -> int:
+        return self.start.shape[-1]
+
+    @property
+    def lanes(self) -> int:
+        """K for an index of K topologies, 0 for one shared by every lane."""
+        return self.start.shape[0] if self.start.ndim == 2 else 0
 
 
 def _cover(start: np.ndarray, end: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -101,18 +123,12 @@ def _host_index(v) -> np.ndarray:
     return host.astype(np.int64)
 
 
-def tree_index(start, end, n: int, device) -> TreeIndex:
-    """Validate ``0 <= start <= end <= n`` and build the kernel index.
-
-    The covering-rows list has ``sum(end - start)`` entries: ``n x depth``
-    for the rows of a tree (49,152 for the paper's fleet), but up to ``m x n``
-    for rows that overlap at will.  Raises if it does not fit int32."""
-    start, end = _host_index(start), _host_index(end)
-    if start.shape != end.shape or start.ndim != 1:
-        raise ValueError(f"start/end shapes {start.shape}/{end.shape} differ")
+def _check_rows(start: np.ndarray, end: np.ndarray, n: int) -> int:
+    """``0 <= start <= end <= n`` within int32; returns the covering-rows
+    list's length, ``sum(end - start)``."""
     if ((start < 0) | (start > end) | (end > n)).any():
         raise ValueError(f"tree rows must satisfy 0 <= start <= end <= n={n}")
-    if n >= 2**31 or start.shape[0] >= 2**31:
+    if n >= 2**31 or start.shape[-1] >= 2**31:
         raise ValueError(f"n={n} does not fit the kernels' int32 positions")
     total = int((end - start).sum())
     if total >= 2**31:
@@ -120,12 +136,69 @@ def tree_index(start, end, n: int, device) -> TreeIndex:
             f"the rows cover {total} (position, row) pairs, more than the kernels' int32 "
             "covering-rows index holds"
         )
-    c_ptr, c_rows = _cover(start, end, n)
+    return total
 
-    def i32(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    return TreeIndex(i32(start), i32(end), i32(c_ptr), i32(c_rows), int(n))
+def _i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+
+
+def tree_index(start, end, n: int, device, *, capacity: int | None = None) -> TreeIndex:
+    """Validate ``0 <= start <= end <= n`` and build the kernel index.
+
+    The covering-rows list has ``sum(end - start)`` entries: ``n x depth``
+    for the rows of a tree (49,152 for the paper's fleet), but up to ``m x n``
+    for rows that overlap at will.  Raises if it does not fit int32.
+
+    ``[K, m]`` rows build an index of K topologies (one per lane), each
+    lane's covering-rows list padded to ``capacity`` entries (default: the
+    longest lane's)."""
+    start, end = _host_index(start), _host_index(end)
+    if start.shape != end.shape or start.ndim not in (1, 2):
+        raise ValueError(f"start/end shapes {start.shape}/{end.shape} differ")
+    if start.ndim == 1:
+        _check_rows(start, end, n)
+        c_ptr, c_rows = _cover(start, end, n)
+        return TreeIndex(_i32(start, device), _i32(end, device), _i32(c_ptr, device),
+                         _i32(c_rows, device), int(n))
+    if not 1 <= start.shape[0] <= MAX_LANES:
+        raise ValueError(f"{start.shape[0]} topologies: an index takes 1 to {MAX_LANES}")
+    totals = [_check_rows(s, e, n) for s, e in zip(start, end)]
+    capacity = max(totals) if capacity is None else int(capacity)
+    if capacity < max(totals) or capacity >= 2**31:
+        raise ValueError(f"capacity {capacity} does not hold the longest lane's {max(totals)}")
+    ptr = np.zeros((start.shape[0], n + 1), np.int64)
+    rows = np.zeros((start.shape[0], capacity), np.int32)
+    for j, (s, e) in enumerate(zip(start, end)):
+        ptr[j], r = _cover(s, e, n)
+        rows[j, : r.shape[0]] = r
+    return TreeIndex(_i32(start, device), _i32(end, device), _i32(ptr, device),
+                     _i32(rows, device), int(n))
+
+
+def tree_index_update(idx: TreeIndex, lane: int, start, end) -> None:
+    """Rewrite lane ``lane`` of an index of K topologies in place with new
+    rows of the same count: the buffers stay where they are (a captured
+    launch keeps its addresses), the other lanes are not touched.  Raises if
+    the new covering-rows list is longer than the index's capacity."""
+    if not idx.lanes:
+        raise ValueError("tree_index_update takes an index of K topologies")
+    start, end = _host_index(start), _host_index(end)
+    if start.shape != (idx.m,) or end.shape != (idx.m,):
+        raise ValueError(f"lane rows must be ({idx.m},), got {start.shape}/{end.shape}")
+    total = _check_rows(start, end, idx.n)
+    if total > idx.cover_rows.shape[-1]:
+        raise ValueError(
+            f"the new rows cover {total} (position, row) pairs, past the index's capacity "
+            f"{idx.cover_rows.shape[-1]}"
+        )
+    ptr, rows = _cover(start, end, idx.n)
+    padded = np.zeros(idx.cover_rows.shape[-1], np.int32)
+    padded[: rows.shape[0]] = rows
+    dev = idx.start.device
+    for buf, host in ((idx.start, start), (idx.end, end), (idx.cover_ptr, ptr),
+                      (idx.cover_rows, padded)):
+        buf[lane].copy_(_i32(host, dev))
 
 
 class SlaIndex(NamedTuple):
@@ -139,14 +212,21 @@ class SlaIndex(NamedTuple):
     ``y[dev_ten[dev_ptr[d]:dev_ptr[d + 1]]]``.
     """
 
-    dev: torch.Tensor  # [E] int32
-    ten: torch.Tensor  # [E] int32
-    ten_ptr: torch.Tensor  # [k + 1] int32
-    ten_dev: torch.Tensor  # [E] int32: device ids, grouped by tenant
-    dev_ptr: torch.Tensor  # [n + 1] int32
-    dev_ten: torch.Tensor  # [E] int32: tenant ids, grouped by device
+    dev: torch.Tensor  # [E] int32, or [K, E]
+    ten: torch.Tensor  # [E] int32, or [K, E]
+    ten_ptr: torch.Tensor  # [k + 1] int32, or [K, k + 1]
+    ten_dev: torch.Tensor  # [E] int32: device ids, grouped by tenant; or [K, E]
+    dev_ptr: torch.Tensor  # [n + 1] int32, or [K, n + 1]
+    dev_ten: torch.Tensor  # [E] int32: tenant ids, grouped by device; or [K, E]
     k: int
     n: int
+
+    @property
+    def lanes(self) -> int:
+        """K for an index of K incidences (each lane its own ``[E]`` edges,
+        its pointers offsets into its own lists), 0 for one shared by every
+        lane."""
+        return self.dev.shape[0] if self.dev.ndim == 2 else 0
 
 
 def _group(key: np.ndarray, size: int) -> tuple[np.ndarray, np.ndarray]:
@@ -157,26 +237,50 @@ def _group(key: np.ndarray, size: int) -> tuple[np.ndarray, np.ndarray]:
     return np.concatenate([[0], np.cumsum(counts)]), order
 
 
+def _sla_lists(dev: np.ndarray, ten: np.ndarray, k: int, n: int):
+    """(ten_ptr, ten_dev, dev_ptr, dev_ten) of one edge list."""
+    t_ptr, t_order = _group(ten, k)
+    d_ptr, d_order = _group(dev, n)
+    return t_ptr, dev[t_order], d_ptr, ten[d_order]
+
+
 def sla_index(dev, ten, k: int, n: int, device) -> SlaIndex:
     """Validate ``0 <= dev < n``, ``0 <= ten < k`` and build the kernel
-    index."""
+    index; ``[K, E]`` edges build an index of K incidences, one per lane."""
     dev, ten = _host_index(dev), _host_index(ten)
-    if dev.shape != ten.shape or dev.ndim != 1:
+    if dev.shape != ten.shape or dev.ndim not in (1, 2):
         raise ValueError(f"dev/ten shapes {dev.shape}/{ten.shape} differ")
     if ((dev < 0) | (dev >= n)).any() or ((ten < 0) | (ten >= k)).any():
         raise ValueError(f"tenant edges must satisfy 0 <= dev < n={n}, 0 <= ten < k={k}")
-    if max(n, k, dev.shape[0]) >= 2**31:
+    if max(n, k, dev.shape[-1]) >= 2**31:
         raise ValueError("the tenant incidence does not fit the kernels' int32 indices")
-    t_ptr, t_order = _group(ten, k)
-    d_ptr, d_order = _group(dev, n)
+    if dev.ndim == 2:
+        if not 1 <= dev.shape[0] <= MAX_LANES:
+            raise ValueError(f"{dev.shape[0]} incidences: an index takes 1 to {MAX_LANES}")
+        lists = [np.stack(a) for a in zip(*(_sla_lists(d, t, k, n) for d, t in zip(dev, ten)))]
+    else:
+        lists = _sla_lists(dev, ten, k, n)
+    return SlaIndex(_i32(dev, device), _i32(ten, device), *(_i32(a, device) for a in lists),
+                    int(k), int(n))
 
-    def i32(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    return SlaIndex(
-        i32(dev), i32(ten), i32(t_ptr), i32(dev[t_order]), i32(d_ptr), i32(ten[d_order]),
-        int(k), int(n),
-    )
+def sla_index_update(idx: SlaIndex, lane: int, dev, ten) -> None:
+    """Rewrite lane ``lane`` of an index of K incidences in place with a new
+    edge list of the same length (the buffers stay where they are)."""
+    if not idx.lanes:
+        raise ValueError("sla_index_update takes an index of K incidences")
+    dev, ten = _host_index(dev), _host_index(ten)
+    e = idx.dev.shape[-1]
+    if dev.shape != (e,) or ten.shape != (e,):
+        raise ValueError(f"lane edges must be ({e},), got {dev.shape}/{ten.shape}")
+    if ((dev < 0) | (dev >= idx.n)).any() or ((ten < 0) | (ten >= idx.k)).any():
+        raise ValueError(
+            f"tenant edges must satisfy 0 <= dev < n={idx.n}, 0 <= ten < k={idx.k}"
+        )
+    device = idx.dev.device
+    host = (dev, ten) + _sla_lists(dev, ten, idx.k, idx.n)
+    for buf, h in zip(idx[:6], host):
+        buf[lane].copy_(_i32(h, device))
 
 
 def _check_vec(name: str, v: torch.Tensor, size: int, lead: tuple = ()) -> None:
@@ -199,6 +303,21 @@ def _lead(v: torch.Tensor) -> tuple:
     if v.ndim == 2 and not 1 <= v.shape[0] <= MAX_LANES:
         raise ValueError(f"{v.shape[0]} lanes: a launch takes 1 to {MAX_LANES}")
     return tuple(v.shape[:-1])
+
+
+def _lane_stride(t: torch.Tensor) -> int:
+    """The lane stride of an index array: its row length with a lane axis,
+    0 when every lane shares it."""
+    return t.shape[-1] if t.ndim == 2 else 0
+
+
+def _check_lanes(idx, lead: tuple) -> None:
+    """An index of K topologies takes exactly K lanes."""
+    if idx.lanes and lead != (idx.lanes,):
+        raise ValueError(
+            f"an index of {idx.lanes} topologies takes [{idx.lanes}, size] lanes, got "
+            f"{'one vector' if not lead else f'{lead[0]} lanes'}"
+        )
 
 
 def _count(name: str, lead: tuple) -> None:
@@ -227,11 +346,12 @@ def tree_matvec(x: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
     """out[j] = sum x[start_j:end_j]: one launch scans the tiles, waits for
     all of them, and gathers the rows (for each lane of ``[K, n]`` lanes)."""
     n = idx.n
-    m = idx.start.shape[0]
+    m = idx.m
     lead = _lead(x)
     lanes = lead[0] if lead else 1
     _check_vec("x", x, n, lead)
     _check_index(idx, x.device)
+    _check_lanes(idx, lead)
     out = torch.empty(lead + (m,), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
@@ -251,7 +371,7 @@ def tree_matvec(x: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
         out.data_ptr(),
         n,
         m,
-        0,  # one topology for every lane
+        _lane_stride(idx.start),  # 0: one topology for every lane
         lanes,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -264,8 +384,9 @@ def tree_rmatvec(y: torch.Tensor, idx: TreeIndex) -> torch.Tensor:
     """Adjoint: out[i] = sum of y over the rows covering position i, in
     ascending row order: one segmented-sum launch over the covering-rows
     CSR."""
-    _check_vec("y", y, idx.start.shape[0], _lead(y))
+    _check_vec("y", y, idx.m, _lead(y))
     _check_index(idx, y.device)
+    _check_lanes(idx, _lead(y))
     return _segment_sums("tree_rmatvec", y, idx.cover_ptr, idx.cover_rows, idx.n)
 
 
@@ -279,10 +400,10 @@ def _check_sla_index(idx: SlaIndex, device: torch.device) -> None:
 def _segment_sums(name, v, ptr, ids, nseg, entry="segment_sums"):
     """Sums over CSR lists through ``entry``: ``segment_sums`` (a thread per
     list) or ``sla_matvec`` (a warp per list); each lane of ``v`` over the
-    same lists."""
+    same lists, or over its own (``[K, ...]`` lists)."""
     lead = tuple(v.shape[:-1])
     out = torch.empty(lead + (nseg,), dtype=v.dtype, device=v.device)
-    if ids.shape[0] == 0:
+    if ids.shape[-1] == 0:
         return out.zero_()  # no edges: zeros without a launch
     fn = getattr(_build.library(), f"{entry}_{_suffix(v.dtype)}")
     err = fn(
@@ -290,9 +411,9 @@ def _segment_sums(name, v, ptr, ids, nseg, entry="segment_sums"):
         v.data_ptr(),
         v.shape[-1],  # a lane's values
         ptr.data_ptr(),
-        0,  # one index for every lane
+        _lane_stride(ptr),  # 0: one index for every lane
         ids.data_ptr(),
-        0,
+        _lane_stride(ids),
         nseg,
         lead[0] if lead else 1,
         out.data_ptr(),
@@ -308,6 +429,7 @@ def sla_matvec(x: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
     tenant gathers, one lane adds."""
     _check_vec("x", x, idx.n, _lead(x))
     _check_sla_index(idx, x.device)
+    _check_lanes(idx, _lead(x))
     return _segment_sums("sla_matvec", x, idx.ten_ptr, idx.ten_dev, idx.k, entry="sla_matvec")
 
 
@@ -315,6 +437,7 @@ def sla_rmatvec(y: torch.Tensor, idx: SlaIndex) -> torch.Tensor:
     """Adjoint: out[d] = sum of y over device d's tenants, in edge order."""
     _check_vec("y", y, idx.k, _lead(y))
     _check_sla_index(idx, y.device)
+    _check_lanes(idx, _lead(y))
     return _segment_sums("sla_rmatvec", y, idx.dev_ptr, idx.dev_ten, idx.n)
 
 
@@ -328,14 +451,18 @@ def _check_like(like: torch.Tensor, named) -> None:
             raise ValueError(f"{name} must be {like.dtype} on {like.device}")
 
 
-def _check_indexes(tree_idx: TreeIndex, sla_idx: SlaIndex, device: torch.device) -> None:
+def _check_indexes(tree_idx: TreeIndex, sla_idx: SlaIndex, device: torch.device,
+                   lead: tuple) -> None:
     """The scaled adjoint's two indexes on ``device``, over the same
-    devices; the tenant one is read only when it has tenants."""
+    devices, for these lanes; the tenant one is read only when it has
+    tenants."""
     _check_index(tree_idx, device)
+    _check_lanes(tree_idx, lead)
     if sla_idx.k:
         if sla_idx.n != tree_idx.n:
             raise ValueError(f"the tenant index is for n={sla_idx.n} devices, not {tree_idx.n}")
         _check_sla_index(sla_idx, device)
+        _check_lanes(sla_idx, lead)
 
 
 def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: TreeIndex,
@@ -344,12 +471,12 @@ def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: Tre
     rows' ``d_tree * y_tree`` summed in list order, then (k > 0) its tenants'
     ``d_sla * y_sla``, then ``yi = d_imp * y_imp`` added, then the product
     with ``sm = s * mov``; the bits of :func:`.ref.scaled_rmatvec_ref`."""
-    n, m, k = tree_idx.n, tree_idx.start.shape[0], sla_idx.k
+    n, m, k = tree_idx.n, tree_idx.m, sla_idx.k
     _check_like(y_imp, (("y_imp", y_imp, n), ("d_imp", d_imp, n), ("sm", sm, n),
                         ("y_tree", y_tree, m), ("d_tree", d_tree, m),
                         ("y_sla", y_sla, k), ("d_sla", d_sla, k)))
-    _check_indexes(tree_idx, sla_idx, y_imp.device)
     lead = _lead(y_imp)
+    _check_indexes(tree_idx, sla_idx, y_imp.device, lead)
     gx = torch.empty_like(y_imp)
     yi = torch.empty_like(y_imp)
     adj = _adjoint(y_tree, d_tree, y_sla, d_sla, y_imp, d_imp, sm, tree_idx, sla_idx)
@@ -363,7 +490,8 @@ def scaled_rmatvec(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx: Tre
 
 def _adjoint(y_tree, d_tree, y_sla, d_sla, y_imp, d_imp, sm, tree_idx, sla_idx):
     """The ``ScaledAdjoint`` of these tensors (``None`` duals: a null
-    pointer, filled in per call), the indexes shared by every lane."""
+    pointer, filled in per call), each index read through its lane strides
+    (0 when every lane shares it)."""
 
     def ptr(v):
         return None if v is None else v.data_ptr()
@@ -373,8 +501,9 @@ def _adjoint(y_tree, d_tree, y_sla, d_sla, y_imp, d_imp, sm, tree_idx, sla_idx):
         cover_rows=tree_idx.cover_rows.data_ptr(), y_sla=ptr(y_sla), d_sla=ptr(d_sla),
         dev_ptr=sla_idx.dev_ptr.data_ptr(), dev_ten=sla_idx.dev_ten.data_ptr(),
         y_imp=ptr(y_imp), d_imp=ptr(d_imp), sm=ptr(sm), k=sla_idx.k, n=tree_idx.n,
-        m=tree_idx.start.shape[0], cover_ptr_lane=0, cover_rows_lane=0, dev_ptr_lane=0,
-        dev_ten_lane=0,
+        m=tree_idx.m, cover_ptr_lane=_lane_stride(tree_idx.cover_ptr),
+        cover_rows_lane=_lane_stride(tree_idx.cover_rows),
+        dev_ptr_lane=_lane_stride(sla_idx.dev_ptr), dev_ten_lane=_lane_stride(sla_idx.dev_ten),
     )
 
 
@@ -392,12 +521,12 @@ def primal_step_plan(data: PrimalStepData) -> PrimalStepPlan:
     """Check the solve's fixed inputs of :func:`primal_step` once: CUDA
     tensors of one float dtype, contiguous, of the index's sizes."""
     tree_idx, sla_idx = data.tree_idx, data.sla_idx
-    n, m, k = tree_idx.n, tree_idx.start.shape[0], sla_idx.k
+    n, m, k = tree_idx.n, tree_idx.m, sla_idx.k
     like = data.sm
     _check_like(like, [(name, getattr(data, name), size) for name, size in (
         ("c", n), ("w", n), ("target", n), ("lo", n), ("hi", n), ("d_tree", m), ("d_sla", k),
         ("d_imp", n), ("sm", n))])
-    _check_indexes(tree_idx, sla_idx, like.device)
+    _check_indexes(tree_idx, sla_idx, like.device, _lead(like))
     adj = _adjoint(None, data.d_tree, None, data.d_sla, None, data.d_imp, data.sm, tree_idx,
                    sla_idx)
     fixed = _build.PrimalStepArgs(

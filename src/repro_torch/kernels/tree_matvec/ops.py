@@ -7,7 +7,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tree_matvec import kernel
-from repro_torch.kernels.tree_matvec.kernel import SlaIndex, TreeIndex, sla_index, tree_index
+from repro_torch.kernels.tree_matvec.kernel import (
+    SlaIndex,
+    TreeIndex,
+    sla_index,
+    sla_index_update,
+    tree_index,
+    tree_index_update,
+)
 from repro_torch.kernels.tree_matvec.ref import (
     PrimalStepData,
     primal_step_ref,
@@ -23,12 +30,14 @@ __all__ = [
     "SlaIndex",
     "TreeIndex",
     "sla_index",
+    "sla_index_update",
     "sla_matvec",
     "sla_rmatvec",
     "scaled_rmatvec",
     "primal_step",
     "primal_step_plan",
     "tree_index",
+    "tree_index_update",
     "tree_matvec",
     "tree_rmatvec",
 ]

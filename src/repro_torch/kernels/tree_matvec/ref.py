@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the tree and tenant matvec kernels: the CPU path of
 :mod:`.ops` and the oracle the CUDA kernels are held against.  Each takes
 ``[..., n]``: a vector, or ``[K, n]`` for K lanes over the same rows, each
-lane's row summed as the vector would be."""
+lane's row summed as the vector would be.  Rows and edges given as ``[K, m]``
+/ ``[K, E]`` are each lane's own topology (a stacked fleet's domains): the
+gathers read each lane's own entries, and the scatters run lane by lane, the
+one-vector call on each lane's row, so that every lane gets the bits of the
+vector call on its own topology."""
 
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ from repro_torch.kernels.pdhg_update.ref import primal_update_ref
 
 __all__ = [
     "PrimalStepData",
+    "index_add",
+    "take",
     "tree_matvec_ref",
     "tree_rmatvec_ref",
     "sla_matvec_ref",
@@ -22,11 +28,34 @@ __all__ = [
 ]
 
 
+def take(v, idx):
+    """``v[..., idx]``; with ``[K, size]`` indices (each lane its own), lane
+    j's entries of ``v[j]``."""
+    if idx.ndim == 1:
+        return v[..., idx]
+    return torch.gather(v, -1, idx.to(torch.int64))
+
+
+def index_add(out, idx, src):
+    """``out.index_add_(-1, idx, src)``, in place: the entries of ``src``
+    added in index order.  With ``[K, size]`` indices each lane adds its
+    own, lane by lane on the CPU (the one-vector call on each row, so each
+    lane has the bits of that call) and in one ``scatter_add_`` on a card,
+    where ``index_add_`` adds with atomics in no fixed order either."""
+    if idx.ndim == 1:
+        return out.index_add_(-1, idx, src)
+    if out.device.type == "cpu":
+        for j in range(out.shape[0]):
+            out[j].index_add_(0, idx[j], src[j])
+        return out
+    return out.scatter_add_(-1, idx.to(torch.int64), src)
+
+
 def tree_matvec_ref(x, start, end):
     """Subtree sums over DFS-contiguous ranges: out[j] = sum x[start_j:end_j]."""
     zero = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
     csum = torch.cat([zero, torch.cumsum(x, -1)], -1)
-    return csum[..., end] - csum[..., start]
+    return take(csum, end) - take(csum, start)
 
 
 def tree_rmatvec_ref(y, start, end, n):
@@ -34,8 +63,8 @@ def tree_rmatvec_ref(y, start, end, n):
     Difference-array scatter (row order, as a sequential ``index_add_``)
     plus a prefix sum."""
     diff = torch.zeros(y.shape[:-1] + (n + 1,), dtype=y.dtype, device=y.device)
-    diff.index_add_(-1, start, y)
-    diff.index_add_(-1, end, -y)
+    index_add(diff, start, y)
+    index_add(diff, end, -y)
     return torch.cumsum(diff, -1)[..., :n]
 
 
@@ -43,13 +72,13 @@ def sla_matvec_ref(x, dev, ten, k):
     """Per-tenant sums over the incidence edge list:
     out[t] = sum_{e: ten_e = t} x[dev_e], added in edge order."""
     out = torch.zeros(x.shape[:-1] + (k,), dtype=x.dtype, device=x.device)
-    return out.index_add_(-1, ten, x[..., dev])
+    return index_add(out, ten, take(x, dev))
 
 
 def sla_rmatvec_ref(y, dev, ten, n):
     """Adjoint: out[d] = sum_{e: dev_e = d} y[ten_e], added in edge order."""
     out = torch.zeros(y.shape[:-1] + (n,), dtype=y.dtype, device=y.device)
-    return out.index_add_(-1, dev, y[..., ten])
+    return index_add(out, dev, take(y, ten))
 
 
 def scaled_rmatvec_ref(y_tree, y_sla, y_imp, d_tree, d_sla, d_imp, sm, tree_idx, sla_idx):

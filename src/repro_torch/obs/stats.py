@@ -6,7 +6,8 @@ subclasses ``dict`` so consumers can index it (``stats["total_solves"]``,
 both present as keys, and canonical fields are additionally readable as
 attributes (``stats.solves``).  :meth:`StepStats.from_tensors` is the
 counterpart of the reference's ``from_jit`` for the one-scenario engine,
-:meth:`StepStats.from_lanes` for K scenarios.
+:meth:`StepStats.from_lanes` for K scenarios (K what-if lanes, or a
+stacked fleet's K domains).
 """
 
 from __future__ import annotations

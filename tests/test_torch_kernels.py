@@ -821,3 +821,141 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pk_kernel.check_chunk_stats((x, x, x, x), (y, y, y), (x, x, x), x[0], x[0], x[:1],
                                     x[:1], 1.0)
+
+
+# ---------------------------------------------------------------------------
+# per-lane topology: an index of K topologies (a stacked fleet's domains)
+# ---------------------------------------------------------------------------
+
+LANE_SIZES = ([2, 2], [3, 2, 2], [1, 3])  # three trees of different shapes
+
+
+def _lane_topologies(rng, lanes: int):
+    """``lanes`` trees of different shapes padded as the fleet pads them
+    (padded devices beyond a tree's n, padded rows the empty range [N, N)),
+    and random tenant edges padded to a common E, the pads pointing device
+    0 at the last tenant row.  Returns (N, starts, ends, devs, tens, k)."""
+    pdns = [build_from_level_sizes(LANE_SIZES[j % len(LANE_SIZES)], gpus_per_server=4)
+            for j in range(lanes)]
+    N = max(p.n for p in pdns)
+    M = max(p.m for p in pdns)
+    k = 6
+    starts = np.full((lanes, M), N, np.int64)
+    ends = np.full((lanes, M), N, np.int64)
+    for j, p in enumerate(pdns):
+        starts[j, : p.m], ends[j, : p.m] = p.node_start, p.node_end
+    counts = rng.integers(5, 30, lanes)
+    E = int(counts.max())
+    devs = np.zeros((lanes, E), np.int64)
+    tens = np.full((lanes, E), k - 1, np.int64)
+    for j, (p, c) in enumerate(zip(pdns, counts)):
+        devs[j, :c] = rng.integers(0, p.n, c)
+        tens[j, :c] = rng.integers(0, k - 1, c)
+    return N, starts, ends, devs, tens, k
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lane_topology_plain_versions_match_reference(lanes, dtype):
+    """The plain tree and tenant sums over an index of K topologies: lane j
+    against the reference's Pallas kernels (interpret mode) on lane j's
+    own rows and edges, and bit for bit against the port's one-topology
+    call on that lane."""
+    rng = np.random.default_rng(40 + lanes)
+    N, starts, ends, devs, tens, k = _lane_topologies(rng, lanes)
+    tidx = tk.tree_index(starts, ends, N, "cpu")
+    sidx = tk.sla_index(devs, tens, k, N, "cpu")
+    assert tidx.lanes == lanes and sidx.lanes == lanes
+    x = rng.normal(size=(lanes, N)).astype(dtype)
+    y = rng.normal(size=(lanes, starts.shape[1])).astype(dtype)
+    ys = rng.normal(size=(lanes, k)).astype(dtype)
+    got = [tk.tree_matvec(torch.as_tensor(x), tidx), tk.tree_rmatvec(torch.as_tensor(y), tidx),
+           tk.sla_matvec(torch.as_tensor(x), sidx), tk.sla_rmatvec(torch.as_tensor(ys), sidx)]
+    for j in range(lanes):
+        with enable_x64(dtype == np.float64):
+            s, e = jnp.asarray(starts[j]), jnp.asarray(ends[j])
+            d, t = jnp.asarray(devs[j]), jnp.asarray(tens[j])
+            jx, jy, jys = (jnp.asarray(v[j], JNP[dtype]) for v in (x, y, ys))
+            want = [j_tree_matvec(jx, s, e), j_tree_rmatvec(jy, s, e, N),
+                    j_sla_matvec(jx, d, t, k, edge_block=EDGE_BLOCK),
+                    j_sla_rmatvec(jys, d, t, N, edge_block=EDGE_BLOCK)]
+        one_t = tk.tree_index(starts[j], ends[j], N, "cpu")
+        one_s = tk.sla_index(devs[j], tens[j], k, N, "cpu")
+        one = [tk.tree_matvec(torch.as_tensor(x[j]), one_t),
+               tk.tree_rmatvec(torch.as_tensor(y[j]), one_t),
+               tk.sla_matvec(torch.as_tensor(x[j]), one_s),
+               tk.sla_rmatvec(torch.as_tensor(ys[j]), one_s)]
+        for g, w, o in zip(got, want, one):
+            _close(g[j], w, dtype=dtype)
+            assert torch.equal(g[j], o)
+
+
+def test_lane_index_lists_are_each_lanes_own_and_update_in_place():
+    """An index of K topologies holds lane j's one-topology lists (the
+    covering rows padded to the capacity, the tenant CSR as built alone);
+    ``tree_index_update`` / ``sla_index_update`` rewrite one lane in the
+    same buffers and refuse a covering-rows list past the capacity."""
+    rng = np.random.default_rng(7)
+    N, starts, ends, devs, tens, k = _lane_topologies(rng, 3)
+    depth = 4
+    tidx = tk.tree_index(starts, ends, N, "cpu", capacity=N * depth)
+    sidx = tk.sla_index(devs, tens, k, N, "cpu")
+    assert tidx.cover_rows.shape == (3, N * depth)
+    for j in range(3):
+        one = tk.tree_index(starts[j], ends[j], N, "cpu")
+        assert torch.equal(tidx.cover_ptr[j], one.cover_ptr)
+        used = one.cover_rows.shape[0]
+        assert torch.equal(tidx.cover_rows[j, :used], one.cover_rows)
+        one_s = tk.sla_index(devs[j], tens[j], k, N, "cpu")
+        for f in ("dev", "ten", "ten_ptr", "ten_dev", "dev_ptr", "dev_ten"):
+            assert torch.equal(getattr(sidx, f)[j], getattr(one_s, f)), f
+    before = [t.clone() for t in tidx[:4]]
+    ptrs = [t.data_ptr() for t in tidx[:4]]
+    tk.tree_index_update(tidx, 1, starts[0], ends[0])
+    assert [t.data_ptr() for t in tidx[:4]] == ptrs
+    for f, (new, old) in enumerate(zip(tidx[:4], before)):
+        assert torch.equal(new[0], old[0]) and torch.equal(new[2], old[2]), f
+        assert torch.equal(new[1], new[0]), f
+    tk.sla_index_update(sidx, 2, devs[0], tens[0])
+    assert torch.equal(sidx.dev_ten[2], sidx.dev_ten[0])
+    with pytest.raises(ValueError, match="capacity"):
+        tk.tree_index_update(tidx, 0, np.zeros(starts.shape[1], np.int64),
+                             np.full(starts.shape[1], N, np.int64))
+    with pytest.raises(ValueError, match="capacity"):
+        tk.tree_index(starts, ends, N, "cpu", capacity=1)
+
+
+@pytest.mark.parametrize("with_tenants", [False, True])
+def test_lane_topology_scaled_adjoint_and_primal_step_plain(with_tenants):
+    """The scaled adjoint and the primal step over indexes of K topologies:
+    each lane the bits of the one-topology call on its own indexes."""
+    rng = np.random.default_rng(11)
+    lanes = 3
+    N, starts, ends, devs, tens, k = _lane_topologies(rng, lanes)
+    if not with_tenants:
+        devs, tens, k = devs[:, :0], tens[:, :0], 0
+    tidx = tk.tree_index(starts, ends, N, "cpu")
+    sidx = tk.sla_index(devs, tens, k, N, "cpu")
+    m = starts.shape[1]
+
+    def vec(size, pos=False):
+        v = torch.as_tensor(rng.normal(size=(lanes, size)))
+        return v.abs() + 0.1 if pos else v
+
+    yt, ys, yi, x = vec(m), vec(k), vec(N), vec(N)
+    dt, ds, di, sm = vec(m, True), vec(k, True), vec(N, True), vec(N, True)
+    c, w, target, lo = vec(N), vec(N, True), vec(N), vec(N) - 1.0
+    hi, tau = lo + vec(N, True), vec(N, True)
+    gx, yo = tk.scaled_rmatvec(yt, ys, yi, dt, ds, di, sm, tidx, sidx)
+    data = tk.PrimalStepData(c, w, target, lo, hi, dt, ds, di, sm, tidx, sidx)
+    step = tk.primal_step(x, yt, ys, yi, tau, tk.primal_step_plan(data))
+    for j in range(lanes):
+        one_t = tk.tree_index(starts[j], ends[j], N, "cpu")
+        one_s = tk.sla_index(devs[j], tens[j], k, N, "cpu")
+        g1, y1 = tk.scaled_rmatvec(yt[j], ys[j], yi[j], dt[j], ds[j], di[j], sm[j], one_t, one_s)
+        assert torch.equal(gx[j], g1) and torch.equal(yo[j], y1)
+        d1 = tk.PrimalStepData(c[j], w[j], target[j], lo[j], hi[j], dt[j], ds[j], di[j], sm[j],
+                               one_t, one_s)
+        s1 = tk.primal_step(x[j], yt[j], ys[j], yi[j], tau[j], tk.primal_step_plan(d1))
+        for a, b in zip(step, s1):
+            assert torch.equal(a[j], b)

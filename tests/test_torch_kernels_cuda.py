@@ -1202,3 +1202,156 @@ def test_batched_solve_runs_the_lane_kernels(cuda):
            for t in tb]
     np.testing.assert_allclose(optimize_batched(aps, opts).allocation, res.allocation, rtol=0,
                                atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# per-lane topology: indexes of K topologies (a stacked fleet's domains)
+# ---------------------------------------------------------------------------
+
+
+def _topology_lanes(cuda, gen, lanes, n, m, k):
+    """K distinct topologies over n positions laid out as the fleet lays
+    them: each lane a random tree of at most m rows padded with the empty
+    row [n, n), and random tenant edges padded to the longest lane's count
+    with edges from device 0 to the last row.  Returns the K-topology tree
+    and tenant indexes and each lane's own one-topology indexes."""
+    starts = np.full((lanes, m), n, np.int64)
+    ends = np.full((lanes, m), n, np.int64)
+    counts = gen.integers(k, 12 * k, lanes) if k else np.zeros(lanes, np.int64)
+    e_max = int(counts.max())
+    devs = np.zeros((lanes, e_max), np.int64)
+    tens = np.full((lanes, e_max), max(k - 1, 0), np.int64)
+    for j in range(lanes):
+        s, e = _nested_rows(gen, n - j, m)  # each lane its own device count
+        s[0], e[0] = 0, n - j
+        starts[j, : s.size], ends[j, : e.size] = s, e
+        devs[j, : counts[j]] = gen.integers(0, n - j, counts[j])
+        tens[j, : counts[j]] = gen.integers(0, max(k - 1, 1), counts[j])
+    tidx = tk.tree_index(starts, ends, n, cuda)
+    sidx = tk.sla_index(devs, tens, k, n, cuda)
+    ones = [(tk.tree_index(starts[j], ends[j], n, cuda), tk.sla_index(devs[j], tens[j], k, n, cuda))
+            for j in range(lanes)]
+    return tidx, sidx, ones
+
+
+# (n, m, k): the paper fleet cut into 4 halls (3,072 devices, 409 rows per
+# hall; Appendix B's tenants), the uncut fleet, and past tree_matvec's
+# one-cluster size (its cooperative path)
+TOPOLOGY_SHAPES = [(3_072, 409, 100), (12_288, 1_637, 100), (16_385, 1_637, 7)]
+
+
+@pytest.mark.parametrize("n, m, k", TOPOLOGY_SHAPES)
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_topology_lanes_give_each_lane_its_own_topologys_bits(cuda, n, m, k, lanes, dtype):
+    """Every tree and tenant kernel over an index of K topologies is one
+    launch per call, and lane j has the bits of a one-lane launch on lane
+    j's own index."""
+    gen = np.random.default_rng(100 + lanes)
+    tidx, sidx, ones = _topology_lanes(cuda, gen, lanes, n, m, k)
+
+    def vec(size, pos=False):
+        v = torch.as_tensor(gen.normal(size=(lanes, size)), dtype=dtype, device=cuda)
+        return v.abs() + 0.1 if pos else v
+
+    x, yt, ys, yi = vec(n), vec(m), vec(k), vec(n)
+    dt, ds, di, sm = vec(m, True), vec(k, True), vec(n, True), vec(n, True)
+    c, w, target, lo = vec(n), vec(n, True), vec(n), vec(n) - 1.0
+    hi, tau = lo + vec(n, True), vec(n, True)
+    data = tk.PrimalStepData(c, w, target, lo, hi, dt, ds, di, sm, tidx, sidx)
+
+    def step_one(j):
+        t1, s1 = ones[j]
+        d1 = tk.PrimalStepData(c[j], w[j], target[j], lo[j], hi[j], dt[j], ds[j], di[j], sm[j],
+                               t1, s1)
+        return tk.primal_step(x[j], yt[j], ys[j], yi[j], tau[j], tk.primal_step_plan(d1))
+
+    cases = {
+        "tree_matvec": (lambda: (tk.tree_matvec(x, tidx),),
+                        lambda j: (tk.tree_matvec(x[j], ones[j][0]),)),
+        "tree_rmatvec": (lambda: (tk.tree_rmatvec(yt, tidx),),
+                         lambda j: (tk.tree_rmatvec(yt[j], ones[j][0]),)),
+        "sla_matvec": (lambda: (tk.sla_matvec(x, sidx),),
+                       lambda j: (tk.sla_matvec(x[j], ones[j][1]),)),
+        "sla_rmatvec": (lambda: (tk.sla_rmatvec(ys, sidx),),
+                        lambda j: (tk.sla_rmatvec(ys[j], ones[j][1]),)),
+        "scaled_rmatvec": (
+            lambda: tk.scaled_rmatvec(yt, ys, yi, dt, ds, di, sm, tidx, sidx),
+            lambda j: tk.scaled_rmatvec(yt[j], ys[j], yi[j], dt[j], ds[j], di[j], sm[j], *ones[j])),
+        "primal_step": (lambda: tk.primal_step(x, yt, ys, yi, tau, tk.primal_step_plan(data)),
+                        step_one),
+    }
+    for name, (many, one) in cases.items():
+        reset_launch_counts()
+        got = many()
+        assert launch_counts()[name] == 1, (name, launch_counts())
+        for j in range(lanes):
+            want = one(j)
+            torch.cuda.synchronize()
+            for g, wv in zip(got, want):
+                assert torch.equal(_bits(g[j].reshape(-1)), _bits(wv.reshape(-1))), (name, j)
+
+
+def test_topology_lanes_take_exactly_their_lanes(cuda):
+    """An index of K topologies refuses one vector or another lane count."""
+    gen = np.random.default_rng(3)
+    tidx, sidx, _ = _topology_lanes(cuda, gen, 3, 64, 9, 4)
+    for lanes in ((), (2,)):
+        x = torch.zeros(lanes + (64,), dtype=torch.float64, device=cuda)
+        with pytest.raises(ValueError, match="topologies"):
+            tk.tree_matvec(x, tidx)
+        with pytest.raises(ValueError, match="topologies"):
+            tk.sla_matvec(x, sidx)
+
+
+@pytest.mark.parametrize("tenants", [False, True])
+def test_stacked_fleet_runs_the_topology_lanes(cuda, tenants):
+    """A stacked fleet on the card with every kernel flag: every allocator
+    kernel launched over the K domains.  Without tenants the step is within
+    1e-9 W of the loop mode on the card and of the stacked mode on the CPU,
+    with equal iterations per domain and phase; the eps-degenerate tenant
+    LPs are held at the quality level (total power within 1e-6 W, every
+    contract and breaker kept)."""
+    from repro_torch.core.nvpax import NvpaxOptions
+    from repro_torch.core.solver import SolverOptions
+    from repro_torch.fleet import FleetOrchestrator
+    from repro_torch.kernels import lane_launch_counts
+    from repro_torch.pdn.hierarchy_gen import homogeneous_fleet
+    from repro_torch.pdn.tenants import assign_cross_domain_tenants
+
+    pdn = homogeneous_fleet(4, root_oversub=0.8)
+    lay = assign_cross_domain_tenants(pdn, 1, seed=3) if tenants else None
+    # the reference's tenant-parity tolerance, so that the contract rows
+    # land on their vertex (at the default 1e-6 a minimum is met to ~3e-7 of
+    # itself, 2.4e-4 W at 840 W)
+    tight = dict(eps_abs=1e-11, eps_rel=1e-11, max_iters=20_000) if tenants else {}
+    opts = NvpaxOptions(solver=SolverOptions(use_pallas=True, use_pallas_tree=True,
+                                             use_pallas_stats=True, **tight))
+    tele = np.random.default_rng(4).uniform(100, 650, pdn.n)
+    runs = {}
+    for mode, device in (("stacked", cuda), ("loop", cuda), ("stacked", "cpu")):
+        orch = FleetOrchestrator(pdn, level=1, tenants=lay, mode=mode, options=opts,
+                                 device=device)
+        reset_launch_counts()
+        runs[mode, str(device)] = orch.step(tele)
+        if (mode, device) == ("stacked", cuda):
+            counts, lane_counts = launch_counts(), lane_launch_counts()
+            used = [k for k in ALLOCATOR_KERNELS if tenants or not k.startswith("sla")]
+            assert all(counts[k] > 0 for k in used if k != "sla_rmatvec"), counts
+            assert all(lane_counts[k] == counts[k] for k in ALLOCATOR_KERNELS), lane_counts
+    ref = runs["stacked", "cuda"]
+    csum_of = np.concatenate
+    for key, res in runs.items():
+        x = res.allocation
+        csum = csum_of([[0.0], np.cumsum(x)])
+        assert (csum[pdn.node_end] - csum[pdn.node_start] <= pdn.node_cap + 1e-6).all(), key
+        if not tenants:
+            np.testing.assert_allclose(x, ref.allocation, rtol=0, atol=1e-9, err_msg=str(key))
+            np.testing.assert_array_equal(res.stats["phase_iterations"],
+                                          ref.stats["phase_iterations"])
+            continue
+        assert abs(x.sum() - ref.allocation.sum()) <= 1e-6, key
+        owned = lay.tenant_of >= 0
+        sums = np.bincount(lay.tenant_of[owned], weights=x[owned], minlength=lay.n_tenants)
+        # the reference's own bar on tenant sums (tests/test_fleet_sla.py)
+        assert (sums >= lay.b_min - 1e-4).all() and (sums <= lay.b_max + 1e-4).all(), key

@@ -129,20 +129,22 @@ def test_datacenter_sim_records_stage_spans(fleets):
 
 
 def test_unported_modes_raise(fleets):
-    """Fleet mode, prefetch and the recorder name their ROADMAP items."""
+    """The recorder and the sharded fleet dispatch name their ROADMAP items;
+    fleet mode builds (``tests/test_torch_fleet.py`` holds it, the
+    cross-tenant scenario and prefetch to the reference)."""
+    from repro_torch.fleet import FleetOrchestrator
+
     _, pdn = fleets
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        DatacenterSim.build(pdn, fleet_level=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        DatacenterSim.build(pdn, orchestrator=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        DatacenterSim.cross_tenant()
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         DatacenterSim.build(pdn, recorder=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        DatacenterSim.build(pdn, fleet_level=1, recorder=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
+        FleetOrchestrator(pdn, level=1, mode="sharded", device="cpu")
     sim = DatacenterSim.build(pdn, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        sim.run(1, prefetch=True)
     assert sim.flush_flight() is None
+    fleet = DatacenterSim.build(pdn, fleet_level=1, device="cpu")
+    assert fleet.orchestrator.k == 2 and fleet.flush_flight() is None
 
 
 def test_paper_scale_engine_waterfill_matches_reference_engine():
