@@ -160,6 +160,19 @@ Phases, each of which raises on failure:
    datacenter with Appendix B's tenants split at the cut (its launches are
    the kernels line's ``launches_tenant_fleet``), its wall and
    ``primal_step``'s share of the device time.
+13. the flight recorder, see :func:`recorder_phase`: (a) an incremental
+   ``AllocEngine(build_datacenter(), recorder=True)`` over 10 steps of held
+   telemetry, every row against the host oracle and the first 3 against
+   the CPU, and a cold Appendix B step's SLA margin through
+   ``PowerController(recorder=True)`` (the kernels line's
+   ``launches_recorder``); (b) the recorder's own cost over a warm step
+   (bar 1.05x) and a held step, and whole recorded over unrecorded walls
+   (reported); (c) no added device-to-host copy or synchronization, one
+   added host-to-device copy and the same added launches on solved and
+   held steps; (d) ``what_if`` lanes, a stacked
+   fleet against loop mode, and ``DatacenterSim``'s flight through the
+   report CLI; (e) one ``record_step`` replayed in a CUDA graph to the
+   eager bits.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -171,8 +184,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -199,6 +214,7 @@ from repro_torch.core.engine import AllocEngine  # noqa: E402
 from repro_torch.core.nvpax import NvpaxOptions, optimize  # noqa: E402
 from repro_torch.core.problem import AllocProblem, FleetTopology  # noqa: E402
 from repro_torch.core.solver import SolverOptions  # noqa: E402
+from repro_torch.core.solver.options import KKT_HIST_BUCKETS  # noqa: E402
 from repro_torch.fleet import FleetLifecycle, FleetOrchestrator, split_pdn  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
@@ -214,6 +230,8 @@ from repro_torch.pdn.tree import build_datacenter  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, build  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.obs import recorder as obs_recorder  # noqa: E402
+from repro_torch.obs.export import flight_rows, write_jsonl  # noqa: E402
 from repro_torch.power import ControllerConfig, DatacenterSim, PowerController  # noqa: E402
 from repro_torch.training.step import make_serve_steps  # noqa: E402
 
@@ -1504,6 +1522,12 @@ def main(argv: list[str]) -> int:
     for entry in entries:
         entry["launches_fleet"] = fleet_launches.get(entry["name"], 0)
         entry["launches_tenant_fleet"] = tenant_fleet_launches.get(entry["name"], 0)
+
+    # -- 13. the flight recorder --------------------------------------------------
+    recorder_launches, report["recorder"] = recorder_phase(pdn, layout, engine_opts, cuda, smi,
+                                                           out_dir)
+    for entry in entries:
+        entry["launches_recorder"] = recorder_launches.get(entry["name"], 0)
     entries.extend(flash_entries)
 
     if args.profile:
@@ -2854,6 +2878,448 @@ def fleet_phase(pdn, layout, engine_opts, cuda, smi) -> tuple[dict, dict, dict]:
     tenant_launches, report["tenant_fleet"] = paper_tenant_fleet(pdn, layout, opts, samples[0],
                                                                   actives[0], cuda, smi)
     return fleet_launches, tenant_launches, report
+
+
+# -- phase 13: the flight recorder ---------------------------------------------
+
+REC_SAMPLES = 5  # 13a: TelemetrySim seed 0 samples 0-4, each held REC_HOLD steps
+REC_HOLD = 2
+REC_CPU_ROWS = 3  # 13a: rows held against the port's CPU run of the same steps
+REC_KKT_TOL = 1e-3 * INC_EPS  # 13a: kkt_res card vs CPU, three orders under the solve's eps
+REC_WARMUP_REPS = 2  # 13b: untimed repeats before the timed ones
+REC_WARM_REPS = 20  # 13b: interleaved repeats of the 5 warm steps
+REC_HELD_STEPS = 10  # 13b: held steps per repeat
+REC_HELD_REPS = 10
+REC_COST_CALLS = 50  # 13b: timed appends per estimate of the recorder's own cost
+OVERHEAD_BAR = 1.05  # 13b: a recorded warm step over an unrecorded one
+REC_H2D = 1  # 13c: host-to-device copies a recorded step adds (the staged gauges)
+REC_FLEET_STEPS = 3  # 13d
+REC_SIM_STEPS = 20  # 13d
+REC_REPLAYS = 5  # 13e
+REC_INT_FIELDS = ("step", "restarts", "iterations", "iter_p1", "iter_p2", "iter_p3", "tier",
+                  "skipped", "converged", "certified", "truncated")
+
+
+def _int_rows_equal(tag, g, w, fields=REC_INT_FIELDS) -> None:
+    """The integer ``fields`` of two flushes' rows equal."""
+    if g.shape != w.shape:
+        raise AssertionError(f"{tag}: {g.shape[0]} rows against {w.shape[0]}")
+    for name in fields:
+        j = obs_recorder.FIELDS.index(name)
+        if not np.array_equal(g[:, j], w[:, j]):
+            raise AssertionError(f"{tag}: {name} {g[:, j].tolist()} != {w[:, j].tolist()}")
+
+
+def _host_reads(step) -> dict:
+    """Device-to-host copies, synchronizations, host-to-device copies and
+    device launches of ``step()`` under torch.profiler (one device
+    synchronize after it, the same for every step profiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = [e.name for e in events]
+    return {
+        "d2h": sum("DtoH" in n for n in names),
+        "syncs": sum("Synchronize" in n for n in names),
+        "h2d": sum("HtoD" in n for n in names),
+        "launches": sum(e.device_type == DeviceType.CUDA for e in events),
+    }
+
+
+def _best_walls(engines, powers, reps: int) -> list[float]:
+    """Per-step minimum walls (s) of each engine over ``reps`` repeats of
+    ``powers``, summed (``benchmarks/obs_bench.py``'s estimator), after
+    ``REC_WARMUP_REPS`` untimed repeats.  The engines take turns at every step, in an
+    order that flips each repeat, so that a drift of the host's speed during
+    the run falls on all of them; Python's garbage collector runs between
+    repeats, not inside a timed step (as ``timeit`` keeps it out); every
+    step ends in a copy to the host."""
+    best = [np.full(len(powers), np.inf) for _ in engines]
+    try:
+        for rep in range(REC_WARMUP_REPS + reps):
+            gc.collect()
+            gc.disable()
+            order = list(range(len(engines)))
+            if rep % 2:
+                order.reverse()
+            for i, p in enumerate(powers):
+                for e in order:
+                    t0 = time.perf_counter()
+                    engines[e].step(p)
+                    if rep >= REC_WARMUP_REPS:
+                        best[e][i] = min(best[e][i], time.perf_counter() - t0)
+            gc.enable()
+    finally:
+        gc.enable()
+    return [float(b.sum()) for b in best]
+
+
+def _draw_step(rng, n: int, cuda):
+    """One step's solver stats (counts and flags host values, the residual
+    and the in-loop histogram on the card), allocation and request, drawn
+    so that every tier and flag comes up."""
+    stats = {k: int(rng.integers(0, 500)) for k in
+             ("restarts", "iterations", "iterations_p1", "iterations_p2", "iterations_p3")}
+    stats.update({k: bool(rng.random() < 0.5) for k in
+                  ("skipped", "certify_pass", "converged", "kkt_certified", "truncated")})
+    stats["kkt_res"] = torch.tensor(10.0 ** rng.uniform(-14, 2), device=cuda)
+    stats["kkt_hist"] = torch.as_tensor(rng.integers(0, 9, KKT_HIST_BUCKETS).astype(np.int32),
+                                        device=cuda)
+    alloc = torch.as_tensor(rng.uniform(100.0, 700.0, n), device=cuda)
+    r = torch.as_tensor(rng.uniform(0.0, 800.0, n), device=cuda)
+    return stats, alloc, r
+
+
+def _record_cost(eng, cuda) -> float:
+    """The least wall (s) over ``REC_COST_CALLS`` calls of the append that
+    ``eng``'s step makes (``_engine_solve``'s ``torch.where`` and
+    ``obs.recorder.record`` on its fleet), each from an idle card to the
+    end of its launches on the card: the recorder's own cost per step,
+    host and device, apart from the step it rides on."""
+    cfg = eng.recorder_config
+    st = obs_recorder.init_state(cfg, eng.n, device=cuda)
+    stats, x, r = _draw_step(np.random.default_rng(0), eng.n, cuda)
+    active = r > 50.0
+    best = np.inf
+    for _ in range(REC_COST_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs_recorder.record(cfg, st, stats, x, torch.where(active, r, 0.0), eng.fleet.sla)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def recorder_graph_replay(n: int, cuda) -> dict:
+    """13e: one ``record_step`` captured in a CUDA graph, its gauges staged
+    in static buffers, replayed ``REC_REPLAYS`` times with new values copied
+    in before each replay, against as many eager calls on the same values:
+    the ring, the counters, the histograms, the step and the last
+    allocation must be the same bits."""
+    cfg = obs_recorder.RecorderConfig(capacity=4)  # the replays wrap the ring
+    m = obs_recorder.static_metrics(cfg, device=cuda)
+    alloc = torch.zeros(n, dtype=torch.float64, device=cuda)
+    eager = obs_recorder.init_state(cfg, n, device=cuda)
+    graphed = obs_recorder.init_state(cfg, n, device=cuda)
+    scratch = obs_recorder.init_state(cfg, n, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            obs_recorder.record_step(cfg, scratch, m, alloc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        obs_recorder.record_step(cfg, graphed, m, alloc)
+    rng = np.random.default_rng(13)
+    for _ in range(REC_REPLAYS):
+        stats, a, r = _draw_step(rng, n, cuda)
+        margin = torch.tensor(rng.normal(0.0, 50.0), dtype=torch.float64, device=cuda)
+        step = obs_recorder.step_metrics(stats, a, r, margin)
+        obs_recorder.copy_metrics(m, step)
+        alloc.copy_(a)
+        graph.replay()
+        obs_recorder.record_step(cfg, eager, step, a)
+    torch.cuda.synchronize()
+    leaves = ("step", "ring", "hists", "solver_hist", "counters", "last_alloc")
+    differ = [k for k in leaves if not torch.equal(getattr(graphed, k), getattr(eager, k))]
+    if differ:
+        raise AssertionError(f"[13e] graph replays differ from eager calls in {differ}")
+    if int(graphed.step) != REC_REPLAYS:
+        raise AssertionError(f"[13e] {int(graphed.step)} rows after {REC_REPLAYS} replays")
+    return {"replays": REC_REPLAYS, "capacity": cfg.capacity, "same_bits": leaves}
+
+
+def recorder_phase(pdn, layout, engine_opts, cuda, smi, out_dir=None) -> tuple[dict, dict]:
+    """Phase 13: the flight recorder on the card.  Returns (each allocator
+    kernel's launches over 13a's recorded steps, report).
+
+    (a) An incremental ``AllocEngine(build_datacenter(), recorder=True)`` at
+    eps 1e-9 with every kernel flag over ``REC_SAMPLES`` ``TelemetrySim``
+    seed 0 samples, each held ``REC_HOLD`` steps: every row against the host
+    oracle from the returned results, a held step's launches the certify
+    pass's alone, the first ``REC_CPU_ROWS`` rows against the port's CPU run
+    (integer fields and the three histograms equal, float fields within
+    phase 4's per-device bar, times n where the field sums over devices);
+    then a cold Appendix B step through ``PowerController(recorder=True)``,
+    whose SLA margin is finite, >= -1e-6 W and the host's recomputation
+    from the allocation, and the margin alone one ``sla_matvec`` launch.
+    (b) The overhead: the recorder's own cost per step
+    (:func:`_record_cost`, measured twice) over an unrecorded warm step's
+    wall, bar ``OVERHEAD_BAR``, and over a held step's (reported); beside
+    it, reported, the whole-step ratio of recording and unrecorded engines
+    on the same telemetry, per-step minimum over interleaved repeats, with
+    a second unrecorded engine's (A/A).  (c) Under torch.profiler a
+    recorded and an unrecorded step of each kind (solved, held): the same
+    device-to-host copies and synchronizations, ``REC_H2D`` more
+    host-to-device copies, and the same added launches on both kinds.
+    (d) ``what_if`` of ``WHATIF_K`` samples, recorded, each lane against
+    its one-lane flight; a stacked fleet against the loop mode's
+    per-domain flights; ``DatacenterSim`` recording ``REC_SIM_STEPS``
+    intervals, its flight through ``write_jsonl`` and the report CLI.  (e)
+    :func:`recorder_graph_replay`."""
+    out_dir = Path(out_dir or ROOT / "artifacts" / "chip_smoke")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report: dict = {"card": smi}
+    opts = engine_opts._replace(eps_abs=INC_EPS, eps_rel=INC_EPS)
+    inc_opts = NvpaxOptions(incremental=True, solver=opts)
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    samples = [sim.power(t) for t in range(max(REC_SAMPLES + 1, WHATIF_K))]
+    tele = [samples[t // REC_HOLD] for t in range(REC_SAMPLES * REC_HOLD)]
+    n = pdn.n
+
+    # (a) the engine on the paper fleet
+    log(f"[13a] AllocEngine(recorder=True) on n={n}, incremental at eps {INC_EPS:g}, every "
+        f"kernel flag; {len(tele)} steps of TelemetrySim seed 0 samples 0-{REC_SAMPLES - 1}, "
+        f"each held {REC_HOLD} steps")
+    eng = AllocEngine(pdn, options=inc_opts, recorder=True, device=cuda)
+    rec_launches: dict[str, int] = {}
+    results, early = [], None
+    for t, p in enumerate(tele):
+        kernels.reset_launch_counts()
+        res = eng.step(p)
+        calls = _kernel_calls(kernels.launch_counts())
+        for key, v in calls.items():
+            rec_launches[key] = rec_launches.get(key, 0) + v
+        if res.stats["skipped"]:
+            _check_certify_only("13a", calls, tenants=False)
+        results.append(res)
+        if t == REC_CPU_ROWS - 1:
+            early = eng.flush_recorder()["step"]  # not reset: the steps go on
+    flight = eng.flush_recorder()["step"]
+    rows = obs_recorder.rows_as_dicts(flight)
+    if len(rows) != len(tele) or flight["counters"]["n_steps"] != len(tele):
+        raise AssertionError(f"[13a] {len(rows)} rows for {len(tele)} steps")
+    for t, (row, res) in enumerate(zip(rows, results)):
+        x = res.allocation
+        move = 0.0 if t == 0 else float(np.max(np.abs(x - results[t - 1].allocation)))
+        want = {"step": t, "iterations": res.stats["total_iterations"],
+                "skipped": int(res.stats["skipped"]), "converged": int(res.stats["converged"])}
+        bad = {k: (row[k], v) for k, v in want.items() if row[k] != v}
+        if abs(row["alloc_W"] - float(x.sum())) > 1e-9 * abs(float(x.sum())):
+            bad["alloc_W"] = (row["alloc_W"], float(x.sum()))
+        if abs(row["grant_move"] - move) > 1e-9 * max(move, 1e-3):
+            bad["grant_move"] = (row["grant_move"], move)
+        if bad:
+            raise AssertionError(f"[13a] row {t} against the host oracle: {bad}")
+    tiers = [r["tier"] for r in rows]
+    if 0 not in tiers or 2 not in tiers:
+        raise AssertionError(f"[13a] tiers {tiers}: want both solved (0) and held (2) rows")
+    cpu = AllocEngine(pdn, options=inc_opts, recorder=True, device="cpu")
+    for p in tele[:REC_CPU_ROWS]:
+        cpu.step(p)
+    cpu_flight = cpu.flush_recorder()["step"]
+    _int_rows_equal("[13a] card vs CPU", early["rows"], cpu_flight["rows"])
+    # a held step is its anchor through the exact repair: 0 W from it on the
+    # card, ~1e-10 W on the CPU, whose tree sums add in another order; so
+    # grant movements under phase 4's per-device bar count as one bucket
+    sub_bar = int(np.log10(PARITY_TOL)) - early["hist_lo_exp"]
+    for key in ("hist_kkt", "hist_move", "solver_hist"):
+        g, w = early[key], cpu_flight[key]
+        if key == "hist_move":
+            g = np.concatenate([[g[:sub_bar].sum()], g[sub_bar:]])
+            w = np.concatenate([[w[:sub_bar].sum()], w[sub_bar:]])
+        if not np.array_equal(g, w):
+            raise AssertionError(f"[13a] card vs CPU {key}: {early[key].tolist()} != "
+                                 f"{cpu_flight[key].tolist()}")
+    r_eff = [np.where(p >= eng.idle_threshold, np.clip(p, pdn.dev_l, pdn.dev_u), 0.0)
+             for p in tele[:REC_CPU_ROWS]]
+    bars = {"kkt_res": REC_KKT_TOL, "grant_move": 2 * PARITY_TOL, "alloc_W": n * PARITY_TOL}
+    gaps = {}
+    for name in ("kkt_res", "sla_min_margin", "satisfaction", "grant_move", "alloc_W"):
+        j = obs_recorder.FIELDS.index(name)
+        g, w = early["rows"][:, j], cpu_flight["rows"][:, j]
+        with np.errstate(invalid="ignore"):  # equal infinities: no tenant rows
+            d = np.where(g == w, 0.0, np.abs(g - w))
+        gaps[name] = float(d.max())
+        bar = (np.array([n * PARITY_TOL / r.sum() for r in r_eff]) if name == "satisfaction"
+               else bars.get(name, 0.0))
+        if not (d <= bar).all():
+            raise AssertionError(f"[13a] card vs CPU {name}: |d| {d.tolist()} > {bar}")
+    log(f"[13a] {len(rows)} rows, tiers {tiers}, iterations "
+        f"{[r['iterations'] for r in rows]}; every row the host oracle's (step, iterations, "
+        f"skipped, converged, alloc_W, grant_move); held steps launched the certify pass "
+        f"alone; rows 0-{REC_CPU_ROWS - 1} against the CPU: integer fields, hist_kkt and "
+        f"solver_hist equal, hist_move {early['hist_move'].tolist()} (CPU "
+        f"{cpu_flight['hist_move'].tolist()}, equal from 1e-6 W up), float fields |d| {gaps}")
+    # a cold tenant step through the controller: the SLA margin
+    ctl = PowerController(pdn, sla=layout.sla_topo(device=cuda), priority=layout.priority,
+                          config=ControllerConfig(options=NvpaxOptions(solver=engine_opts)),
+                          recorder=True, device=cuda)
+    kernels.reset_launch_counts()
+    tres = ctl.step(samples[0])
+    for key, v in _kernel_calls(kernels.launch_counts()).items():
+        rec_launches[key] = rec_launches.get(key, 0) + v
+    (trow,) = obs_recorder.rows_as_dicts(ctl.flush_recorder()["step"])
+    dev = np.nonzero(layout.tenant_of >= 0)[0]
+    sums = np.bincount(layout.tenant_of[dev], weights=tres.allocation[dev],
+                       minlength=layout.n_tenants)
+    host_margin = float(np.min(sums - layout.b_min))
+    margin_gap = abs(trow["sla_min_margin"] - host_margin)
+    if not (np.isfinite(trow["sla_min_margin"]) and trow["sla_min_margin"] >= -SLA_FEAS_TOL
+            and margin_gap <= SLA_FEAS_TOL):
+        raise AssertionError(f"[13a] tenant step margin {trow['sla_min_margin']} W, host "
+                             f"{host_margin} W")
+    x_dev = torch.as_tensor(tres.allocation, device=cuda)
+    kernels.reset_launch_counts()
+    obs_recorder.sla_min_margin(x_dev, ctl._engine.fleet.sla)
+    margin_calls = _kernel_calls(kernels.launch_counts())
+    if margin_calls != {"sla_matvec": 1}:
+        raise AssertionError(f"[13a] the SLA margin launched {margin_calls}, not one sla_matvec")
+    missing = [k for k in ALLOCATOR_KERNELS if not rec_launches.get(k)]
+    if missing:
+        raise AssertionError(f"[13a] kernels never launched while recording: {missing}")
+    log(f"[13a] cold Appendix B step through PowerController(recorder=True): SLA margin "
+        f"{trow['sla_min_margin']:.6f} W (host {host_margin:.6f} W, |d| {margin_gap:.2e}), tier "
+        f"{trow['tier']}, iterations {trow['iterations']}; the margin alone {margin_calls}; "
+        f"launches over 13a {rec_launches}")
+    report["engine"] = {"rows": rows, "cpu_gaps": gaps, "tenant_row": trow,
+                        "tenant_host_margin": host_margin, "launches": rec_launches}
+
+    # (b) the overhead: gated on the recorder's own cost over an unrecorded
+    # step; the whole-step ratio is reported beside two unrecorded engines'
+    plain = NvpaxOptions(solver=engine_opts)
+    base = AllocEngine(pdn, options=plain, device=cuda)
+    base2 = AllocEngine(pdn, options=plain, device=cuda)
+    rec = AllocEngine(pdn, options=plain, recorder=True, device=cuda)
+    warm = samples[:REC_SAMPLES]
+    for e in (base, base2, rec):
+        e.step(samples[REC_SAMPLES])
+        e.step(warm[0])
+    cost_a = _record_cost(rec, cuda)
+    base_s, base2_s, rec_s = _best_walls([base, base2, rec], warm, REC_WARM_REPS)
+    cost_b = _record_cost(rec, cuda)
+    inc_base = AllocEngine(pdn, options=inc_opts, device=cuda)
+    inc_rec = AllocEngine(pdn, options=inc_opts, recorder=True, device=cuda)
+    held = [samples[0]] * REC_HELD_STEPS
+    for e in (inc_base, inc_rec):
+        e.step(samples[0])
+        if not e.step(samples[0]).stats["skipped"]:
+            raise AssertionError("[13b] a repeated step did not skip")
+    hbase_s, hrec_s = _best_walls([inc_base, inc_rec], held, REC_HELD_REPS)
+    step_s, hstep_s = base_s / len(warm), hbase_s / REC_HELD_STEPS
+    cost_ratios = [1.0 + c / step_s for c in (cost_a, cost_b)]
+    warm_ratio, aa_ratio, held_ratio = rec_s / base_s, base2_s / base_s, hrec_s / hbase_s
+    held_cost_ratio = 1.0 + max(cost_a, cost_b) / hstep_s
+    log(f"[13b] the recorder's own cost per step {cost_a * 1e3:.3f} / {cost_b * 1e3:.3f} ms "
+        f"(before / after the walls; least of {REC_COST_CALLS} appends, each to the card's "
+        f"end) on an unrecorded warm step of {step_s * 1e3:.1f} ms: "
+        f"{cost_ratios[0]:.4f}x / {cost_ratios[1]:.4f}x (bar {OVERHEAD_BAR}x); a held step of "
+        f"{hstep_s * 1e3:.2f} ms: {held_cost_ratio:.4f}x (reported); on {smi}")
+    log(f"[13b] whole steps, per-step minimum over {REC_WARM_REPS} interleaved repeats "
+        f"(reported): {len(warm)} warm steps {rec_s * 1e3:.1f} ms recorded / "
+        f"{base_s * 1e3:.1f} ms unrecorded = {warm_ratio:.4f}x, a second unrecorded engine "
+        f"{base2_s * 1e3:.1f} ms = {aa_ratio:.4f}x (A/A); {REC_HELD_STEPS} held steps "
+        f"{hrec_s * 1e3:.2f} / {hbase_s * 1e3:.2f} ms = {held_ratio:.4f}x "
+        f"({REC_HELD_REPS} repeats)")
+    if max(cost_ratios) > OVERHEAD_BAR:
+        raise AssertionError(f"[13b] recording costs {max(cost_ratios):.4f}x a warm step, "
+                             f"over {OVERHEAD_BAR}x")
+    report["overhead"] = {"record_cost_ms": [cost_a * 1e3, cost_b * 1e3],
+                          "warm_step_ms": step_s * 1e3, "warm_cost_ratio": cost_ratios,
+                          "held_step_ms": hstep_s * 1e3, "held_cost_ratio": held_cost_ratio,
+                          "warm_steps": len(warm), "warm_recorded_ms": rec_s * 1e3,
+                          "warm_unrecorded_ms": base_s * 1e3,
+                          "warm_unrecorded2_ms": base2_s * 1e3, "warm_ratio": warm_ratio,
+                          "warm_aa_ratio": aa_ratio, "held_steps": REC_HELD_STEPS,
+                          "held_recorded_ms": hrec_s * 1e3, "held_unrecorded_ms": hbase_s * 1e3,
+                          "held_ratio": held_ratio, "warm_reps": REC_WARM_REPS,
+                          "held_reps": REC_HELD_REPS, "cost_calls": REC_COST_CALLS}
+
+    # (c) no host read
+    reads = {
+        "solved": (_host_reads(lambda: base.step(samples[REC_SAMPLES])),
+                   _host_reads(lambda: rec.step(samples[REC_SAMPLES]))),
+        "held": (_host_reads(lambda: inc_base.step(samples[0])),
+                 _host_reads(lambda: inc_rec.step(samples[0]))),
+    }
+    added = {kind: on["launches"] - off["launches"] for kind, (off, on) in reads.items()}
+    for kind, (off, on) in reads.items():
+        if off["syncs"] == 0:
+            raise AssertionError(f"[13c] the profiler saw no synchronization in an unrecorded "
+                                 f"{kind} step: {off}")
+        if (on["d2h"], on["syncs"]) != (off["d2h"], off["syncs"]):
+            raise AssertionError(f"[13c] a recorded {kind} step reads the device back: {on} "
+                                 f"against {off} unrecorded")
+        if on["h2d"] - off["h2d"] != REC_H2D:
+            raise AssertionError(f"[13c] a recorded {kind} step adds {on['h2d'] - off['h2d']} "
+                                 f"host-to-device copies, not {REC_H2D}")
+        log(f"[13c] {kind} step: device-to-host copies {on['d2h']} recorded / {off['d2h']} "
+            f"unrecorded, synchronizations {on['syncs']} / {off['syncs']}; recording adds "
+            f"{on['launches'] - off['launches']} device launches ({on['launches']} / "
+            f"{off['launches']}) and {on['h2d'] - off['h2d']} host-to-device copies")
+    if len(set(added.values())) != 1:
+        raise AssertionError(f"[13c] the launches recording adds differ by step kind: {added}")
+    report["host_reads"] = {k: {"recorded": on, "unrecorded": off, "added_launches": added[k]}
+                            for k, (off, on) in reads.items()}
+
+    # (d) lanes, the fleet and the report CLI
+    config = ControllerConfig(options=NvpaxOptions(solver=engine_opts))
+    wctl = PowerController(pdn, config=config, recorder=True, device=cuda)
+    wctl.what_if(np.stack(samples[:WHATIF_K]))
+    for j in range(WHATIF_K):
+        wctl.what_if(np.stack(samples[j:j + 1]))
+    batched = wctl.flush_recorder()["batched"]
+    ones = batched[1][0]["rows"]  # one row per one-lane call, its step counts the calls
+    ia = obs_recorder.FIELDS.index("alloc_W")
+    lane_gap = 0.0
+    for j, lane in enumerate(batched[WHATIF_K]):
+        _int_rows_equal(f"[13d] what_if lane {j}", lane["rows"], ones[j:j + 1],
+                        REC_INT_FIELDS[1:])
+        gap = abs(float(lane["rows"][0, ia] - ones[j, ia]))
+        lane_gap = max(lane_gap, gap)
+        if gap > SKIP_TOL * n:
+            raise AssertionError(f"[13d] what_if lane {j}: alloc_W {gap:.3e} W off its "
+                                 f"one-lane flight")
+    fleet_opts = NvpaxOptions(solver=engine_opts)
+    fl = {}
+    for mode in ("stacked", "loop"):
+        orch = FleetOrchestrator(pdn, level=1, mode=mode, options=fleet_opts, recorder=True,
+                                 device=cuda)
+        for t in range(REC_FLEET_STEPS):
+            orch.step(samples[t], active=sim.active_mask(t))
+        fl[mode] = orch.flush_recorder()
+    if len(fl["stacked"]["lanes"]) != 4:
+        raise AssertionError(f"[13d] {len(fl['stacked']['lanes'])} stacked lanes, not 4")
+    for k, (a, b) in enumerate(zip(fl["stacked"]["lanes"], fl["loop"]["lanes"])):
+        _int_rows_equal(f"[13d] fleet domain {k}, stacked vs loop", a["rows"], b["rows"])
+    dsim = DatacenterSim.build(pdn, seed=0, recorder=True, device=cuda)
+    out = dsim.run(REC_SIM_STEPS, baselines=False)
+    rows_sim = flight_rows(dsim.flush_flight()["step"], walls_ms=out["wall_ms"])
+    path = out_dir / "flight.jsonl"
+    write_jsonl(str(path), rows_sim)
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(path), "--prom",
+         str(out_dir / "flight.prom")],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    prom = (out_dir / "flight.prom").read_text() if cli.returncode == 0 else ""
+    if (cli.returncode != 0 or f"flight record: {REC_SIM_STEPS} steps" not in cli.stdout
+            or f"repro_steps_total {REC_SIM_STEPS}\n" not in prom):
+        raise AssertionError(f"[13d] report CLI rc {cli.returncode}: {cli.stdout[-500:]} "
+                             f"{cli.stderr[-500:]}")
+    log(f"[13d] what_if of {WHATIF_K} samples recorded: each lane's row the integer fields of "
+        f"its one-lane flight, alloc_W within {lane_gap:.2e} W; stacked fleet of 4 halls, "
+        f"{REC_FLEET_STEPS} steps: each domain's integer fields those of loop mode's flight; "
+        f"DatacenterSim {REC_SIM_STEPS} intervals recorded through write_jsonl and "
+        f"python -m repro_torch.obs.report:")
+    for line in cli.stdout.splitlines():
+        log(f"[13d]   {line}")
+    report["lanes_fleet_cli"] = {"what_if_alloc_gap_w": lane_gap, "report": cli.stdout,
+                                 "prom": prom}
+
+    # (e) ready for a CUDA graph
+    report["graph"] = recorder_graph_replay(n, cuda)
+    log(f"[13e] record_step captured in a CUDA graph (gauges in static buffers), replayed "
+        f"{REC_REPLAYS} times: the bits of {REC_REPLAYS} eager calls in "
+        f"{report['graph']['same_bits']}")
+    return rec_launches, report
 
 
 def _row_err(got, want) -> float:

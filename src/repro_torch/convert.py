@@ -27,12 +27,14 @@ from repro_torch.core.problem import AllocProblem, FleetTopology
 from repro_torch.core.solver import SolverOptions, SolverState
 from repro_torch.core.treeops import SlaTopo, TreeTopo
 from repro_torch.models.common import Params
+from repro_torch.obs import recorder as obs_recorder
 
 __all__ = [
     "alloc_problem_from_numpy",
     "batch_meta_from_dict",
     "fleet_topology_from_numpy",
     "lm_params_from_numpy",
+    "recorder_state_from_numpy",
     "solver_state_from_numpy",
     "warm_carry_from_numpy",
     "solver_options_from_dict",
@@ -96,6 +98,32 @@ def solver_state_from_numpy(d: Mapping[str, Any], device=None) -> SolverState:
 def warm_carry_from_numpy(d: Mapping[str, Any], device=None) -> WarmCarry:
     """``WarmCarry(p1, p2, p3)`` of three solver states."""
     return WarmCarry(*(solver_state_from_numpy(d[f], device) for f in WarmCarry._fields))
+
+
+def recorder_state_from_numpy(d: Mapping[str, Any], device=None) -> obs_recorder.RecorderState:
+    """The reference's ``RecorderState`` (``step``, ``ring``, ``hist_kkt``,
+    ``hist_move``, ``solver_hist``, the four counters, ``last_alloc``; a
+    ``[K]`` ``step`` for per-lane leaves) as the port's state, in fresh
+    buffers laid out as :func:`repro_torch.obs.recorder.init_state` lays
+    them, so recording goes on from the same ring."""
+    step = np.asarray(d["step"])
+    ring = np.asarray(d["ring"])
+    cfg = obs_recorder.RecorderConfig(capacity=ring.shape[-2],
+                                      buckets=np.asarray(d["hist_kkt"]).shape[-1])
+    dtype = torch.float64 if ring.dtype == np.float64 else torch.float32
+    n = np.asarray(d["last_alloc"]).shape[-1]
+    if step.ndim:
+        st = obs_recorder.init_batch(cfg, step.shape[0], n, dtype, device)
+    else:
+        st = obs_recorder.init_state(cfg, n, dtype, device)
+    # the reference's leaves; the port's ``hists`` and ``counters`` are the
+    # storage that its gauge histograms and counters are views of
+    storage = ("hists", "counters")
+    ref_fields = [f for f in obs_recorder.RecorderState._fields if f not in storage]
+    for name in ref_fields:
+        leaf = getattr(st, name)
+        leaf.copy_(torch.as_tensor(np.array(d[name]), dtype=leaf.dtype))
+    return st
 
 
 def solver_options_from_dict(d: Mapping[str, Any]) -> SolverOptions:

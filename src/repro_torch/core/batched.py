@@ -49,6 +49,7 @@ from repro_torch.core.nvpax import NvpaxOptions
 from repro_torch.core.problem import AllocProblem
 from repro_torch.core.solver.options import KKT_HIST_BUCKETS
 from repro_torch.core.waterfill import waterfill_torch
+from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs.stats import StepStats
 
 __all__ = [
@@ -116,7 +117,8 @@ class BatchedAllocResult:
     # incremental-mode anchor for the next batched step ([K, ...] leaves;
     # None unless a carry was threaded in or options.incremental)
     carry: Any = None
-    # the flight recorder is not ported (ROADMAP Queue 1 item 10)
+    # the flight record (repro_torch.obs.recorder.RecorderState with [K, ...]
+    # leaves) that was passed in, advanced in place; None unless one was
     recorder: Any = None
 
 
@@ -573,6 +575,14 @@ def _solve_batched(
     return x1, x2, x3, wcarry, stats, new_carry
 
 
+def _record_batch(cfg, rec, stats: dict, alloc: torch.Tensor, stacked: AllocProblem):
+    """Append one flight-record row per lane, all K lanes in one update (in
+    place; see :mod:`repro_torch.obs.recorder`).  The satisfaction ratio's
+    request is the shaped one on active devices and 0 on idle ones."""
+    r_eff = torch.where(stacked.active, torch.clamp(stacked.r, stacked.l, stacked.u), 0.0)
+    return obs_recorder.record(cfg, rec, stats, alloc, r_eff, stacked.sla)
+
+
 class PhaseCostModel(NamedTuple):
     """Per-phase seconds-per-PDHG-iteration estimates.
 
@@ -716,15 +726,15 @@ def optimize_batched(
     ``stats["skipped"]``/``stats["certify_pass"]`` as ``[K]`` arrays, and an
     all-skip batch collapses to the certify pass.
 
-    ``rec``/``rec_cfg`` (the flight recorder) are not ported yet.
+    Flight recorder: ``rec``/``rec_cfg`` take a per-lane
+    :class:`repro_torch.obs.recorder.RecorderState` (``[K, ...]`` leaves, see
+    :func:`repro_torch.obs.recorder.init_batch`), which gets one row per lane
+    after the solve, the all-skip batch included, in place; it comes back as
+    ``BatchedAllocResult.recorder``.
 
     Each lane's output is the one-scenario program's on that lane
     (``tests/test_torch_batched.py``).
     """
-    if rec is not None or rec_cfg is not None:
-        raise NotImplementedError(
-            "the flight recorder is not ported yet (ROADMAP Queue 1 item 10)"
-        )
     t0 = time.perf_counter()
     stacked = aps if isinstance(aps, AllocProblem) else stack_problems(aps)
     if stacked.l.ndim != 2:
@@ -737,6 +747,8 @@ def optimize_batched(
     x1, x2, x3, sol_state, stats, new_carry = _solve_batched(
         stacked, meta, options.solver, warm, iter_budget, carry
     )
+    if rec is not None and rec_cfg is not None:
+        _record_batch(rec_cfg, rec, stats, x3, stacked)
     allocation = x3.cpu().numpy()  # waits for the device
     wall = time.perf_counter() - t0
     return BatchedAllocResult(
@@ -746,6 +758,7 @@ def optimize_batched(
         warm_state=sol_state,
         wall_time_s=wall,
         carry=new_carry if carry is not None or options.incremental else None,
+        recorder=rec,
         stats=StepStats.from_lanes(
             stats, iter_budget=iter_budget, n_scenarios=int(stacked.l.shape[0])
         ),

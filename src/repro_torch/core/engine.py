@@ -18,7 +18,9 @@ then serves every control step from telemetry alone:
 * :meth:`step_batched` runs K scenarios as one solve
   (:func:`~repro_torch.core.batched.optimize_batched`), with its own warm
   carry and incremental anchor per batch size K;
-* deadlines run in iteration space, from a calibrated per-iteration cost.
+* deadlines run in iteration space, from a calibrated per-iteration cost;
+* with ``recorder=`` every step appends one row per lane to a flight record
+  on the device (:mod:`repro_torch.obs.recorder`), updated in place.
 
 The reference pins one compiled program and counts its traces
 (``trace_count``).  PyTorch runs eagerly, so the port's form of "compile
@@ -50,6 +52,7 @@ from repro_torch.core.batched import (
 from repro_torch.core.nvpax import AllocResult, NvpaxOptions
 from repro_torch.core.problem import AllocProblem, FleetTopology
 from repro_torch.core.solver import certify
+from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs.stats import StepStats
 from repro_torch.pdn.tree import FlatPDN, check_caps_fund_minimums
 
@@ -62,12 +65,13 @@ _UNSET = object()
 _PROBE_FULL_BUDGET = 2**31 - 1
 
 
-def _engine_solve(fleet: FleetTopology, r, priority, active, warm, iter_budget, carry=None, *,
-                  meta, opts, present):
+def _engine_solve(fleet: FleetTopology, r, priority, active, warm, iter_budget, carry=None,
+                  rec=None, *, meta, opts, present, rec_cfg=None):
     """The whole control step: request pre-processing on the device (paper
     section 5.2: clip to the device box, idle devices request ``l``), the
-    certify-first gate when a ``carry`` is given, and the three-phase
-    program with its exact feasibility repair.  Returns the program's
+    certify-first gate when a ``carry`` is given, the three-phase program
+    with its exact feasibility repair and, given ``rec`` and ``rec_cfg``,
+    the flight-record append (in place).  Returns the program's
     ``(x1, x2, x3, warm, stats)`` and the next incremental anchor."""
     r = torch.where(active, torch.clamp(r, fleet.l, fleet.u), fleet.l)
     ap = AllocProblem(
@@ -86,6 +90,10 @@ def _engine_solve(fleet: FleetTopology, r, priority, active, warm, iter_budget, 
     new_carry = certify.update_carry(
         carry, ap, x1, x3, stats["skipped"], stats["certify_pass"] and not stats["skipped"]
     )
+    if rec is not None and rec_cfg is not None:
+        # idle devices request l by shaping; zero them out of the
+        # satisfaction denominator (they have no demand to satisfy)
+        obs_recorder.record(rec_cfg, rec, stats, x3, torch.where(active, r, 0.0), fleet.sla)
     return x1, x2, x3, sol, stats, new_carry
 
 
@@ -98,6 +106,9 @@ class AllocEngine:
     layout and ``NvpaxOptions``.  ``device=None`` means ``cuda``.  ``step``
     takes only telemetry (+ an optional scheduler active mask) and returns
     the same :class:`~repro_torch.core.nvpax.AllocResult` as the host path.
+    ``recorder`` (True, or a :class:`~repro_torch.obs.recorder.RecorderConfig`
+    for the ring's shape) turns on the flight recorder; drain it with
+    :meth:`flush_recorder`.
     """
 
     def __init__(
@@ -114,10 +125,6 @@ class AllocEngine:
         recorder=None,
         device=None,
     ):
-        if recorder:
-            raise NotImplementedError(
-                "the flight recorder is not ported yet (ROADMAP Queue 1 item 10)"
-            )
         self.options = options or NvpaxOptions()
         self.pdn = pdn
         self.idle_threshold = float(idle_threshold)
@@ -166,6 +173,13 @@ class AllocEngine:
         # the K-scenario path's warm carry and incremental anchor, per K
         self._batched_warm: dict[int, phases.WarmCarry] = {}
         self._inc_batched_carry: dict[int, certify.IncrementalCarry] = {}
+        # the flight recorder: made on the first step of each path (step()
+        # keeps one lane, step_batched one [K, ...] state per batch size)
+        if recorder is True:
+            recorder = obs_recorder.RecorderConfig()
+        self._rec_cfg: obs_recorder.RecorderConfig | None = recorder or None
+        self._rec_state: obs_recorder.RecorderState | None = None
+        self._rec_batched: dict[int, obs_recorder.RecorderState] = {}
         self.history: list[dict[str, Any]] = []
 
     def _build_fleet(self, sla, normalized: bool) -> FleetTopology:
@@ -188,7 +202,8 @@ class AllocEngine:
     def reset_warm(self) -> None:
         """Drop carried solver state and the incremental anchors, of
         :meth:`step` and of :meth:`step_batched` (the next step cold-starts
-        and certifies nothing)."""
+        and certifies nothing).  The flight record is telemetry, not solver
+        state: it stays."""
         self._warm = None
         self._inc_carry = None
         self._batched_warm.clear()
@@ -196,6 +211,32 @@ class AllocEngine:
 
     def _vec(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
+
+    # -- flight recorder -----------------------------------------------------
+
+    @property
+    def recorder_config(self) -> obs_recorder.RecorderConfig | None:
+        return self._rec_cfg
+
+    def flush_recorder(self, *, reset: bool = False) -> dict[str, Any] | None:
+        """The flight record(s) as host numpy (the recorder's only transfer
+        to the host): ``{"step": flush, "batched": {K: [per-lane flushes]}}``
+        with a key only for the paths that stepped; ``None`` when the engine
+        was built without a recorder.  ``reset`` drops the records after."""
+        if self._rec_cfg is None:
+            return None
+        out: dict[str, Any] = {}
+        if self._rec_state is not None:
+            out["step"] = obs_recorder.flush(self._rec_state, self._rec_cfg)
+        if self._rec_batched:
+            out["batched"] = {
+                K: obs_recorder.flush_lanes(st, self._rec_cfg)
+                for K, st in self._rec_batched.items()
+            }
+        if reset:
+            self._rec_state = None
+            self._rec_batched.clear()
+        return out
 
     # -- in-place re-pins (no rebuild) -------------------------------------
 
@@ -296,7 +337,7 @@ class AllocEngine:
             active = req >= self.idle_threshold
         return req, np.asarray(active, dtype=bool)
 
-    def _solve(self, req, act, warm, budget, carry=None):
+    def _solve(self, req, act, warm, budget, carry=None, rec=None):
         return _engine_solve(
             self.fleet,
             torch.as_tensor(req, dtype=self.dtype, device=self.device),
@@ -305,9 +346,11 @@ class AllocEngine:
             warm,
             budget,
             carry,
+            rec,
             meta=self.meta,
             opts=self.options.solver,
             present=active_levels(self.priority_np, act),
+            rec_cfg=self._rec_cfg,
         )
 
     # -- deadline calibration ----------------------------------------------
@@ -370,9 +413,12 @@ class AllocEngine:
         budget = self._budget(deadline_s)
         incremental = self.options.incremental
         t0 = time.perf_counter()
+        if self._rec_cfg is not None and self._rec_state is None:
+            self._rec_state = obs_recorder.init_state(self._rec_cfg, self.n, self.dtype,
+                                                      self.device)
         # the anchor stays None unless options.incremental
         x1, x2, x3, warm, stats, new_carry = self._solve(
-            req, act, self._warm, budget, self._inc_carry
+            req, act, self._warm, budget, self._inc_carry, self._rec_state
         )
         allocation = x3.cpu().numpy()  # waits for the device
         wall = time.perf_counter() - t0
@@ -449,12 +495,17 @@ class AllocEngine:
             weight_scale=lanes(fl.weight_scale),
         )
         incremental = self.options.incremental and carry_warm
+        if self._rec_cfg is not None and K not in self._rec_batched:
+            self._rec_batched[K] = obs_recorder.init_batch(self._rec_cfg, K, n, self.dtype,
+                                                           self.device)
         res = optimize_batched(
             stacked,
             self.options,
             warm=self._batched_warm.get(K) if carry_warm else None,
             meta=self.meta,
             carry=self._inc_batched_carry.get(K) if incremental else None,
+            rec=self._rec_batched.get(K),
+            rec_cfg=self._rec_cfg,
         )
         if carry_warm:
             self._batched_warm[K] = res.warm_state

@@ -60,7 +60,7 @@ import torch
 
 from repro_torch.compat import resolve_device
 from repro_torch.core import phases
-from repro_torch.core.batched import BatchMeta, _solve_batched
+from repro_torch.core.batched import BatchMeta, _record_batch, _solve_batched
 from repro_torch.core.engine import AllocEngine
 from repro_torch.core.nvpax import NvpaxOptions
 from repro_torch.core.problem import AllocProblem
@@ -78,13 +78,13 @@ from repro_torch.fleet.partition import (
     split_pdn,
 )
 from repro_torch.kernels.tree_matvec import sla_index_update, tree_index_update
+from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs import spans
 from repro_torch.obs.stats import StepStats
 from repro_torch.pdn.tree import FlatPDN, check_caps_fund_minimums
 
 __all__ = ["FleetOrchestrator", "FleetStepResult"]
 
-_RECORDER = "ROADMAP Queue 1 item 10"
 _SHARDED = "ROADMAP Queue 1 item 11b"
 
 
@@ -170,8 +170,10 @@ class FleetOrchestrator:
         device and node counts.
     device : ``None`` means ``cuda`` (raises without a card); the tests pass
         ``"cpu"``.
-    recorder : the flight recorder is not ported yet; anything truthy raises
-        ``NotImplementedError``.
+    recorder : True or a :class:`repro_torch.obs.recorder.RecorderConfig`
+        turns on the flight recorder: stacked mode keeps one ``[K, ...]``
+        state and records the K domains in one update, loop mode each
+        domain engine's own; :meth:`flush_recorder` drains it.
     """
 
     def __init__(
@@ -190,8 +192,6 @@ class FleetOrchestrator:
         recorder=None,
         device=None,
     ):
-        if recorder:
-            raise NotImplementedError(f"the flight recorder is not ported yet ({_RECORDER})")
         if mode not in ("auto", "stacked", "loop", "sharded"):
             raise ValueError(f"mode must be auto/stacked/loop/sharded, got {mode!r}")
         if mode == "sharded":
@@ -244,6 +244,12 @@ class FleetOrchestrator:
         # the demand/grant/telemetry values they were solved against)
         self._inc_carry: Any = None
         self._loop_prev: dict[str, Any] | None = None
+        # the flight recorder: stacked mode keeps one [K, ...] state (made on
+        # the first step); loop mode delegates to each domain engine's own
+        if recorder is True:
+            recorder = obs_recorder.RecorderConfig()
+        self._rec_cfg: obs_recorder.RecorderConfig | None = recorder or None
+        self._rec_state: obs_recorder.RecorderState | None = None
         self.history: list[dict[str, Any]] = []
         if self._sla is not None:
             # fail fast: contracts must be deliverable and fundable under
@@ -388,6 +394,7 @@ class FleetOrchestrator:
             # pin-free simplification must stay off for SLA domains
             pin_free=False if sla_topo is not None else None,
             dtype=self.dtype,
+            recorder=self._rec_cfg,
             device=self.device,
         )
         self._rebuilds += engine.rebuild_count()
@@ -950,10 +957,31 @@ class FleetOrchestrator:
         )
         return out
 
-    def flush_recorder(self, *, reset: bool = False):
-        """``None``: the flight recorder is not ported yet (no recorder can
-        be configured)."""
-        return None
+    @property
+    def recorder_config(self) -> obs_recorder.RecorderConfig | None:
+        return self._rec_cfg
+
+    def flush_recorder(self, *, reset: bool = False) -> dict[str, Any] | None:
+        """The flight record as host numpy: ``{"mode", "lanes"}`` with one
+        per-domain flush dict per lane (see
+        :func:`repro_torch.obs.recorder.flush`), or ``None`` when recording
+        is off.  Stacked mode flushes the orchestrator's own ``[K, ...]``
+        state; loop mode each domain engine's (``{}`` for an engine that has
+        not stepped).  ``reset=True`` drops the records after the gather."""
+        if self._rec_cfg is None:
+            return None
+        if self.mode == "stacked":
+            lanes: list[dict[str, Any]] = []
+            if self._rec_state is not None:
+                lanes = obs_recorder.flush_lanes(self._rec_state, self._rec_cfg)
+            if reset:
+                self._rec_state = None
+        else:
+            lanes = []
+            for eng in self._engines or []:
+                f = eng.flush_recorder(reset=reset)
+                lanes.append(f["step"] if f is not None and "step" in f else {})
+        return {"mode": self.mode, "lanes": lanes}
 
     def _step_stacked(self, req, active, grants, offs, row_bounds=None):
         K, N = self.k, self._N
@@ -980,6 +1008,13 @@ class FleetOrchestrator:
         x1, x2, x3, warm_c, stats, new_inc = _solve_batched(
             ap, self.meta, self.options.solver, self._warm, None, inc
         )
+        if self._rec_cfg is not None:
+            if self._rec_state is None:
+                self._rec_state = obs_recorder.init_batch(self._rec_cfg, K, N, self.dtype,
+                                                          self.device)
+            # all K domains in one update, over the padded lanes (pad
+            # devices and the inert pad row included, as in the reference)
+            _record_batch(self._rec_cfg, self._rec_state, stats, x3, ap)
         x3 = x3.cpu().numpy()  # waits for the device
         self._warm = warm_c
         if self.options.incremental:

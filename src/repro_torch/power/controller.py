@@ -20,6 +20,9 @@ controller state must survive a crash: the warm start is an optimization,
 not a correctness dependency.
 
 ``device=None`` means ``cuda``; pass ``device="cpu"`` to run on the CPU.
+``recorder=`` (True or a :class:`repro_torch.obs.recorder.RecorderConfig`)
+turns on the engine's flight recorder; :meth:`PowerController.flush_recorder`
+drains it.
 """
 
 from __future__ import annotations
@@ -64,14 +67,13 @@ class PowerController:
         recorder=None,
         device=None,
     ):
-        if recorder:
-            raise NotImplementedError(
-                "the flight recorder is not ported yet (ROADMAP Queue 1 item 10)"
-            )
         self.pdn = pdn
         self.sla = sla
         self.priority = priority
         self.config = config or ControllerConfig()
+        # flight-recorder config forwarded to the engine (True = defaults);
+        # engine path only
+        self.recorder = recorder
         self.device = resolve_device(device)
         self._warm = None
         self._engine: AllocEngine | None = None
@@ -166,6 +168,7 @@ class PowerController:
                 priority=self.priority,
                 options=self.config.options,
                 idle_threshold=self.config.idle_threshold,
+                recorder=self.recorder,
                 device=self.device,
             )
             if self.supply_scale != 1.0:
@@ -173,8 +176,12 @@ class PowerController:
         return self._engine
 
     def flush_recorder(self, *, reset: bool = False):
-        """The flight record; ``None`` while the port has no recorder."""
-        return None
+        """The engine's flight record as host numpy (see
+        :meth:`repro_torch.core.engine.AllocEngine.flush_recorder`); ``None``
+        when recording is off or no engine step has run yet."""
+        if self._engine is None:
+            return None
+        return self._engine.flush_recorder(reset=reset)
 
     # -- main loop ---------------------------------------------------------
 

@@ -15,9 +15,10 @@ Two control planes:
 
 ``run(prefetch=True)`` overlaps telemetry decode with the solve through the
 fleet layer's double-buffered ingestion (valid in both modes; telemetry is
-a pure function of the timestamp, so the results are the same).  The
-reference's flight recorder is not ported yet and raises
-``NotImplementedError``.
+a pure function of the timestamp, so the results are the same).
+``recorder=`` turns on the flight recorder of the control plane that
+:meth:`DatacenterSim.build` makes; :meth:`DatacenterSim.flush_flight`
+drains it.
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ from repro_torch.power.power_model import DvfsModel
 from repro_torch.power.straggler import straggler_report
 
 __all__ = ["DatacenterSim"]
-
-_RECORDER = "ROADMAP Queue 1 item 10"
 
 
 @dataclasses.dataclass
@@ -73,10 +72,9 @@ class DatacenterSim:
         tenant SLA layout to whichever control plane is built — tenants may
         span the fleet cut (the coordinator splits their entitlements per
         step) — and enables the per-step SLA margin metrics in :meth:`run`.
-        ``recorder`` is the reference's flight recorder and raises
-        ``NotImplementedError`` here."""
-        if recorder:
-            raise NotImplementedError(f"the flight recorder is not ported yet ({_RECORDER})")
+        ``recorder`` (True or a :class:`repro_torch.obs.recorder.RecorderConfig`)
+        turns on the flight recorder of whichever control plane is built
+        here; drain it with :meth:`flush_flight`."""
         trace = TelemetrySim(trace_cfg or TraceConfig(n_devices=pdn.n, seed=seed))
         if controller is not None and (orchestrator is not None or fleet_level is not None):
             raise ValueError(
@@ -84,15 +82,15 @@ class DatacenterSim:
             )
         if orchestrator is None and fleet_level is not None:
             orchestrator = FleetOrchestrator(pdn, level=fleet_level, tenants=tenants,
-                                             device=device)
+                                             recorder=recorder, device=device)
         if orchestrator is None and controller is None:
             if tenants is not None:
                 controller = PowerController(
                     pdn, sla=tenants.sla_topo(device=device), priority=tenants.priority,
-                    device=device,
+                    recorder=recorder, device=device,
                 )
             else:
-                controller = PowerController(pdn, device=device)
+                controller = PowerController(pdn, recorder=recorder, device=device)
         return cls(pdn=pdn, trace=trace, controller=controller, orchestrator=orchestrator,
                    tenants=tenants)
 
@@ -126,9 +124,11 @@ class DatacenterSim:
         return res.allocation, wall, bool(res.stats.get("truncated", False))
 
     def flush_flight(self, *, reset: bool = False):
-        """The control plane's flight record: ``None`` while the port has no
-        recorder."""
+        """Drain the control plane's flight record to the host (``None``
+        when the sim was built without ``recorder=``)."""
         plane = self.orchestrator or self.controller
+        if plane is None:
+            return None
         return plane.flush_recorder(reset=reset)
 
     def run(self, steps: int, *, start: int = 0, baselines: bool = True,

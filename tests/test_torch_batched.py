@@ -277,6 +277,25 @@ def test_deadline_s_honored(sla_case):
     assert model.p1_s > 0 and model.p23_s > 0
 
 
-def test_recorder_is_not_ported(tree_case):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        batched.optimize_batched(tree_case.aps, rec=object())
+def test_optimize_batched_records_lanes(tree_case):
+    """``rec``/``rec_cfg`` append one flight-record row per lane in place and
+    hand the state back as ``res.recorder``; each lane's row holds that
+    lane's iterations and granted watts (``tests/test_torch_obs.py`` holds
+    the rows to the reference's)."""
+    from repro_torch.obs import recorder
+
+    cfg = recorder.RecorderConfig(capacity=4)
+    rec = recorder.init_batch(cfg, len(tree_case.aps), tree_case.pdn.n, device="cpu")
+    res = batched.optimize_batched(tree_case.aps, rec=rec, rec_cfg=cfg)
+    assert res.recorder is rec
+    lanes = recorder.flush_lanes(res.recorder, cfg)
+    assert len(lanes) == len(tree_case.aps)
+    for k, lane in enumerate(lanes):
+        (row,) = recorder.rows_as_dicts(lane)
+        assert row["step"] == 0 and row["tier"] == 0
+        assert row["iterations"] == res.stats["iterations"][k]
+        assert abs(row["alloc_W"] - res.allocation[k].sum()) <= ATOL
+    # a state without its config is handed back untouched
+    assert batched.optimize_batched(tree_case.aps, rec=rec).recorder is rec
+    assert int(rec.step[0]) == 1
+    assert batched.optimize_batched(tree_case.aps).recorder is None

@@ -322,19 +322,28 @@ def test_stats_keys_match_reference(fleets):
 
 
 def test_unported_paths_raise(fleets):
+    """What once raised (the flight recorder, ROADMAP item 10) now records:
+    the engine, the controller and ``optimize_batched`` take ``recorder=`` /
+    ``rec=`` and each recorded step is one row per lane."""
+    from repro_torch.obs import recorder
+
     _, _, pdn, _ = fleets
     eng = AllocEngine(pdn, device="cpu")
     ctl = PowerController(pdn, device="cpu")
     tele = np.full((2, pdn.n), 300.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        AllocEngine(pdn, recorder=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        PowerController(pdn, recorder=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        batched.optimize_batched(
-            batched.stack_problems([AllocProblem.build(pdn, t, device="cpu") for t in tele]),
-            rec=object(),
-        )
+    rec_eng = AllocEngine(pdn, recorder=True, device="cpu")
+    rec_eng.step(tele[0])
+    assert rec_eng.flush_recorder()["step"]["counters"]["n_steps"] == 1
+    rec_ctl = PowerController(pdn, recorder=True, device="cpu")
+    rec_ctl.step(tele[0])
+    assert rec_ctl.flush_recorder()["step"]["rows"].shape == (1, len(recorder.FIELDS))
+    cfg = recorder.RecorderConfig()
+    state = recorder.init_batch(cfg, 2, pdn.n, device="cpu")
+    res = batched.optimize_batched(
+        batched.stack_problems([AllocProblem.build(pdn, t, device="cpu") for t in tele]),
+        rec=state, rec_cfg=cfg,
+    )
+    assert [lane["step"] for lane in recorder.flush_lanes(res.recorder, cfg)] == [1, 1]
     # the K-scenario path (item 8b) is ported, incremental form included
     inc = AllocEngine(pdn, options=NvpaxOptions(incremental=True), device="cpu")
     for res in (eng.step_batched(tele), ctl.step_batched(tele), ctl.what_if(tele),

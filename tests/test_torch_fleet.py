@@ -502,8 +502,12 @@ def test_unported_parts_raise(fleet_pdn):
     _, pdn = fleet_pdn
     with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
         FleetOrchestrator(pdn, level=1, mode="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        FleetOrchestrator(pdn, level=1, recorder=True, device="cpu")
+    # the flight recorder (item 10) records: one lane per domain
+    orch = FleetOrchestrator(pdn, level=1, recorder=True, device="cpu")
+    orch.step(np.full(pdn.n, 300.0))
+    flight = orch.flush_recorder()
+    assert flight["mode"] == orch.mode and len(flight["lanes"]) == orch.k
+    assert all(lane["counters"]["n_steps"] == 1 for lane in flight["lanes"])
     with pytest.raises(ValueError, match="mutually exclusive"):
         from repro_torch.power import PowerController
 

@@ -1355,3 +1355,120 @@ def test_stacked_fleet_runs_the_topology_lanes(cuda, tenants):
         sums = np.bincount(lay.tenant_of[owned], weights=x[owned], minlength=lay.n_tenants)
         # the reference's own bar on tenant sums (tests/test_fleet_sla.py)
         assert (sums >= lay.b_min - 1e-4).all() and (sums <= lay.b_max + 1e-4).all(), key
+
+
+# ---------------------------------------------------------------------------
+# the flight recorder on the card (repro_torch.obs.recorder)
+# ---------------------------------------------------------------------------
+
+
+def _recorder_inputs(rng, n: int, lanes, device):
+    """One step's stats (counts and flags host values, the residual and the
+    in-loop histogram device tensors), allocation, request and margin."""
+    shape = () if lanes is None else (lanes,)
+    stats = {k: rng.integers(0, 500, shape) for k in
+             ("restarts", "iterations", "iterations_p1", "iterations_p2", "iterations_p3")}
+    stats.update({k: rng.random(shape) < 0.5 for k in
+                  ("skipped", "certify_pass", "converged", "kkt_certified", "truncated")})
+    kkt = torch.as_tensor(10.0 ** rng.uniform(-14, 2, shape), device=device)
+    stats["kkt_res"] = kkt if lanes is None else kkt.reshape(lanes, 1)
+    stats["kkt_hist"] = torch.as_tensor(rng.integers(0, 9, shape + (16,)).astype(np.int32),
+                                        device=device)
+    alloc = torch.as_tensor(rng.uniform(100.0, 700.0, shape + (n,)), device=device)
+    r = torch.as_tensor(rng.uniform(0.0, 800.0, shape + (n,)), device=device)
+    margin = torch.as_tensor(rng.normal(0.0, 50.0, shape), device=device)
+    return stats, alloc, r, margin
+
+
+def test_recorder_step_replays_in_a_cuda_graph(cuda):
+    """One ``record_step`` captured in a CUDA graph with its gauges in
+    static buffers, replayed 5 times (the capacity-4 ring wraps) with new
+    values copied in before each: the ring, counters, histograms, step and
+    last allocation are the bits of 5 eager calls (``chip_smoke.py`` 13e at
+    the paper's n)."""
+    from repro_torch.obs import recorder
+
+    cfg = recorder.RecorderConfig(capacity=4)
+    n = 1_000
+    rng = np.random.default_rng(0)
+    static = recorder.static_metrics(cfg, device=cuda)
+    alloc = torch.zeros(n, dtype=torch.float64, device=cuda)
+    eager, graphed, scratch = (recorder.init_state(cfg, n, device=cuda) for _ in range(3))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            recorder.record_step(cfg, scratch, static, alloc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        recorder.record_step(cfg, graphed, static, alloc)
+    for _ in range(5):
+        stats, a, r, margin = _recorder_inputs(rng, n, None, cuda)
+        m = recorder.step_metrics(stats, a, r, margin)
+        recorder.copy_metrics(static, m)
+        alloc.copy_(a)
+        graph.replay()
+        recorder.record_step(cfg, eager, m, a)
+    torch.cuda.synchronize()
+    for leaf in ("step", "ring", "hists", "solver_hist", "counters", "last_alloc"):
+        assert torch.equal(getattr(graphed, leaf), getattr(eager, leaf)), leaf
+    assert int(graphed.step) == 5
+
+
+def test_batched_record_matches_one_lane_records(cuda):
+    """A K = 8 record of one batched update against 8 one-lane records of
+    each lane's inputs: integer fields, counters, histograms, KKT residual,
+    margin and grant movement the same bits; granted watts and satisfaction
+    (row sums over ``[K, n]``, which the card adds in another order than a
+    vector's) within 1e-12 relative."""
+    from repro_torch.obs import recorder
+
+    cfg = recorder.RecorderConfig(capacity=4)
+    K, n = 8, 12_288
+    rng = np.random.default_rng(1)
+    lanes = recorder.init_batch(cfg, K, n, device=cuda)
+    ones = [recorder.init_state(cfg, n, device=cuda) for _ in range(K)]
+    for _ in range(5):
+        stats, alloc, r, margin = _recorder_inputs(rng, n, K, cuda)
+        recorder.record_step(cfg, lanes, recorder.step_metrics(stats, alloc, r, margin), alloc)
+        for j in range(K):
+            one = {k: v[j] for k, v in stats.items()}
+            one["kkt_res"] = stats["kkt_res"][j, 0]
+            recorder.record_step(
+                cfg, ones[j], recorder.step_metrics(one, alloc[j], r[j], margin[j]), alloc[j])
+    got = recorder.flush_lanes(lanes, cfg)
+    for j, st in enumerate(ones):
+        want = recorder.flush(st, cfg)
+        for key in ("counters", "step"):
+            assert got[j][key] == want[key], (j, key)
+        for key in ("hist_kkt", "hist_move", "solver_hist"):
+            np.testing.assert_array_equal(got[j][key], want[key])
+        for i, name in enumerate(recorder.FIELDS):
+            if name in ("alloc_W", "satisfaction"):
+                np.testing.assert_allclose(got[j]["rows"][:, i], want["rows"][:, i],
+                                           rtol=1e-12, atol=0, err_msg=name)
+            else:
+                np.testing.assert_array_equal(got[j]["rows"][:, i], want["rows"][:, i],
+                                              err_msg=name)
+
+
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_recorder_margin_is_the_cpu_bits(cuda, lanes):
+    """The SLA margin on the card goes through ``gather_sums`` (one
+    ``sla_matvec`` launch) and gives the CPU plain version's bits, on the
+    Appendix B tenants of the paper's fleet."""
+    from repro_torch.obs import recorder
+    from repro_torch.pdn.tenants import appendix_b_layout
+
+    pdn = build_datacenter()
+    lay = appendix_b_layout(pdn, seed=0)
+    shape = (pdn.n,) if lanes is None else (lanes, pdn.n)
+    x = np.random.default_rng(2).uniform(200.0, 700.0, shape)
+    reset_launch_counts()
+    got = recorder.sla_min_margin(torch.as_tensor(x, device=cuda), lay.sla_topo(device=cuda))
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"sla_matvec": 1}, counts
+    want = recorder.sla_min_margin(torch.as_tensor(x), lay.sla_topo(device="cpu"))
+    assert torch.equal(got.cpu(), want)
+    assert torch.isfinite(want).all()

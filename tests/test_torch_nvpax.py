@@ -171,7 +171,8 @@ def test_import_loads_neither_jax_nor_reference():
         "repro_torch.pdn.tenants, repro_torch.core.engine, repro_torch.core.batched, "
         "repro_torch.core.metrics, repro_torch.configs, repro_torch.models, "
         "repro_torch.training.step, repro_torch.launch.serve, repro_torch.power.power_model, "
-        "repro_torch.kernels.flash_attention, repro_torch.fleet, chip_smoke\n"
+        "repro_torch.kernels.flash_attention, repro_torch.fleet, repro_torch.obs.recorder, "
+        "repro_torch.obs.export, repro_torch.obs.report, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

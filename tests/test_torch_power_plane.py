@@ -129,16 +129,21 @@ def test_datacenter_sim_records_stage_spans(fleets):
 
 
 def test_unported_modes_raise(fleets):
-    """The recorder and the sharded fleet dispatch name their ROADMAP items;
-    fleet mode builds (``tests/test_torch_fleet.py`` holds it, the
-    cross-tenant scenario and prefetch to the reference)."""
+    """The sharded fleet dispatch names its ROADMAP item; ``recorder=``
+    (item 10) records in both control planes the simulator builds, and
+    without it ``flush_flight`` gives ``None``; fleet mode builds
+    (``tests/test_torch_fleet.py`` holds it, the cross-tenant scenario and
+    prefetch to the reference)."""
     from repro_torch.fleet import FleetOrchestrator
 
     _, pdn = fleets
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        DatacenterSim.build(pdn, recorder=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        DatacenterSim.build(pdn, fleet_level=1, recorder=True, device="cpu")
+    mono = DatacenterSim.build(pdn, seed=3, recorder=True, device="cpu")
+    mono.run(1, baselines=False)
+    assert mono.flush_flight()["step"]["counters"]["n_steps"] == 1
+    stacked = DatacenterSim.build(pdn, seed=3, fleet_level=1, recorder=True, device="cpu")
+    stacked.run(1, baselines=False)
+    flight = stacked.flush_flight()
+    assert flight["mode"] == "stacked" and len(flight["lanes"]) == 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
         FleetOrchestrator(pdn, level=1, mode="sharded", device="cpu")
     sim = DatacenterSim.build(pdn, device="cpu")
