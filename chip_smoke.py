@@ -173,6 +173,21 @@ Phases, each of which raises on failure:
    fleet against loop mode, and ``DatacenterSim``'s flight through the
    report CLI; (e) one ``record_step`` replayed in a CUDA graph to the
    eager bits.
+14. the sharded fleet dispatch, see :func:`sharded_phase`: (a)
+   ``FleetOrchestrator(build_datacenter(), level=1, mode="sharded")`` at
+   one NCCL rank with every kernel flag against stacked mode on the card
+   (1e-6 W, equal iterations; its launches are the kernels line's
+   ``launches_sharded``), one all-reduce and one all-gather a step, the
+   walls and a cold step's device launches of both, and the coordinator
+   tree's ``tree_matvec`` at K = 4 against its plain version; (b) four gloo
+   ranks on the one card, a hall each (this script again with
+   ``--shard-rank``; their launches summed are ``launches_sharded_4_ranks``):
+   14a's allocations, the same grants on every rank, the recorder's lanes
+   gathered only at the flush, and a cold step of (12f)'s tenant fleet held
+   to the stacked step at the quality level; (c) churn on 14a's fleets
+   without a rebuild; (d) the flight recorder, sharded against stacked;
+   (e) ``examples/torch_quickstart.py`` and
+   ``examples/torch_datacenter_simulation.py --steps 5``.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -188,6 +203,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -315,7 +331,7 @@ SIM_STEPS = 60
 SIM_HELD = 4
 RATIO_TOL = 1e-9
 # torch.profiler traces of one one-kernel-per-call check before a trace
-# with no device activity at all fails it, and the empty traces seen
+# with fewer kernels than the wrappers launched fails it, and those seen
 TRACE_ATTEMPTS = 3
 TRACE_RETRIES: list[dict] = []
 # phase 3: the lane axis of every allocator kernel, at these lane counts
@@ -568,11 +584,12 @@ def scaled_adjoint_csr(adjoint, device):
 
 def device_kernels(fn, calls: int) -> list[str]:
     """Names of the kernels the card ran during ``calls`` calls of ``fn``
-    (warmed first), from torch.profiler's CUDA activity.  A trace with no
-    device activity at all is traced again, up to ``TRACE_ATTEMPTS`` times,
-    and each such trace is logged beside the launches the wrappers counted
-    in it and kept in ``TRACE_RETRIES``; a trace with any activity is
-    returned as it is."""
+    (warmed first), from torch.profiler's CUDA activity.  A trace that
+    holds no kernel, or fewer than the wrappers counted launches in it (a
+    trace can drop the card's records, from some to all of them), is traced
+    again, up to ``TRACE_ATTEMPTS`` times, and each such trace is logged and
+    kept in ``TRACE_RETRIES``; any other trace is returned as it is, extra
+    kernels included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -584,13 +601,14 @@ def device_kernels(fn, calls: int) -> list[str]:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if ran:
-            break
         counted = sum(kernels.launch_counts().values()) - counted
-        TRACE_RETRIES.append({"attempt": attempt, "calls": calls, "counted_launches": counted})
-        log(f"[trace] attempt {attempt} of {TRACE_ATTEMPTS}: torch.profiler saw no device "
-            f"activity in {calls} calls whose wrappers counted {counted} launches")
+        ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ran and len(ran) >= counted:
+            break
+        TRACE_RETRIES.append({"attempt": attempt, "calls": calls, "counted_launches": counted,
+                              "traced_kernels": len(ran)})
+        log(f"[trace] attempt {attempt} of {TRACE_ATTEMPTS}: torch.profiler saw {len(ran)} "
+            f"kernels in {calls} calls whose wrappers counted {counted} launches")
     return ran
 
 
@@ -786,12 +804,15 @@ def main(argv: list[str]) -> int:
         help="build, print phase 3's digest of the chunk statistics and stop",
     )
     parser.add_argument("--out", default=str(ROOT / "artifacts" / "chip_smoke"))
+    parser.add_argument("--shard-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.shard_rank is not None:  # one of phase 14b's ranks
+        return shard_rank_main(args.shard_rank, out_dir)
     report: dict = {}
     cuda = torch.device("cuda")
 
@@ -1528,6 +1549,13 @@ def main(argv: list[str]) -> int:
                                                            out_dir)
     for entry in entries:
         entry["launches_recorder"] = recorder_launches.get(entry["name"], 0)
+
+    # -- 14. the sharded fleet dispatch ---------------------------------------------
+    sharded_launches, sharded_launches_4, report["sharded"] = sharded_phase(
+        pdn, layout, engine_opts, cuda, smi, out_dir)
+    for entry in entries:
+        entry["launches_sharded"] = sharded_launches.get(entry["name"], 0)
+        entry["launches_sharded_4_ranks"] = sharded_launches_4.get(entry["name"], 0)
     entries.extend(flash_entries)
 
     if args.profile:
@@ -2602,20 +2630,22 @@ def paper_tenant_fleet(pdn, layout, opts, tele, act, cuda, smi) -> tuple[dict, d
                              f"{float(np.max(np.abs(again[0].allocation - res.allocation))):.3e} W")
     primal_us = sum(r["device_us"] for r in prof["top"] if "primal_step" in r["name"])
     slowest = int(np.max(np.sum(its, 1)))
+    # a trace that dropped every record of the card's gives no share
+    share = primal_us / prof["device_us"] if prof["device_us"] else float("nan")
     pads = [orch._E - orch._sla.edges(k)[0].size for k in range(orch.k)]
     log(f"[12f] tenant fleet, 4 halls x 3,072 devices, Appendix B's {layout.n_tenants} tenants "
         f"split at the cut ({orch._E} edges a lane, of them {pads} pad edges on device 0): one "
         f"cold stacked step, iterations {its.tolist()}, wall "
         f"{wall * 1e3:.1f} ms, launches {_kernel_calls(launches)} "
         f"({prof['launches'] / slowest:.2f} device launches per PDHG iteration of the slowest "
-        f"lane's {slowest}, profiled), primal_step {100 * primal_us / prof['device_us']:.1f}% of "
+        f"lane's {slowest}, profiled), primal_step {100 * share:.1f}% of "
         f"the device time ({primal_us:.0f} of {prof['device_us']:.0f} us, busy "
         f"{100 * prof['device_us'] / prof['wall_us']:.1f}% of the profiled wall); every breaker "
         f"and tenant bound kept, a repeated cold step the same bits; on {smi}")
     return launches, {"phase_iterations": its.tolist(), "wall_ms": wall * 1e3, "pad_edges": pads,
                       "launches": launches, "quality": gaps, "profile": prof,
                       "primal_step_device_us": primal_us,
-                      "primal_step_share": primal_us / prof["device_us"]}
+                      "primal_step_share": share}
 
 
 def slowest_lane_step(orch, tele, act, keep=None):
@@ -2910,24 +2940,61 @@ def _int_rows_equal(tag, g, w, fields=REC_INT_FIELDS) -> None:
             raise AssertionError(f"{tag}: {name} {g[:, j].tolist()} != {w[:, j].tolist()}")
 
 
+# 13c: CUDA runtime calls that put work on the card's queue
+_ENQUEUE_CALL = re.compile(r"^cu(da)?(Launch|Memcpy|Memset|GraphLaunch)")
+
+
+def _copies_by_direction():
+    """A dispatch mode that counts the copies ATen makes between the host
+    and the card: ``h2d`` (a host tensor into a card result) and ``d2h`` (a
+    card tensor into a host result, or read as a Python number)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    copies = (torch.ops.aten.copy_.default, torch.ops.aten._to_copy.default)
+    reads = (torch.ops.aten._local_scalar_dense.default, torch.ops.aten.equal.default)
+
+    class CopyCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.h2d = self.d2h = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+            on_card = any(t.is_cuda for t in ins)
+            if on_card and (func in reads or any(not t.is_cuda for t in outs)):
+                self.d2h += 1
+            elif any(t.is_cuda for t in outs) and any(
+                    not t.is_cuda and (func in copies or t.dim() > 0) for t in ins):
+                self.h2d += 1  # a 0-dim host operand of a card op is passed by value
+            return out
+
+    return CopyCount()
+
+
 def _host_reads(step) -> dict:
-    """Device-to-host copies, synchronizations, host-to-device copies and
-    device launches of ``step()`` under torch.profiler (one device
-    synchronize after it, the same for every step profiled)."""
-    from torch.autograd import DeviceType
+    """Device-to-host and host-to-device copies of ``step()`` as ATen makes
+    them (:func:`_copies_by_direction`), and its synchronizations and device
+    launches as the CUDA runtime calls that torch.profiler records on the
+    host (one device synchronize after it, the same for every step
+    profiled).  The card's own activity records are not read: on the H100
+    a trace drops some of them, from none to all, between one step and the
+    next."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
+        with _copies_by_direction() as copies:
+            step()
         torch.cuda.synchronize()
-    events = prof.events()
-    names = [e.name for e in events]
+    names = [e.name for e in prof.events()]
     return {
-        "d2h": sum("DtoH" in n for n in names),
+        "d2h": copies.d2h,
         "syncs": sum("Synchronize" in n for n in names),
-        "h2d": sum("HtoD" in n for n in names),
-        "launches": sum(e.device_type == DeviceType.CUDA for e in events),
+        "h2d": copies.h2d,
+        "launches": sum(bool(_ENQUEUE_CALL.match(n)) for n in names),
     }
 
 
@@ -3054,8 +3121,9 @@ def recorder_phase(pdn, layout, engine_opts, cuda, smi, out_dir=None) -> tuple[d
     wall, bar ``OVERHEAD_BAR``, and over a held step's (reported); beside
     it, reported, the whole-step ratio of recording and unrecorded engines
     on the same telemetry, per-step minimum over interleaved repeats, with
-    a second unrecorded engine's (A/A).  (c) Under torch.profiler a
-    recorded and an unrecorded step of each kind (solved, held): the same
+    a second unrecorded engine's (A/A).  (c) A recorded and an
+    unrecorded step of each kind (solved, held), counted by
+    :func:`_host_reads`: the same
     device-to-host copies and synchronizations, ``REC_H2D`` more
     host-to-device copies, and the same added launches on both kinds.
     (d) ``what_if`` of ``WHATIF_K`` samples, recorded, each lane against
@@ -3240,9 +3308,9 @@ def recorder_phase(pdn, layout, engine_opts, cuda, smi, out_dir=None) -> tuple[d
     }
     added = {kind: on["launches"] - off["launches"] for kind, (off, on) in reads.items()}
     for kind, (off, on) in reads.items():
-        if off["syncs"] == 0:
-            raise AssertionError(f"[13c] the profiler saw no synchronization in an unrecorded "
-                                 f"{kind} step: {off}")
+        if off["syncs"] == 0 or off["d2h"] == 0:
+            raise AssertionError(f"[13c] no synchronization or no device-to-host copy seen in "
+                                 f"an unrecorded {kind} step: {off}")
         if (on["d2h"], on["syncs"]) != (off["d2h"], off["syncs"]):
             raise AssertionError(f"[13c] a recorded {kind} step reads the device back: {on} "
                                  f"against {off} unrecorded")
@@ -3251,7 +3319,7 @@ def recorder_phase(pdn, layout, engine_opts, cuda, smi, out_dir=None) -> tuple[d
                                  f"host-to-device copies, not {REC_H2D}")
         log(f"[13c] {kind} step: device-to-host copies {on['d2h']} recorded / {off['d2h']} "
             f"unrecorded, synchronizations {on['syncs']} / {off['syncs']}; recording adds "
-            f"{on['launches'] - off['launches']} device launches ({on['launches']} / "
+            f"{on['launches'] - off['launches']} launch calls ({on['launches']} / "
             f"{off['launches']}) and {on['h2d'] - off['h2d']} host-to-device copies")
     if len(set(added.values())) != 1:
         raise AssertionError(f"[13c] the launches recording adds differ by step kind: {added}")
@@ -3320,6 +3388,423 @@ def recorder_phase(pdn, layout, engine_opts, cuda, smi, out_dir=None) -> tuple[d
         f"{REC_REPLAYS} times: the bits of {REC_REPLAYS} eager calls in "
         f"{report['graph']['same_bits']}")
     return rec_launches, report
+
+
+# -- phase 14: the sharded fleet dispatch ---------------------------------------
+
+SHARD_RANKS = 4  # 14b: gloo ranks on the one card, one hall each
+SHARD_JOIN_S = 300  # 14b: seconds before a rank that has not finished fails the phase
+SHARD_REC_STEPS = 3  # 14d: recorded steps
+EXAMPLE_TIMEOUT_S = 300  # 14e: each example script
+# 14b: watts per device of useful power, min(request, cap), between a one-lane
+# and a four-lane cold step of the ε-degenerate tenant fleet on the card: 5x
+# the reference's own wander between identical tenant re-solves (2e-4 W,
+# ROADMAP Queue 3); the four-lane step on the card is 1.2e-4 W off the CPU's
+USEFUL_DEGENERATE_TOL = 1e-3
+
+
+def _fleet_samples(pdn, steps: int = FLEET_STEPS):
+    """Phase 12b's telemetry: ``TelemetrySim`` seed 0 and the scheduler's masks."""
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    return [sim.power(t) for t in range(steps)], [sim.active_mask(t) for t in range(steps)]
+
+
+def _wall_spread(walls) -> dict:
+    ms = np.asarray(walls) * 1e3
+    return {"median_ms": float(np.median(ms)), "min_ms": float(ms.min()),
+            "max_ms": float(ms.max()), "walls_ms": ms.tolist()}
+
+
+def _fmt_walls(w: dict) -> str:
+    return f"median {w['median_ms']:.1f} ms (min {w['min_ms']:.1f}, max {w['max_ms']:.1f})"
+
+
+def shard_rank_main(rank: int, out_dir: Path) -> int:
+    """One rank of phase 14b (``--shard-rank``): a gloo group of
+    ``SHARD_RANKS`` over a ``FileStore`` in ``out_dir``, holding one hall of
+    the paper's datacenter on the card.  Runs 14a's steps with the flight
+    recorder on and flushes it, then one cold step of phase 12f's tenant
+    fleet, and writes what it saw to ``out_dir/rank<rank>.npz`` and
+    ``.json``.  The parent has built the kernels."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.fleet import sharded as shd
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(out_dir / "store"), SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        cuda = torch.device("cuda")
+        _build.library()
+        pdn = build_datacenter()
+        opts = NvpaxOptions(solver=SolverOptions(use_pallas=True, use_pallas_tree=True,
+                                                 use_pallas_stats=True))
+        samples, actives = _fleet_samples(pdn)
+        orch = FleetOrchestrator(pdn, level=1, mode="sharded", options=opts, recorder=True,
+                                 device=cuda)
+        lay = orch._shard
+        arrays: dict = {}
+        info: dict = {"layout": [lay.backend, lay.world, lay.shards, lay.lo, lay.hi],
+                      "collectives": [], "walls_s": []}
+        sync(cuda)
+        kernels.reset_launch_counts()
+        for t, (tele, act) in enumerate(zip(samples, actives)):
+            shd.COLLECTIVES.clear()
+            t0 = time.perf_counter()
+            res = orch.step(tele, active=act)
+            info["walls_s"].append(time.perf_counter() - t0)
+            info["collectives"].append(dict(shd.COLLECTIVES))
+            arrays[f"alloc{t}"] = res.allocation
+            arrays[f"grants{t}"] = res.grants
+            arrays[f"iters{t}"] = res.stats["phase_iterations"]
+        info["launches"] = dict(kernels.launch_counts())
+        shd.COLLECTIVES.clear()
+        arrays["flight"] = np.stack([lane["rows"] for lane in orch.flush_recorder()["lanes"]])
+        info["flush_collectives"] = dict(shd.COLLECTIVES)
+        del orch
+        layout = appendix_b_layout(pdn, seed=0)
+        torch_orch = FleetOrchestrator(pdn, level=1, tenants=layout, mode="sharded",
+                                       options=opts, device=cuda)
+        sync(cuda)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = torch_orch.step(samples[0], active=actives[0])
+        info["tenant_wall_s"] = time.perf_counter() - t0
+        info["tenant_launches"] = dict(kernels.launch_counts())
+        info["tenant_iterations"] = res.stats["phase_iterations"].tolist()
+        arrays["tenant_alloc"] = res.allocation
+        arrays["tenant_grants"] = res.grants
+        arrays["tenant_slice_hi"] = res.stats["slice_hi"]
+        np.savez(out_dir / f"rank{rank}.npz", **arrays)
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(rank_dir: Path) -> list[tuple[dict, dict]]:
+    """Phase 14b's ranks, spawned at once; each must exit 0 within
+    ``SHARD_JOIN_S`` (all are killed otherwise)."""
+    rank_dir.mkdir(parents=True, exist_ok=True)
+    for old in rank_dir.iterdir():
+        old.unlink()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank", str(r), "--out",
+         str(rank_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SHARD_RANKS)]
+    deadline = time.monotonic() + SHARD_JOIN_S
+    outs, failed = [], []
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            outs.append(out)
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}: {out[-3000:]}")
+    except subprocess.TimeoutExpired:
+        failed.append(f"a rank did not finish in {SHARD_JOIN_S} s (a hung collective?)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError("[14b] " + "\n".join(failed))
+    return [(dict(np.load(rank_dir / f"rank{r}.npz")),
+             json.loads((rank_dir / f"rank{r}.json").read_text())) for r in range(SHARD_RANKS)]
+
+
+def _flights_match(tag, got: list, want: list, rows: int) -> float:
+    """Lane by lane, the first ``rows`` flight rows: integer fields equal,
+    ``alloc_W`` within ``FLEET_MONO_TOL``; the largest ``alloc_W`` gap."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} lanes against {len(want)}")
+    i_alloc = obs_recorder.FIELDS.index("alloc_W")
+    ints = [obs_recorder.FIELDS.index(f) for f in REC_INT_FIELDS]
+    gap = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g)[:rows], np.asarray(w)[:rows]
+        if g.shape != w.shape or not np.array_equal(g[:, ints], w[:, ints]):
+            raise AssertionError(f"{tag}: lane {k}'s integer fields differ")
+        gap = max(gap, float(np.max(np.abs(g[:, i_alloc] - w[:, i_alloc]))))
+    if gap > FLEET_MONO_TOL:
+        raise AssertionError(f"{tag}: alloc_W {gap:.3e} W apart")
+    return gap
+
+
+def sharded_phase(pdn, layout, engine_opts, cuda, smi, out_dir) -> tuple[dict, dict, dict]:
+    """Phase 14: the sharded fleet dispatch.  Returns (each allocator
+    kernel's launches over 14a's sharded steps, the four ranks' launches
+    over 14b's steps, report).
+
+    (a) ``FleetOrchestrator(build_datacenter(), level=1, mode="sharded")``
+    at one NCCL rank with every kernel flag, 12b's ``FLEET_STEPS`` steps,
+    against stacked mode on the card (``FLEET_MONO_TOL`` W, equal
+    iterations, every row kept), one all-reduce and one all-gather a step,
+    the walls of both and the device launches of a cold step of each
+    (torch.profiler); the coordinator tree's ``tree_matvec`` at K = 4
+    against its plain version.  (d) 14a's fleet with the flight recorder
+    for ``SHARD_REC_STEPS`` steps, sharded and stacked: equal integer fields,
+    ``alloc_W`` within ``FLEET_MONO_TOL``.  (b) ``SHARD_RANKS`` gloo ranks
+    on the one card (:func:`shard_rank_main`), one hall each: every rank's
+    allocations within ``FLEET_MONO_TOL`` of 14a's and its grants the
+    others' bits, the lanes gathered only at the flush and equal to (d)'s,
+    then one cold step of 12f's tenant fleet held to the stacked step on
+    the card by :func:`tenant_fleet_quality`.  (c) churn on 14a's two
+    orchestrators: a derated domain, a feed scale, a leave and a join; no
+    rebuild, every step feasible and the two modes within
+    ``FLEET_MONO_TOL``.  (e) the example twins on the card."""
+    from repro_torch.fleet import sharded as shd
+
+    report: dict = {"card": smi}
+    opts = NvpaxOptions(solver=engine_opts)
+    samples, actives = _fleet_samples(pdn)
+    path = ("tree_matvec", "tree_rmatvec", "primal_step", "dual_update", "check_chunk_stats")
+
+    def drive(orch):
+        out, walls = [], []
+        for tele, act in zip(samples, actives):
+            sync(cuda)
+            t0 = time.perf_counter()
+            out.append(orch.step(tele, active=act))
+            walls.append(time.perf_counter() - t0)
+        return out, walls
+
+    def against(tag, got, want, iterations=True):
+        gap = max(float(np.max(np.abs(got.allocation - want.allocation))),
+                  float(np.max(np.abs(got.grants - want.grants))))
+        same = np.array_equal(got.stats["phase_iterations"], want.stats["phase_iterations"])
+        if gap > FLEET_MONO_TOL or (iterations and not same):
+            raise AssertionError(f"{tag}: {gap:.3e} W apart, iterations "
+                                 f"{got.stats['phase_iterations'].tolist()} against "
+                                 f"{want.stats['phase_iterations'].tolist()}")
+        return gap
+
+    # (a) one NCCL rank against stacked mode; the launch counts are set to 0
+    # just before the sharded steps and read just after
+    stacked = FleetOrchestrator(pdn, level=1, mode="stacked", options=opts, device=cuda)
+    res_s, walls_s = drive(stacked)
+    sharded = FleetOrchestrator(pdn, level=1, mode="sharded", options=opts, device=cuda)
+    lay = sharded._shard
+    if (lay.backend, lay.world, lay.shards) != ("nccl", 1, 1) or sharded.rebuild_count() != 1:
+        raise AssertionError(f"[14a] group {lay.backend} of {lay.world}, {lay.shards} shards, "
+                             f"{sharded.rebuild_count()} builds")
+    sync(cuda)
+    kernels.reset_launch_counts()
+    shd.COLLECTIVES.clear()
+    res_h, walls_h = drive(sharded)
+    sync(cuda)
+    launches = dict(kernels.launch_counts())
+    lanes = dict(kernels.lane_launch_counts())
+    coll = dict(shd.COLLECTIVES)
+    # every kernel of the path over the lanes; the tree kernels also on the
+    # coordinator tree (the replicated water-fills, one vector)
+    missing = [k for k in path if not lanes[k]]
+    if missing or coll != {"all_reduce": FLEET_STEPS, "all_gather": FLEET_STEPS}:
+        raise AssertionError(f"[14a] collectives {coll} in {FLEET_STEPS} steps; kernels not "
+                             f"launched over the lanes: {missing} ({_kernel_calls(launches)})")
+    plan_launches = {k: launches[k] - lanes[k] for k in path if launches[k] != lanes[k]}
+    gaps = []
+    for t, (h, s) in enumerate(zip(res_h, res_s)):
+        gaps.append(against(f"[14a] step {t}", h, s))
+        _fleet_feasible(sharded, h.allocation, h.grants)
+        if not h.stats["converged"].all():
+            raise AssertionError(f"[14a] step {t}: not converged")
+    sharded.reset_warm()
+    stacked.reset_warm()
+    prof_h = profiled("one cold sharded step, one NCCL rank (14a)",
+                      lambda: slowest_lane_step(sharded, samples[0], actives[0]))
+    prof_s = profiled("the same step stacked (14a)",
+                      lambda: slowest_lane_step(stacked, samples[0], actives[0]))
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    ctree = sharded._ctree
+    x = torch.rand(sharded.k, generator=gen, dtype=torch.float64, device=cuda) * 1e6
+    got = tk.tree_matvec(x, ctree.index)
+    want = tref.tree_matvec_ref(x, ctree.start, ctree.end)
+    ctree_err = float((got - want).abs().max())
+    if ctree_err > TREE_TOL["float64"] * float(x.abs().sum()):
+        raise AssertionError(f"[14a] tree_matvec at K = {sharded.k}: {ctree_err:.3e} off plain")
+    w_h, w_s = _wall_spread(walls_h), _wall_spread(walls_s)
+    iters = [r.stats["phase_iterations"].tolist() for r in res_h]
+    log(f"[14a] sharded fleet at one NCCL rank (K = {sharded.k} halls as the lanes of one "
+        f"shard), {FLEET_STEPS} TelemetrySim steps: against stacked mode on the card "
+        f"{max(gaps):.2e} W (bar {FLEET_MONO_TOL:g}), equal iterations {iters}, every row "
+        f"kept; collectives per step: {coll['all_reduce'] // FLEET_STEPS} all-reduce, "
+        f"{coll['all_gather'] // FLEET_STEPS} all-gather; step wall sharded {_fmt_walls(w_h)}, "
+        f"stacked {_fmt_walls(w_s)}; a cold step's device launches sharded "
+        f"{prof_h['launches']}, stacked {prof_s['launches']}; launches "
+        f"{_kernel_calls(launches)}, of them on the coordinator tree {plan_launches}; the "
+        f"coordinator tree's tree_matvec at K = {sharded.k} "
+        f"{ctree_err:.2e} off its plain version; on {smi}")
+    report["one_rank"] = {"gap_w": gaps, "phase_iterations": iters, "collectives": coll,
+                          "plan_launches": plan_launches,
+                          "walls_sharded": w_h, "walls_stacked": w_s, "launches": launches,
+                          "profile_sharded": prof_h, "profile_stacked": prof_s,
+                          "ctree_tree_matvec_err": ctree_err}
+
+    # (d) the flight recorder, sharded and stacked
+    flights = {}
+    for mode in ("sharded", "stacked"):
+        orch = FleetOrchestrator(pdn, level=1, mode=mode, options=opts, recorder=True,
+                                 device=cuda)
+        for tele, act in zip(samples[:SHARD_REC_STEPS], actives[:SHARD_REC_STEPS]):
+            orch.step(tele, active=act)
+        shd.COLLECTIVES.clear()
+        flights[mode] = [lane["rows"] for lane in orch.flush_recorder()["lanes"]]
+        if mode == "sharded" and dict(shd.COLLECTIVES) != {"flush_gather": 1}:
+            raise AssertionError(f"[14d] the flush made {dict(shd.COLLECTIVES)}")
+        del orch
+    rec_gap = _flights_match("[14d]", flights["sharded"], flights["stacked"], SHARD_REC_STEPS)
+    log(f"[14d] flight recorder, {SHARD_REC_STEPS} steps: sharded and stacked lanes have equal "
+        f"integer fields, alloc_W {rec_gap:.2e} W apart; the flush is one gather")
+    report["recorder"] = {"alloc_w_gap": rec_gap}
+
+    # (b) four gloo ranks on the card; the stacked tenant fleet's step first
+    tstacked = FleetOrchestrator(pdn, level=1, tenants=layout, mode="stacked", options=opts,
+                                 device=cuda)
+    sync(cuda)
+    t0 = time.perf_counter()
+    res_ts = tstacked.step(samples[0], active=actives[0])
+    wall_ts = time.perf_counter() - t0
+    del tstacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks(Path(out_dir) / "shard_ranks")
+    ranks_wall = time.perf_counter() - t0
+    rank_gaps, walls_r, launches_4, tenant_launches_4 = [], [], {}, {}
+    for r, (arr, info) in enumerate(ranks):
+        if info["layout"] != ["gloo", SHARD_RANKS, SHARD_RANKS, r, r + 1]:
+            raise AssertionError(f"[14b] rank {r}'s layout {info['layout']}")
+        if any(c != {"all_reduce": 1, "all_gather": 1} for c in info["collectives"]) or \
+                info["flush_collectives"] != {"flush_gather": 1}:
+            raise AssertionError(f"[14b] rank {r}: collectives {info['collectives']}, flush "
+                                 f"{info['flush_collectives']}")
+        rmiss = [k for k in path if not info["launches"].get(k)]
+        tmiss = [k for k in ALLOCATOR_KERNELS if not info["tenant_launches"].get(k)]
+        if rmiss or tmiss:
+            raise AssertionError(f"[14b] rank {r}: kernels not launched {rmiss} / {tmiss}")
+        for t, h in enumerate(res_h):
+            gap = max(float(np.max(np.abs(arr[f"alloc{t}"] - h.allocation))),
+                      float(np.max(np.abs(arr[f"grants{t}"] - h.grants))))
+            if gap > FLEET_MONO_TOL:
+                raise AssertionError(f"[14b] rank {r} step {t}: {gap:.3e} W off 14a's")
+            rank_gaps.append(gap)
+            for key in (f"grants{t}", f"alloc{t}"):
+                if not np.array_equal(arr[key], ranks[0][0][key]):
+                    raise AssertionError(f"[14b] rank {r}'s {key} differs from rank 0's bits")
+        for key in ("tenant_alloc", "tenant_grants", "tenant_slice_hi", "flight"):
+            if not np.array_equal(arr[key], ranks[0][0][key]):
+                raise AssertionError(f"[14b] rank {r}'s {key} differs from rank 0's bits")
+        walls_r.append(info["walls_s"])
+        for k, v in info["launches"].items():
+            launches_4[k] = launches_4.get(k, 0) + v
+        for k, v in info["tenant_launches"].items():
+            tenant_launches_4[k] = tenant_launches_4.get(k, 0) + v
+    rec4_gap = _flights_match("[14b] flight", list(ranks[0][0]["flight"]), flights["sharded"],
+                              SHARD_REC_STEPS)
+    # the tenant fleet at the quality level: breakers and tenant bounds kept,
+    # useful power against the stacked step; the total is reported with each
+    # hall's grant left unallocated (the stacked card step leaves ~40 kW of
+    # hall 2's, ROADMAP Queue 3)
+    x_t = ranks[0][0]["tenant_alloc"]
+    tgaps = tenant_fleet_quality("[14b]", pdn, layout, x_t, samples[0], actives[0])
+    r_t = np.where(actives[0], np.clip(samples[0], pdn.dev_l, pdn.dev_u), pdn.dev_l)
+    tgaps.update(useful_w=float(np.max(np.abs(np.minimum(r_t, x_t)
+                                              - np.minimum(r_t, res_ts.allocation)))),
+                 total_w=float(x_t.sum() - res_ts.allocation.sum()),
+                 max_abs_w=float(np.max(np.abs(x_t - res_ts.allocation))))
+    if tgaps["useful_w"] > USEFUL_DEGENERATE_TOL:
+        raise AssertionError(f"[14b] tenant fleet: useful power {tgaps['useful_w']:.3e} W off "
+                             "the stacked step")
+    offs = np.concatenate([[0], np.cumsum([3_072] * 4)])
+
+    def unallocated(x, grants):
+        return [round(float(grants[k] - x[offs[k]:offs[k + 1]].sum()), 3) for k in range(4)]
+
+    tgaps["unallocated_w"] = unallocated(x_t, ranks[0][0]["tenant_grants"])
+    tgaps["stacked_unallocated_w"] = unallocated(res_ts.allocation, res_ts.grants)
+    w_r = _wall_spread(np.max(np.asarray(walls_r), axis=0))
+    t_walls = [info["tenant_wall_s"] * 1e3 for _, info in ranks]
+    log(f"[14b] {SHARD_RANKS} gloo ranks on the one card (collectives staged through host "
+        f"memory), one hall each: {FLEET_STEPS} steps within {max(rank_gaps):.2e} W of 14a's "
+        f"(bar {FLEET_MONO_TOL:g}), every rank's grants and allocations the same bits, one "
+        f"all-reduce and one all-gather a step, the recorder's lanes gathered once at the "
+        f"flush ({rec4_gap:.2e} W off 14d's); step wall (slowest rank) {_fmt_walls(w_r)}; "
+        f"launches over the ranks {_kernel_calls(launches_4)}; the tenant fleet's cold step "
+        f"(Appendix B split at the cut): iterations {ranks[0][1]['tenant_iterations']}, against "
+        f"the stacked step on the card useful power {tgaps['useful_w']:.2e} W (bar "
+        f"{USEFUL_DEGENERATE_TOL:g}), per device {tgaps['max_abs_w']:.2e} W, total "
+        f"{tgaps['total_w']:+.1f} W (grant left unallocated per hall {tgaps['unallocated_w']} W, "
+        f"stacked {tgaps['stacked_unallocated_w']} W), tenant bounds "
+        f"{tgaps['tenant_bound_excess_w']:.2e} W; wall per rank "
+        f"{', '.join(f'{w:.0f}' for w in t_walls)} ms against the stacked step's "
+        f"{wall_ts * 1e3:.0f} ms (iterations {res_ts.stats['phase_iterations'].tolist()}); "
+        f"the ranks' processes {ranks_wall:.1f} s in all; on {smi}")
+    report["four_ranks"] = {"gap_w": rank_gaps, "walls": w_r, "launches": launches_4,
+                            "tenant_launches": tenant_launches_4, "tenant_quality": tgaps,
+                            "tenant_walls_ms": t_walls, "stacked_tenant_wall_ms": wall_ts * 1e3,
+                            "tenant_iterations": ranks[0][1]["tenant_iterations"],
+                            "stacked_tenant_iterations":
+                                res_ts.stats["phase_iterations"].tolist(),
+                            "flight_gap_w": rec4_gap, "processes_s": ranks_wall}
+
+    # (c) churn on 14a's two orchestrators
+    lives = [FleetLifecycle(sharded), FleetLifecycle(stacked)]
+    before = [sharded.rebuild_count(), stacked.rebuild_count()]
+    left = np.array([5, 3_100, 9_000])
+    churn = []
+
+    def churn_step(tag, t):
+        h = sharded.step(samples[t], active=actives[t])
+        s = stacked.step(samples[t], active=actives[t])
+        over = _fleet_feasible(sharded, h.allocation, h.grants)
+        gap = against(f"[14c] {tag}", h, s, iterations=False)
+        counts = [sharded.rebuild_count(), stacked.rebuild_count()]
+        if counts != before:
+            raise AssertionError(f"[14c] {tag}: rebuild counts {counts}, {before} before")
+        churn.append({"event": tag, "gap_w": gap, "max_excess_w": over})
+        return h
+
+    for orch in (sharded, stacked):
+        orch.set_domain_supply(0, 0.8)
+    churn_step("hall 0 feed x 0.8", 1)
+    for orch in (sharded, stacked):
+        orch.set_feed_scale(0.95)
+    churn_step("feed x 0.95", 2)
+    for life in lives:
+        life.device_leave(left)
+    h = churn_step("leave 3 devices", 3)
+    if np.abs(h.allocation[left]).max() > 0.0:
+        raise AssertionError("[14c] a left device got power")
+    for life in lives:
+        life.device_join(left)
+    churn_step("rejoin", 4)
+    log(f"[14c] churn on 14a's sharded and stacked fleets: " + "; ".join(
+        f"{c['event']}: {c['gap_w']:.2e} W apart, max excess {c['max_excess_w']:.2e} W"
+        for c in churn) + f"; rebuild counts stay {before}")
+    report["churn"] = churn
+
+    # (e) the example twins on the card
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    examples = {}
+    for script, argv in (("torch_quickstart.py", []),
+                         ("torch_datacenter_simulation.py", ["--steps", "5"])):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(ROOT / "examples" / script), *argv],
+                             capture_output=True, text=True, env=env, cwd=ROOT,
+                             timeout=EXAMPLE_TIMEOUT_S)
+        lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+        if run.returncode != 0 or not any(ln.startswith("nvPAX") for ln in lines):
+            raise AssertionError(f"[14e] {script} exited {run.returncode}: "
+                                 f"{(run.stdout + run.stderr)[-3000:]}")
+        examples[script] = {"lines": lines, "seconds": time.perf_counter() - t0}
+        for ln in lines:
+            log(f"[14e] {script}: {ln}")
+    report["examples"] = examples
+    return launches, launches_4, report
 
 
 def _row_err(got, want) -> float:

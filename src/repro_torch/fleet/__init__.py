@@ -8,13 +8,14 @@ engines coordinated by an inter-domain budget planner:
 * :mod:`repro_torch.fleet.coordinator` — rebalance the global supply across
   domains between steps (waterfill over the coordinator tree);
 * :mod:`repro_torch.fleet.orchestrator` — per-domain engines served as K
-  lanes of one solve, each over its own domain's topology (``stacked``), or
-  an engine loop (``loop``), with per-domain warm carry;
+  lanes of one solve, each over its own domain's topology (``stacked``), an
+  engine loop (``loop``), or the stacked lanes split over the ranks of a
+  process group (``sharded``), with per-domain warm carry;
+* :mod:`repro_torch.fleet.sharded` — the sharded step: one all-reduce of
+  the domains' demand, the coordinator plan replicated on every rank, one
+  all-gather of the result;
 * :mod:`repro_torch.fleet.lifecycle` — churn-tolerant re-pins (device
   join/leave, supply derating) and double-buffered telemetry ingestion.
-
-The reference's ``sharded`` dispatch (the stacked solve over a device mesh)
-is not ported yet (ROADMAP Queue 1 item 11b): ``mode="sharded"`` raises.
 """
 
 from repro_torch.fleet.coordinator import BudgetCoordinator, split_entitlements

@@ -13,7 +13,7 @@ control step as a two-level hierarchical solve:
 2. each domain solves its own three-phase problem with its grant as the
    domain root capacity.
 
-Per-domain solves dispatch in one of two modes:
+Per-domain solves dispatch in one of three modes:
 
 * ``stacked`` — all K domains padded to a common ``(N, M, E, T)`` shape and
   solved as K lanes of ONE solve
@@ -26,11 +26,16 @@ Per-domain solves dispatch in one of two modes:
   per-step grants, supply derates, device join and leave, tenant re-bounds
   and same-shape structural rebuilds of one domain swap values in place;
 * ``loop`` — one persistent :class:`AllocEngine` per domain, stepped in
-  sequence, with the reference's dirty-domain dispatch in incremental mode.
+  sequence, with the reference's dirty-domain dispatch in incremental mode;
+* ``sharded`` — the stacked solve split over the ranks of a
+  ``torch.distributed`` process group (:mod:`repro_torch.fleet.sharded`):
+  each rank holds K/d domains as the lanes of its own stacked solve,
+  padded to the global shape, and a step makes one all-reduce of the
+  demand (the coordinator plan is then computed on every rank) and one
+  all-gather of the result.
 
 ``mode="auto"`` picks ``stacked`` when the domains are homogeneous enough
-that padding waste is small, else ``loop``.  The reference's third mode,
-``sharded`` (the stacked solve over a device mesh), is not ported yet.
+that padding waste is small, else ``loop``.
 
 Warm starts are carried per domain in both modes (a batched
 :class:`repro_torch.core.phases.WarmCarry` with ``[K, ...]`` leaves, or each
@@ -66,6 +71,7 @@ from repro_torch.core.nvpax import NvpaxOptions
 from repro_torch.core.problem import AllocProblem
 from repro_torch.core.solver.options import KKT_HIST_BUCKETS
 from repro_torch.core.treeops import SlaTopo, TreeTopo
+from repro_torch.fleet import sharded as shd
 from repro_torch.fleet.coordinator import (
     BudgetCoordinator,
     check_tenants_deliverable,
@@ -84,8 +90,6 @@ from repro_torch.obs.stats import StepStats
 from repro_torch.pdn.tree import FlatPDN, check_caps_fund_minimums
 
 __all__ = ["FleetOrchestrator", "FleetStepResult"]
-
-_SHARDED = "ROADMAP Queue 1 item 11b"
 
 
 class _DomainBatch:
@@ -156,10 +160,17 @@ class FleetOrchestrator:
     ----------
     pdn : the full datacenter tree.
     level : cut depth; every node at this depth roots one domain.
-    mode : ``"auto"`` | ``"stacked"`` | ``"loop"`` (see module docstring);
-        ``"sharded"`` raises ``NotImplementedError``.
+    mode : ``"auto"`` | ``"stacked"`` | ``"loop"`` | ``"sharded"`` (see
+        module docstring); ``sharded`` takes the ``waterfill`` and
+        ``subtree`` coordinators.
     coordinator_mode : budget policy, see
         :class:`repro_torch.fleet.coordinator.BudgetCoordinator`.
+    group : in ``sharded`` mode, the process group whose ranks share the
+        domains (every rank builds the orchestrator with the same
+        arguments and steps it with the same telemetry); ``None`` means
+        the default group when ``torch.distributed`` is initialised, else
+        a one-rank group of this process (see
+        :mod:`repro_torch.fleet.sharded`).
     tenants : optional tenant SLA layout (anything with
         ``tenant_of``/``b_min``/``b_max``, e.g.
         :class:`repro_torch.pdn.tenants.TenantLayout`); tenants may span the
@@ -191,12 +202,14 @@ class FleetOrchestrator:
         dtype=torch.float64,
         recorder=None,
         device=None,
+        group=None,
     ):
         if mode not in ("auto", "stacked", "loop", "sharded"):
             raise ValueError(f"mode must be auto/stacked/loop/sharded, got {mode!r}")
-        if mode == "sharded":
-            raise NotImplementedError(
-                f"the sharded fleet dispatch (fleet/sharded.py) is not ported yet ({_SHARDED})"
+        if mode == "sharded" and coordinator_mode not in ("waterfill", "subtree"):
+            raise ValueError(
+                "sharded dispatch supports waterfill/subtree coordinators, "
+                f"got {coordinator_mode!r}"
             )
         self.device = resolve_device(device)
         self.partition: FleetPartition = split_pdn(pdn, level, tenants=tenants)
@@ -235,6 +248,10 @@ class FleetOrchestrator:
             )
             mode = "stacked" if homogeneous else "loop"
         self.mode = mode
+        # sharded: this rank's domains [lo, hi); stacked holds all K
+        self._shard: shd.ShardLayout | None = (
+            shd.shard_layout(K, group, self.device) if mode == "sharded" else None
+        )
         self._rebuilds = 0
         self._engines: list[AllocEngine] | None = None
         self._warm: phases.WarmCarry | None = None
@@ -245,19 +262,23 @@ class FleetOrchestrator:
         self._inc_carry: Any = None
         self._loop_prev: dict[str, Any] | None = None
         # the flight recorder: stacked mode keeps one [K, ...] state (made on
-        # the first step); loop mode delegates to each domain engine's own
+        # the first step), sharded mode one of its own lanes; loop mode
+        # delegates to each domain engine's own
         if recorder is True:
             recorder = obs_recorder.RecorderConfig()
         self._rec_cfg: obs_recorder.RecorderConfig | None = recorder or None
         self._rec_state: obs_recorder.RecorderState | None = None
+        self._rec_steps = 0  # sharded: recorded steps (every rank counts)
         self.history: list[dict[str, Any]] = []
         if self._sla is not None:
             # fail fast: contracts must be deliverable and fundable under
             # the nameplate feeds before the first step
             self._check_effective_floors()
-        if mode == "stacked":
+        if mode in ("stacked", "sharded"):
             # pad to the largest domain; static metadata is the union over
-            # domains so per-domain differences stay per lane
+            # domains so per-domain differences stay per lane (each rank of
+            # a sharded fleet pads to the global shape: its lanes are the
+            # stacked program's)
             self._N = int(max(p.n for p in self._local_pdn))
             self._M = int(max(p.m for p in self._local_pdn))
             # SLA pads: one extra always-inert row receives the padded
@@ -312,11 +333,23 @@ class FleetOrchestrator:
     def rebuild_count(self) -> int:
         """How many times the orchestrator built device topology and kernel
         index tables: in stacked mode the padded ``[K, ...]`` batch (1 after
-        construction) and each :meth:`rebuild_domain` lane rewrite; in loop
+        construction) and each :meth:`rebuild_domain` lane rewrite; in
+        sharded mode the same, on every rank, for its own lanes and the
+        coordinator tree and tenant forest of the replicated plan; in loop
         mode each domain engine built (K after construction).  Grants,
         derates, re-pins and tenant re-bounds leave it unchanged — the
         port's form of the reference's ``trace_count``."""
         return self._rebuilds
+
+    def _lane(self, k: int) -> int | None:
+        """Domain ``k``'s lane in this process's domain batch (``None``
+        when another rank of a sharded fleet holds it)."""
+        return k if self._shard is None else self._shard.lane(k)
+
+    @property
+    def _local(self) -> range:
+        """The domains whose lanes this process holds."""
+        return range(self.k) if self._shard is None else range(self._shard.lo, self._shard.hi)
 
     # -- stacked-mode tensor management -------------------------------------
 
@@ -350,22 +383,48 @@ class FleetOrchestrator:
 
     def _upload(self) -> None:
         """Build the padded [K, ...] device tensors and their kernel indexes
-        from the host mirrors (once, at construction)."""
+        from the host mirrors (once, at construction): all K lanes, or a
+        sharded rank's own (none on a rank past the shard count), and in
+        sharded mode the replicated plan's trees."""
         K, M = self.k, self._M
-        lanes = [self._lane_arrays(k) for k in range(K)]
-        l, u, pri, start, end, depth, sla_dev, sla_ten = (np.stack(a) for a in zip(*lanes))
-        # host mirror of the caps; row 0 gets the per-step grants
+        # host mirror of the caps (all K domains); row 0 gets the grants
         self._cap_np = np.full((K, M), np.inf)
         for k, c in enumerate(self._node_cap):
             self._cap_np[k, : c.shape[0]] = c
-        self._dom = _DomainBatch(
-            l, u, np.ones_like(l), pri, start, end, depth, sla_dev, sla_ten, self._T,
-            # the longest covering-rows list a domain within the padding can
-            # have, so that rebuild_domain rewrites a lane without growing it
-            cover_capacity=self._N * self.meta.n_depths,
-            dtype=self.dtype, device=self.device,
-        )
+        self._dom: _DomainBatch | None = None
+        if len(self._local):
+            lanes = [self._lane_arrays(k) for k in self._local]
+            l, u, pri, start, end, depth, sla_dev, sla_ten = (np.stack(a) for a in zip(*lanes))
+            self._dom = _DomainBatch(
+                l, u, np.ones_like(l), pri, start, end, depth, sla_dev, sla_ten, self._T,
+                # the longest covering-rows list a domain within the padding
+                # can have, so that rebuild_domain rewrites a lane in place
+                cover_capacity=self._N * self.meta.n_depths,
+                dtype=self.dtype, device=self.device,
+            )
+        if self._shard is not None:
+            co = self.coordinator
+            self._ctree = TreeTopo.make(co.start, co.end, co.cap, np.zeros_like(co.start), K,
+                                        dtype=self.dtype, device=self.device)
+            self._forest_key = None
+            self._forest = self._forest_for(self._sla)
         self._rebuilds += 1
+
+    def _forest_for(self, sla: FleetSla | None) -> TreeTopo | None:
+        """The cross-cut tenants over their slices (the sharded plan's
+        entitlement forest), built again only when the slice structure
+        changes."""
+        if sla is None or not sla.n_slices:
+            self._forest_key = None
+            return None
+        key = (sla.n_slices, sla.ten_start.tobytes(), sla.ten_end.tobytes())
+        if key != self._forest_key:
+            self._forest_key = key
+            self._forest = TreeTopo.make(
+                sla.ten_start, sla.ten_end, sla.b_max[sla.cross_ids],
+                np.zeros_like(sla.ten_start), sla.n_slices, dtype=self.dtype,
+                device=self.device)
+        return self._forest
 
     def _vec(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
@@ -568,11 +627,12 @@ class FleetOrchestrator:
         if self.mode == "loop":
             if self._engines is not None:
                 self._engines[k].reset_warm()
-        elif self._warm is not None:
+        elif self._warm is not None and self._lane(k) is not None:
+            j = self._lane(k)
 
             def zero_lane(a):
                 a = a.clone()
-                a[k] = 0
+                a[j] = 0
                 return a
 
             self._warm = phases.WarmCarry(*(
@@ -585,9 +645,9 @@ class FleetOrchestrator:
         an infinite anchor demand fails every certify tier, forcing a full
         solve for that domain on the next step (the other K-1 anchors keep
         skipping)."""
-        if self._inc_carry is not None:
+        if self._inc_carry is not None and self._lane(k) is not None:
             r = self._inc_carry.r.clone()
-            r[k] = float("inf")
+            r[self._lane(k)] = float("inf")
             self._inc_carry = self._inc_carry._replace(r=r)
         if self._loop_prev is not None:
             self._loop_prev["alloc"][k] = None
@@ -732,14 +792,15 @@ class FleetOrchestrator:
             self._invalidate_incremental(k)
         else:
             # write only lane k of the built tensors (O(N) host work and a
-            # one-lane copy); nothing is rebuilt
-            if dev_l is not None or dev_u is not None:
+            # one-lane copy, on the rank that holds it); nothing is rebuilt
+            j = self._lane(k)
+            if j is not None and (dev_l is not None or dev_u is not None):
                 row_l = np.zeros(self._N)
                 row_u = np.zeros(self._N)
                 row_l[: p.n] = self._dev_l[k]
                 row_u[: p.n] = self._dev_u[k]
-                self._dom.l[k].copy_(self._vec(row_l))
-                self._dom.u[k].copy_(self._vec(row_u))
+                self._dom.l[j].copy_(self._vec(row_l))
+                self._dom.u[j].copy_(self._vec(row_u))
             if node_cap is not None:
                 self._cap_np[k, : p.m] = self._node_cap[k]
             if reset_warm:
@@ -793,7 +854,7 @@ class FleetOrchestrator:
             candidate_sla = build_fleet_sla(lists, self._sla.b_min, self._sla.b_max)
         elif tenant_of is not None:
             raise ValueError("orchestrator was built without tenants")
-        if self.mode == "stacked":
+        if self.mode in ("stacked", "sharded"):
             if new_pdn.n > self._N or new_pdn.m > self._M:
                 raise ValueError(
                     f"domain {k} rebuild ({new_pdn.n} devices, {new_pdn.m} "
@@ -839,8 +900,13 @@ class FleetOrchestrator:
             self._invalidate_incremental(k)
         else:
             # only lane k's edges can change: the other domains' rows and
-            # edges depend on their own membership alone
-            self._dom.set_lane(k, *self._lane_arrays(k))
+            # edges depend on their own membership alone (a sharded rank
+            # rewrites the lane if it holds it, and the tenant forest if the
+            # slice structure moved)
+            if self._lane(k) is not None:
+                self._dom.set_lane(self._lane(k), *self._lane_arrays(k))
+            if self._shard is not None:
+                self._forest_for(self._sla)
             self._cap_np[k] = np.inf
             self._cap_np[k, : new_pdn.m] = self._node_cap[k]
             self._rebuilds += 1
@@ -918,22 +984,31 @@ class FleetOrchestrator:
         if active.shape != (n,):
             raise ValueError(f"active shape {active.shape} != ({n},)")
         offs = self._offsets()
-        with spans.span("fleet.shape"):
-            l_all = self.device_bounds()
-            u_all = self.device_caps()
-            shaped = np.where(active, np.clip(req, l_all, u_all), l_all)
-            demand = np.array(
-                [shaped[offs[k] : offs[k + 1]].sum() for k in range(self.k)]
-            )
-        with spans.span("fleet.plan"):
-            grants, row_bounds, slice_lo, slice_hi = self._plan(demand, shaped)
-        t0 = time.perf_counter()
-        with spans.span("fleet.dispatch"):
-            if self.mode == "stacked":
-                res = self._step_stacked(req, active, grants, offs, row_bounds)
-            else:
-                res = self._step_loop(req, active, grants, offs, row_bounds, demand)
-        wall = time.perf_counter() - t0
+        if self.mode == "sharded":
+            # demand aggregation and the coordinator plan run inside the
+            # sharded step (the one cross-rank reduction); the host only
+            # lays out this rank's lanes and the demand-free plan inputs
+            t0 = time.perf_counter()
+            with spans.span("fleet.dispatch"):
+                res, grants, demand, slice_lo, slice_hi = self._step_sharded(req, active, offs)
+            wall = time.perf_counter() - t0
+        else:
+            with spans.span("fleet.shape"):
+                l_all = self.device_bounds()
+                u_all = self.device_caps()
+                shaped = np.where(active, np.clip(req, l_all, u_all), l_all)
+                demand = np.array(
+                    [shaped[offs[k] : offs[k + 1]].sum() for k in range(self.k)]
+                )
+            with spans.span("fleet.plan"):
+                grants, row_bounds, slice_lo, slice_hi = self._plan(demand, shaped)
+            t0 = time.perf_counter()
+            with spans.span("fleet.dispatch"):
+                if self.mode == "stacked":
+                    res = self._step_stacked(req, active, grants, offs, row_bounds)
+                else:
+                    res = self._step_loop(req, active, grants, offs, row_bounds, demand)
+            wall = time.perf_counter() - t0
         if slice_lo is not None:
             res[1]["slice_lo"] = slice_lo
             res[1]["slice_hi"] = slice_hi
@@ -966,11 +1041,22 @@ class FleetOrchestrator:
         per-domain flush dict per lane (see
         :func:`repro_torch.obs.recorder.flush`), or ``None`` when recording
         is off.  Stacked mode flushes the orchestrator's own ``[K, ...]``
-        state; loop mode each domain engine's (``{}`` for an engine that has
-        not stepped).  ``reset=True`` drops the records after the gather."""
+        state; sharded mode gathers every rank's lanes (one all-gather, the
+        only place the shards' records meet, so every rank of the group
+        must call it) and gives all K in domain order; loop mode each domain
+        engine's (``{}`` for an engine that has not stepped).
+        ``reset=True`` drops the records after the gather."""
         if self._rec_cfg is None:
             return None
-        if self.mode == "stacked":
+        if self.mode == "sharded":
+            lanes = []
+            if self._rec_steps:
+                lanes = shd.flush_lanes(self._shard, self._rec_state, self._rec_cfg, self._N,
+                                        self.dtype)
+            if reset:
+                self._rec_state = None
+                self._rec_steps = 0
+        elif self.mode == "stacked":
             lanes: list[dict[str, Any]] = []
             if self._rec_state is not None:
                 lanes = obs_recorder.flush_lanes(self._rec_state, self._rec_cfg)
@@ -983,13 +1069,20 @@ class FleetOrchestrator:
                 lanes.append(f["step"] if f is not None and "step" in f else {})
         return {"mode": self.mode, "lanes": lanes}
 
+    def _lane_telemetry(self, req, active, offs) -> tuple[np.ndarray, np.ndarray]:
+        """This process's lanes of the telemetry and activity mask, padded
+        to ``[lanes, N]``."""
+        local = self._local
+        r = np.zeros((len(local), self._N))
+        act = np.zeros((len(local), self._N), bool)
+        for j, k in enumerate(local):
+            r[j, : offs[k + 1] - offs[k]] = req[offs[k] : offs[k + 1]]
+            act[j, : offs[k + 1] - offs[k]] = active[offs[k] : offs[k + 1]]
+        return r, act
+
     def _step_stacked(self, req, active, grants, offs, row_bounds=None):
         K, N = self.k, self._N
-        r = np.zeros((K, N))
-        act = np.zeros((K, N), bool)
-        for k in range(K):
-            r[k, : offs[k + 1] - offs[k]] = req[offs[k] : offs[k + 1]]
-            act[k, : offs[k + 1] - offs[k]] = active[offs[k] : offs[k + 1]]
+        r, act = self._lane_telemetry(req, active, offs)
         cap = self._cap_np.copy()
         cap[:, 0] = grants
         # per-step SLA rows: real rows get contract/sub-budget bounds, pad
@@ -1023,6 +1116,112 @@ class FleetOrchestrator:
             self._inc_carry = new_inc
         alloc = np.concatenate([x3[k, : int(self.domain_sizes[k])] for k in range(K)])
         return alloc, StepStats.from_lanes(stats, mode="stacked")
+
+    def _sharded_plan(self) -> tuple[shd.PlanRep, shd.RowMaps | None]:
+        """(PlanRep, RowMaps | None): the demand-independent planning
+        tensors of the sharded step, from the same host mirrors (and with
+        the same per-step checks) as the stacked planner."""
+        dcap, ccap, dmin = self._effective_domain_caps()
+        sla = self._sla
+        S = sla.n_slices if sla is not None else 0
+        rowmap = None
+        slice_lo = np.zeros(0)
+        slice_umax = np.zeros(0)
+        forest = None
+        if sla is not None:
+            sf, su, _ = self._slice_aggregates(self._dev_l, self._dev_u)
+            lift = self._local_lift(self._dev_l, self._dev_u)
+            if S:
+                check_tenants_deliverable(sla, sf, su)
+                slice_lo, _ = split_entitlements(sla, sf, su, sf)
+                slice_umax = su
+                forest = self._forest_for(sla)._replace(cap=self._vec(sla.b_max[sla.cross_ids]))
+                np.add.at(lift, sla.slice_domain, slice_lo - sf)
+            dmin = dmin + lift
+            # [K/d, T] row routing of this rank's lanes: slice rows gather
+            # the coordinator split, local rows carry their contract, pad
+            # rows stay [0, inf)
+            local, T = self._local, self._T
+            idx = np.full((len(local), T), S, np.int64)
+            lo_local = np.zeros((len(local), T))
+            hi_local = np.full((len(local), T), np.inf)
+            for j, k in enumerate(local):
+                for r, t in enumerate(sla.rows[k]):
+                    s = int(sla.row_slice[k][r])
+                    if s >= 0:
+                        idx[j, r] = s
+                    else:
+                        lo_local[j, r] = sla.b_min[t]
+                        hi_local[j, r] = sla.b_max[t]
+            lane, row = np.nonzero(idx < S)
+
+            def index(a):
+                return torch.as_tensor(a, dtype=torch.int64, device=self.device)
+
+            rowmap = shd.RowMaps(
+                slice_idx=index(idx), lo_local=self._vec(lo_local), hi_local=self._vec(hi_local),
+                lane=index(lane), row=index(row), slot=index(idx[lane, row]),
+            )
+        # the host coordinator's own fail-fast checks
+        bad = np.nonzero(dmin > dcap + 1e-9)[0]
+        if bad.size:
+            k = int(bad[0])
+            raise ValueError(
+                f"domain {k} minimum draw {dmin[k]:.1f} W exceeds its "
+                f"(possibly derated) capacity {dcap[k]:.1f} W; mask devices "
+                "out first (FleetLifecycle.device_leave)"
+            )
+        check_caps_fund_minimums(
+            self.coordinator.start, self.coordinator.end, ccap, dmin, what="coordinator row"
+        )
+        rep = shd.PlanRep(
+            dmin_tot=self._vec(dmin),
+            dcap=self._vec(dcap),
+            ctree=self._ctree._replace(cap=self._vec(ccap)),
+            slice_lo=self._vec(slice_lo),
+            slice_umax=self._vec(slice_umax),
+            forest=forest,
+        )
+        return rep, rowmap
+
+    def _step_sharded(self, req, active, offs):
+        local, N = self._local, self._N
+        r, act = self._lane_telemetry(req, active, offs)
+        inc = self._inc_carry if self.options.incremental else None
+        if self._rec_cfg is not None and self._rec_state is None and self._dom is not None:
+            self._rec_state = obs_recorder.init_batch(self._rec_cfg, len(local), N, self.dtype,
+                                                      self.device)
+        rep, rowmap = self._sharded_plan()
+        out = shd.step(
+            self._dom,
+            self._vec(self._cap_np[local.start : local.stop]),
+            self._vec(r),
+            torch.as_tensor(act, device=self.device),
+            rowmap,
+            self._warm,
+            inc,
+            rep,
+            self._rec_state,
+            layout=self._shard,
+            meta=self.meta,
+            opts=self.options.solver,
+            coord_mode=self.coordinator.mode,
+            rec_cfg=self._rec_cfg,
+        )
+        self._warm = out.warm
+        if self.options.incremental:
+            self._inc_carry = out.carry
+        if self._rec_cfg is not None:
+            self._rec_steps += 1
+        alloc = np.concatenate([out.x3[k, : int(self.domain_sizes[k])] for k in range(self.k)])
+        has_slices = self._sla is not None and self._sla.n_slices > 0
+        return (
+            (alloc, StepStats.from_lanes(out.stats, mode="sharded")),
+            out.grants,
+            out.demand,
+            out.slice_lo if has_slices else None,
+            out.slice_hi if has_slices else None,
+        )
 
     def _loop_domain_clean(self, k, prev, rk, ak, grant_k, rb_k, tol) -> bool:
         """Host-level dirtiness of one loop-mode domain: clean only when the

@@ -44,6 +44,7 @@ __all__ = [
     "StepMetrics",
     "init_state",
     "init_batch",
+    "flush_host_lanes",
     "log_bucket",
     "sla_min_margin",
     "step_metrics",
@@ -402,7 +403,12 @@ def flush(state: RecorderState, cfg: RecorderConfig) -> dict[str, Any]:
 def flush_lanes(state: RecorderState, cfg: RecorderConfig) -> list[dict[str, Any]]:
     """A batched state (``[K, ...]`` leaves) as one flush dict per lane,
     from one transfer of each leaf."""
-    h = _to_host(state)
+    return flush_host_lanes(_to_host(state), cfg)
+
+
+def flush_host_lanes(h: dict[str, np.ndarray], cfg: RecorderConfig) -> list[dict[str, Any]]:
+    """One flush dict per lane from host copies of a batched state's
+    ``step``, ``ring``, ``hists``, ``solver_hist`` and ``counters``."""
     return [_flush_host({k: v[i] for k, v in h.items()}, cfg) for i in range(h["step"].shape[0])]
 
 

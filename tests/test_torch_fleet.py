@@ -179,7 +179,7 @@ def _assert_step(res, jres, msg=""):
 
 
 @pytest.mark.parametrize("flags", [{}, FLAGS], ids=["plain", "kernel-flags"])
-@pytest.mark.parametrize("mode", ["stacked", "loop"])
+@pytest.mark.parametrize("mode", ["stacked", "loop", "sharded"])
 def test_orchestrator_matches_reference(scarce_pdn, mode, flags):
     """Waterfill grants under a scarce feed, a cold and two warm steps."""
     jpdn, pdn = scarce_pdn
@@ -194,7 +194,7 @@ def test_orchestrator_matches_reference(scarce_pdn, mode, flags):
         _assert_step(res, jr, f"{mode} step {t}")
         assert res.stats["mode"] == mode
         assert _tree_feasible(pdn, res.allocation)
-    assert orch.rebuild_count() == (1 if mode == "stacked" else orch.k)
+    assert orch.rebuild_count() == (orch.k if mode == "loop" else 1)
 
 
 @pytest.mark.parametrize("mode", ["stacked", "loop"])
@@ -263,7 +263,7 @@ def test_brownout_matches_reference(scarce_pdn):
     assert orch.rebuild_count() == 1
 
 
-@pytest.mark.parametrize("mode", ["stacked", "loop"])
+@pytest.mark.parametrize("mode", ["stacked", "loop", "sharded"])
 def test_incremental_matches_reference(fleet_pdn, mode):
     """Certify-first stepping per domain: a repeated step skips every
     domain, a step with one domain's telemetry moved re-solves that domain
@@ -498,10 +498,21 @@ def test_simulator_fleet_mode_matches_reference(scarce_pdn):
     assert (out["S_nvpax"] >= out["S_static"] - 1e-9).all()
 
 
-def test_unported_parts_raise(fleet_pdn):
+def test_sharded_mode_and_recorder_run(fleet_pdn):
+    """The sharded dispatch runs at one rank of this process and gives the
+    stacked step (``tests/test_torch_fleet_sharded.py`` holds it to the
+    reference); the flight recorder records one lane per domain."""
     _, pdn = fleet_pdn
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-        FleetOrchestrator(pdn, level=1, mode="sharded", device="cpu")
+    tele = _telemetry(1, pdn.n, 1)[0]
+    sharded = FleetOrchestrator(pdn, level=1, mode="sharded", device="cpu").step(tele)
+    stacked = FleetOrchestrator(pdn, level=1, mode="stacked", device="cpu").step(tele)
+    assert sharded.stats["mode"] == "sharded"
+    np.testing.assert_allclose(sharded.allocation, stacked.allocation, rtol=0, atol=MONO_TOL)
+    np.testing.assert_allclose(sharded.grants, stacked.grants, rtol=0, atol=MONO_TOL)
+    np.testing.assert_array_equal(sharded.stats["phase_iterations"],
+                                  stacked.stats["phase_iterations"])
+    with pytest.raises(ValueError, match="waterfill/subtree"):
+        FleetOrchestrator(pdn, level=1, mode="sharded", coordinator_mode="static", device="cpu")
     # the flight recorder (item 10) records: one lane per domain
     orch = FleetOrchestrator(pdn, level=1, recorder=True, device="cpu")
     orch.step(np.full(pdn.n, 300.0))

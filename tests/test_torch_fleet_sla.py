@@ -194,7 +194,7 @@ def test_plan_sla_matches_reference(slack_pdn):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", ["stacked", "loop"])
+@pytest.mark.parametrize("mode", ["stacked", "loop", "sharded"])
 def test_fleet_sla_matches_reference(slack_pdn, mode):
     """A cold and a warm step: the cold step with equal iterations per
     domain and phase, both within 1e-9 W, contracts kept."""

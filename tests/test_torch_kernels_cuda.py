@@ -340,19 +340,32 @@ def test_sla_matvec_long_lists_equal_the_cpu_plain_version(cuda, length, dtype):
     assert torch.equal(tk.sla_matvec(x, idx), got)
 
 
+TRACE_ATTEMPTS = 3
+
+
 def _device_kernels(fn, calls):
     """Kernels the card ran during ``calls`` calls of ``fn``, by
-    torch.profiler's CUDA activity."""
+    torch.profiler's CUDA activity.  A trace with no kernel, or fewer than
+    the wrappers counted launches in it (now and then the profiler drops
+    some or all of the card's records), is taken again, up to ``TRACE_ATTEMPTS``
+    times, as ``chip_smoke.device_kernels`` does; the wrappers' launch
+    counts are reset before each attempt, so ``launch_counts()`` afterwards
+    covers the attempt that was kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # built and warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(TRACE_ATTEMPTS):
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ran and len(ran) >= sum(launch_counts().values()):
+            break
+    return ran
 
 
 def _paper_fused(cuda, dtype, tenants=True, vector_sigma=True, pinned=False, seed=0):
@@ -556,10 +569,9 @@ def test_redesigned_kernels_are_one_device_launch_per_call(cuda, which):
     """LAUNCHES counts wrapper calls; the profiler counts what the card ran:
     one kernel per call, nothing else (no memset, no copy)."""
     name, fn, _ = _redesigned(cuda)[which]
-    reset_launch_counts()
     ran = _device_kernels(fn, 5)
     assert len(ran) == 5, ran
-    assert launch_counts()[name] == 6
+    assert launch_counts()[name] == 5  # the kept attempt's calls
 
 
 @pytest.mark.parametrize("which", REDESIGNED)

@@ -128,12 +128,12 @@ def test_datacenter_sim_records_stage_spans(fleets):
         assert paths.count(stage) == 2, stage
 
 
-def test_unported_modes_raise(fleets):
-    """The sharded fleet dispatch names its ROADMAP item; ``recorder=``
-    (item 10) records in both control planes the simulator builds, and
-    without it ``flush_flight`` gives ``None``; fleet mode builds
-    (``tests/test_torch_fleet.py`` holds it, the cross-tenant scenario and
-    prefetch to the reference)."""
+def test_fleet_modes_and_recorder_run(fleets):
+    """The sharded fleet dispatch steps at one rank as the stacked one does;
+    ``recorder=`` (item 10) records in both control planes the simulator
+    builds, and without it ``flush_flight`` gives ``None``; fleet mode
+    builds (``tests/test_torch_fleet.py`` holds it, the cross-tenant
+    scenario and prefetch to the reference)."""
     from repro_torch.fleet import FleetOrchestrator
 
     _, pdn = fleets
@@ -144,8 +144,12 @@ def test_unported_modes_raise(fleets):
     stacked.run(1, baselines=False)
     flight = stacked.flush_flight()
     assert flight["mode"] == "stacked" and len(flight["lanes"]) == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-        FleetOrchestrator(pdn, level=1, mode="sharded", device="cpu")
+    tele = np.random.default_rng(3).uniform(100, 690, pdn.n)
+    sharded = FleetOrchestrator(pdn, level=1, mode="sharded", device="cpu").step(tele)
+    stacked = FleetOrchestrator(pdn, level=1, mode="stacked", device="cpu").step(tele)
+    np.testing.assert_allclose(sharded.allocation, stacked.allocation, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(sharded.stats["phase_iterations"],
+                                  stacked.stats["phase_iterations"])
     sim = DatacenterSim.build(pdn, device="cpu")
     assert sim.flush_flight() is None
     fleet = DatacenterSim.build(pdn, fleet_level=1, device="cpu")
