@@ -32,6 +32,7 @@ from repro_torch.obs import recorder as obs_recorder
 __all__ = [
     "alloc_problem_from_numpy",
     "batch_meta_from_dict",
+    "encdec_params_from_numpy",
     "fleet_topology_from_numpy",
     "lm_params_from_numpy",
     "recorder_state_from_numpy",
@@ -143,23 +144,46 @@ def batch_meta_from_dict(d: Mapping[str, Any]) -> BatchMeta:
     return BatchMeta(**{**d, "levels": tuple(int(p) for p in d["levels"])})
 
 
+def _tree(d: Mapping[str, Any], pick, device) -> dict:
+    """A nested mapping of numpy arrays as tensors on ``device``, each array
+    through ``pick`` first."""
+    return {
+        name: _tree(value, pick, device) if isinstance(value, Mapping)
+        else _float(pick(value), device)
+        for name, value in d.items()
+    }
+
+
+def _layers(stacked: Mapping[str, Any], n: int, device) -> list[dict]:
+    """The ``n`` layers of a reference stack (every leaf ``[n, ...]``), one
+    tree each."""
+    return [_tree(stacked, lambda a: np.asarray(a)[i], device) for i in range(n)]
+
+
 def lm_params_from_numpy(params: Mapping[str, Any], cfg, device=None) -> Params:
     """The port's model with the weights of the reference's ``init_lm``
     params tree (numpy arrays by the reference's names; each unit position
     ``unit/b{pos}`` stacked ``[n_units, ...]``).  Layer ``u * unit_size +
-    pos`` gets unit ``u`` of ``b{pos}``, the port's one entry per layer."""
+    pos`` gets unit ``u`` of ``b{pos}``, the port's one entry per layer;
+    every block's leaves carry across, the attention or SSD mixer's and the
+    dense or MoE feed-forward's (router and experts) alike."""
     device = resolve_device(device)
+    out = _tree({name: v for name, v in params.items() if name != "unit"}, lambda a: a, device)
+    units = [_layers(params["unit"][f"b{pos}"], cfg.n_units, device)
+             for pos in range(cfg.unit_size)]
+    out["layers"] = [units[layer % cfg.unit_size][layer // cfg.unit_size]
+                     for layer in range(cfg.n_layers)]
+    return Params(out)
 
-    def tree(d, pick):
-        return {
-            name: tree(value, pick) if isinstance(value, Mapping) else _float(pick(value), device)
-            for name, value in d.items()
-        }
 
-    top = {name: value for name, value in params.items() if name != "unit"}
-    out = tree(top, lambda a: a)
-    out["layers"] = []
-    for layer in range(cfg.n_layers):
-        unit, pos = divmod(layer, cfg.unit_size)
-        out["layers"].append(tree(params["unit"][f"b{pos}"], lambda a: np.asarray(a)[unit]))
+def encdec_params_from_numpy(params: Mapping[str, Any], cfg, device=None) -> Params:
+    """The port's encoder-decoder with the weights of the reference's
+    ``init_encdec`` params tree: the encoder stack ``enc`` ``[enc_layers,
+    ...]`` and the decoder stack ``dec`` ``[n_layers, ...]`` (with its
+    cross-attention ``xattn``, ``ln_x``) become one entry per layer."""
+    device = resolve_device(device)
+    out = _tree({name: v for name, v in params.items() if name not in ("enc", "dec")},
+                lambda a: a, device)
+    out["enc"] = _layers(params["enc"], cfg.enc_layers, device)
+    out["dec"] = _layers(params["dec"], cfg.n_layers, device)
     return Params(out)

@@ -10,10 +10,12 @@ lanes' vectors as the 0-d tensor does against one vector.
 The reductions below keep the one-scenario path's own calls
 (``torch.max``, ``torch.sum``, ...) for a 1-D tensor and reduce the last
 axis into a lane column for K lanes.  On the CPU each lane's row gives the
-bits of the 1-D call; on a card torch reduces rows in another order than a
-whole vector, so a lane's sums and prefix sums there may differ from its
-one-scenario solve in the last bit (the allocator's own kernels do not:
-each lane adds in the one-scenario order).
+bits of the 1-D call.  On a card torch sums and scans the rows of a
+``[K, n]`` tensor in an order that changes with K, so :func:`lane_sum` and
+:func:`lane_cumsum` there take each lane's row alone, the ``[1, n]`` call a
+one-lane solve makes: a lane's result is then that of its one-lane solve
+whatever K (the allocator's own kernels add each lane in one order too).
+The maxima, minima and masks are exact in any order.
 
 Host decisions a single scenario takes with ``if`` are numpy bool arrays
 of K entries for lanes; :func:`column` turns one into a lane column mask.
@@ -26,6 +28,7 @@ import torch
 
 __all__ = [
     "column",
+    "lane_cumsum",
     "lane_all",
     "lane_any",
     "lane_max",
@@ -44,8 +47,24 @@ def lane_min(v: torch.Tensor) -> torch.Tensor:
     return torch.min(v) if v.ndim == 1 else v.amin(-1, keepdim=True)
 
 
+def _by_lane(fn, v: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the last axis of ``v``: one call on the CPU, for a vector
+    or for one lane; on a card for K > 1 lanes one call per lane's ``[1, n]``
+    row, concatenated."""
+    if v.ndim == 1 or v.shape[0] == 1 or v.device.type == "cpu":
+        return fn(v)
+    return torch.cat([fn(v[j : j + 1]) for j in range(v.shape[0])])
+
+
 def lane_sum(v: torch.Tensor) -> torch.Tensor:
-    return torch.sum(v) if v.ndim == 1 else v.sum(-1, keepdim=True)
+    if v.ndim == 1:
+        return torch.sum(v)
+    return _by_lane(lambda r: r.sum(-1, keepdim=True), v)
+
+
+def lane_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum`` over the last axis (the plain tree sums' prefix)."""
+    return _by_lane(lambda r: torch.cumsum(r, -1), v)
 
 
 def lane_any(v: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,6 @@ from repro_torch.core import solver
 from repro_torch.core.lanes import lane_max, lane_scalar
 from repro_torch.core.problem import INF, AllocProblem, StepProblem
 from repro_torch.core.treeops import (
-    index_add,
     sla_matvec,
     sla_rmatvec,
     take,
@@ -131,11 +130,8 @@ def repair(x: torch.Tensor, ap: AllocProblem, n_depths: int | None = None) -> to
         fac_node = torch.where(
             over, torch.clamp_min(tree.cap - lmin_node, 0.0) / denom, 1.0
         )
-        # broadcast factors onto (disjoint) ranges via a difference array
-        diff = x.new_zeros(x.shape[:-1] + (n + 1,))
-        index_add(diff, tree.start, fac_node - 1.0)
-        index_add(diff, tree.end, -(fac_node - 1.0))
-        fac_dev = 1.0 + torch.cumsum(diff, -1)[..., :n]
+        # broadcast factors onto (disjoint) ranges: the tree adjoint
+        fac_dev = 1.0 + tree_rmatvec(fac_node - 1.0, tree, n)
         x = l + (x - l) * fac_dev
     return torch.clamp(x, ap.l, ap.u)
 

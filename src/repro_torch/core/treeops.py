@@ -24,8 +24,12 @@ tree adjoint and both tenant sums) go through the deterministic kernels of
 :mod:`repro_torch.kernels.tree_matvec`, because ``index_add_`` on a card
 adds with atomics in an order that changes from run to run, and the
 feasibility repair, the saturation masks and the KKT checks compare these
-sums against thresholds.  ``SolverOptions(use_pallas_tree=True)`` also
-routes the inner iteration's tree matvec through its kernel.
+sums against thresholds.  The forward tree sums' prefix takes a K-lane
+tensor's rows one at a time on a card (:func:`~repro_torch.core.lanes.lane_cumsum`),
+since torch scans the rows of a ``[K, n]`` tensor there in an order that
+changes with K: a lane's sums are those of its one-lane solve, whatever K.
+``SolverOptions(use_pallas_tree=True)`` also routes the inner iteration's
+tree matvec through its kernel.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.lanes import lane_sum
+from repro_torch.core.lanes import lane_cumsum, lane_sum
 from repro_torch.kernels import tree_matvec as tk
 from repro_torch.kernels.tree_matvec import SlaIndex, TreeIndex, sla_index, tree_index
 from repro_torch.kernels.tree_matvec.ref import index_add, take
@@ -140,7 +144,7 @@ class SlaTopo(NamedTuple):
 
 def tree_matvec(x: torch.Tensor, tree: TreeTopo) -> torch.Tensor:
     """Per-node subtree sums of ``x`` (``[..., n]``) — the tree block of ``K z``."""
-    csum = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), torch.cumsum(x, -1)], -1)
+    csum = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), lane_cumsum(x)], -1)
     return take(csum, tree.end) - take(csum, tree.start)
 
 

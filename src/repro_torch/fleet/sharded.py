@@ -58,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.batched import _record_batch, _solve_batched
+from repro_torch.core.lanes import lane_sum
 from repro_torch.core.solver.options import KKT_HIST_BUCKETS
 from repro_torch.core.treeops import TreeTopo, sla_matvec
 from repro_torch.core.waterfill import waterfill_torch
@@ -259,7 +260,7 @@ def _sharded_solve(dom, cap, r, active, rowmap, warm, carry, rep, rec, *,
                                                                  rowmap.hi_local)
         ap = dom.problem(r, active, cap, lo, hi)
         shaped = ap.r  # clipped to the box, idle devices at l
-        agg[lay.lo : lay.hi] = shaped.sum(dim=1)
+        agg[lay.lo : lay.hi] = lane_sum(shaped)[:, 0]  # each lane's bits whatever K
         if S and rowmap.slot.numel():
             row_demand = sla_matvec(shaped, ap.sla)
             agg[K + rowmap.slot] = row_demand[rowmap.lane, rowmap.row]

@@ -7,6 +7,12 @@ On the card (``--device cuda``, the default; it raises without one):
 On the CPU (reduced config):
     python -m repro_torch.launch.serve --reduced --device cpu
 
+``--arch`` takes every family of ``repro_torch.configs`` (dense, MoE,
+Mamba-2, hybrid, encoder-decoder).  For an encoder-decoder model the
+launcher draws ``enc_input`` [requests, enc_frames, d_model] from the same
+numpy generator after the prompts, as the reference's does; the decode
+steps, as the reference's, attend one zero frame in its place.
+
 The prompt is fed through decode token by token, as the reference's
 launcher does, so this entry point does not reach the flash-attention
 kernel; ``training.step.make_serve_steps``' bulk prefill does (ROADMAP
@@ -76,7 +82,12 @@ def run(args: argparse.Namespace) -> ServeReport:
 
     B, S = args.requests, args.prompt_len
     rng = np.random.default_rng(0)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=device)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=device)}
+    if cfg.is_encdec:
+        batch["enc_input"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.enc_frames, cfg.d_model)), dtype=torch.float32,
+            device=device)
+    tokens = batch["tokens"]
 
     total = S + args.gen
     caches = api.init_decode_cache(B, total, device)

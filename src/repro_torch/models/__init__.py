@@ -1,37 +1,66 @@
-"""The data plane's models (the port's ``repro.models``): dense decoder-only
-LMs, attention + MLP blocks.
+"""The data plane's models (the port's ``repro.models``): decoder-only LMs
+of attention or SSD mixers with dense or MoE feed-forwards (dense, MoE,
+Mamba-2 and hybrid families), and the encoder-decoder (whisper).
 
 ``build(cfg)`` returns a :class:`ModelApi` with the reference's init /
-prefill / decode entry points.  Encoder-decoder models and the families
-whose modules are not ported yet (MoE, SSD/hybrid) raise
-``NotImplementedError``; so does the training loss, which comes with the
-training slice (ROADMAP Queue 1 item 14)."""
+loss / prefill / decode entry points, dispatching on the arch family.  The
+training loss comes with the training slice (ROADMAP Queue 1 item 14): its
+entry raises ``NotImplementedError``."""
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import attention, blocks, common, lm, mlp
+from repro_torch.models import attention, blocks, common, encdec, lm, mlp, moe, ssm
 
-__all__ = ["ModelApi", "attention", "blocks", "build", "common", "lm", "mlp"]
+__all__ = [
+    "ModelApi",
+    "attention",
+    "blocks",
+    "build",
+    "common",
+    "encdec",
+    "lm",
+    "mlp",
+    "moe",
+    "ssm",
+]
 
 
 class ModelApi(NamedTuple):
     init: Callable  # (generator, device=None) -> params (a common.Params tree)
-    prefill: Callable  # (params, tokens) -> (last-position logits, caches)
-    decode_step: Callable  # (params, caches, tokens, pos) -> (logits, caches)
+    loss: Callable  # not ported yet: raises NotImplementedError
+    # (params, tokens[, enc_input]) -> (last-position logits, caches[, memory])
+    prefill: Callable
+    # (params, caches, tokens, pos) -> (logits, caches); the encoder-decoder's
+    # also takes memory= (None: one zero frame, as the reference's)
+    decode_step: Callable
     init_decode_cache: Callable  # (batch, seq, device=None) -> caches
 
 
 def build(cfg) -> ModelApi:
-    if cfg.is_encdec:
+    def loss(*args, **kwargs):
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet ({blocks.QUEUE_ITEM})"
+            f"{cfg.name}: the training loss is not ported yet ({blocks.QUEUE_ITEM})"
         )
-    for pos in range(cfg.unit_size):
-        blocks.check_ported(cfg, pos)
+
+    if cfg.is_encdec:
+        return ModelApi(
+            init=lambda generator, device=None: encdec.init_encdec(generator, cfg, device),
+            loss=loss,
+            prefill=lambda params, tokens, enc_input: encdec.encdec_prefill(
+                params, cfg, tokens, enc_input
+            ),
+            decode_step=lambda params, caches, tokens, pos, memory=None: (
+                encdec.encdec_decode_step(params, cfg, caches, tokens, pos, memory)
+            ),
+            init_decode_cache=lambda batch, seq, device=None: encdec.init_decode_cache(
+                cfg, batch, seq, device
+            ),
+        )
     return ModelApi(
         init=lambda generator, device=None: lm.init_lm(generator, cfg, device),
+        loss=loss,
         prefill=lambda params, tokens: lm.lm_prefill(params, cfg, tokens),
         decode_step=lambda params, caches, tokens, pos: lm.lm_decode_step(
             params, cfg, caches, tokens, pos

@@ -6,8 +6,10 @@ Sequences longer than ``cfg.attn_chunk`` take the blocked branch, as in the
 reference: with ``cfg.flash_vjp`` (the default) the flash-attention kernel
 (``kernels.flash_attention``; its plain version on the CPU), without it the
 plain torch blocked scan :func:`_blocked_attention`.  Shorter ones take
-:func:`_plain_attention`.  The reference's sharding constraints have no
-counterpart on one card.
+:func:`_plain_attention`.  Each branch is causal or not (an encoder's
+self-attention is not), and with ``memory`` (an encoder-decoder's
+cross-attention) K and V come from the memory and no mask applies.  The
+reference's sharding constraints have no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def init_attn(generator, cfg, device=None) -> dict:
     return p
 
 
-def _project_qkv(p, cfg, x, positions):
+def _project_qkv(p, cfg, x, positions, *, rope=True):
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     cd = cfg.compute_dtype
@@ -49,21 +51,24 @@ def _project_qkv(p, cfg, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    inv, rot = rope_freqs(dh, cfg.rope_frac, cfg.rope_theta, device=x.device)
-    return apply_rope(q, positions, inv, rot), apply_rope(k, positions, inv, rot), v
+    if rope:
+        inv, rot = rope_freqs(dh, cfg.rope_frac, cfg.rope_theta, device=x.device)
+        q, k = apply_rope(q, positions, inv, rot), apply_rope(k, positions, inv, rot)
+    return q, k, v
 
 
-def _plain_attention(q, k, v):
-    """Reference causal attention; used for short sequences."""
+def _plain_attention(q, k, v, causal: bool):
+    """Reference attention; used for short sequences."""
     B, S, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
     kq = k.repeat_interleave(rep, dim=2) if rep > 1 else k
     vq = v.repeat_interleave(rep, dim=2) if rep > 1 else v
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kq) * dh**-0.5
-    # row i sees keys j <= i + Sk - S: the last query aligns with the last key
-    mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril(Sk - S)
-    logits = logits.masked_fill(~mask, NEG_INF)
+    if causal:
+        # row i sees keys j <= i + Sk - S: the last query aligns with the last key
+        mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril(Sk - S)
+        logits = logits.masked_fill(~mask, NEG_INF)
     w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, vq)
 
@@ -77,8 +82,8 @@ def _pick_chunk(seq: int, target: int) -> int:
     return c
 
 
-def _blocked_attention(q, k, v, chunk: int):
-    """Causal flash-style two-level loop with online softmax, in plain torch.
+def _blocked_attention(q, k, v, causal: bool, chunk: int):
+    """Flash-style two-level loop with online softmax, in plain torch.
 
     Memory per step: [B, H, qc, kc] logits only.  Equivalent to
     ``_plain_attention`` to within fp tolerance (asserted in tests)."""
@@ -100,9 +105,10 @@ def _blocked_attention(q, k, v, chunk: int):
             kbh = kb.repeat_interleave(rep, dim=2) if rep > 1 else kb
             vbh = vb.repeat_interleave(rep, dim=2) if rep > 1 else vb
             logits = (torch.einsum("bqhd,bkhd->bhqk", qb, kbh) * scale).float()
-            qpos = q0 + torch.arange(qc, device=q.device) + (Sk - S)
-            kpos = k0 + torch.arange(kc, device=q.device)
-            logits = logits.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+            if causal:
+                qpos = q0 + torch.arange(qc, device=q.device) + (Sk - S)
+                kpos = k0 + torch.arange(kc, device=q.device)
+                logits = logits.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
             m_new = torch.maximum(m, logits.amax(-1))
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -121,18 +127,27 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def attn_train(p, cfg, x, positions):
-    """Causal full-sequence attention (training / prefill): (output,
-    KVCache(k, v))."""
+def attn_train(p, cfg, x, positions, *, causal=True, rope=True, memory=None):
+    """Full-sequence attention (training / prefill): (output, KVCache(k, v)).
+
+    ``memory``: an optional [B, F, D] cross-attention source (the
+    encoder-decoder's decoder); K and V are then projected from it, without
+    rotary, and no causal mask applies."""
     B, S, D = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    if memory is None:
+        q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
+    else:
+        q, _, _ = _project_qkv(p, cfg, x, positions, rope=rope)
+        mem_pos = torch.zeros(memory.shape[:2], dtype=torch.int64, device=memory.device)
+        _, k, v = _project_qkv(p, cfg, memory, mem_pos, rope=False)
+        causal = False
     if max(S, k.shape[1]) > cfg.attn_chunk:
         if cfg.flash_vjp:
-            o = flash_attention(q, k, v)
+            o = flash_attention(q, k, v, causal=causal)
         else:
-            o = _blocked_attention(q, k, v, cfg.attn_chunk)
+            o = _blocked_attention(q, k, v, causal, cfg.attn_chunk)
     else:
-        o = _plain_attention(q, k, v)
+        o = _plain_attention(q, k, v, causal)
     o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return o @ p["wo"].to(cfg.compute_dtype), KVCache(k, v)
 
@@ -145,7 +160,7 @@ def init_kv_cache(cfg, batch, seq, device=None) -> KVCache:
     )
 
 
-def attn_decode(p, cfg, x, pos, cache: KVCache):
+def attn_decode(p, cfg, x, pos, cache: KVCache, *, rope=True):
     """One-token decode against a KV cache.
 
     ``x``: [B, 1, D]; ``pos``: absolute position (an int).  The new key and
@@ -155,7 +170,7 @@ def attn_decode(p, cfg, x, pos, cache: KVCache):
     B, S1, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, rope=rope)
     cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
     rep = H // KV

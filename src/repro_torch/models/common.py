@@ -10,10 +10,12 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["Params", "rms_norm", "init_dense", "rope_freqs", "apply_rope"]
+__all__ = ["Params", "rms_norm", "init_dense", "sinusoidal_positions", "rope_freqs",
+           "apply_rope"]
 
 
 class Params(nn.Module):
@@ -55,6 +57,16 @@ def init_dense(generator, d_in, d_out, dtype, device, scale=None):
     scale = scale if scale is not None else d_in**-0.5
     w = torch.randn(d_in, d_out, generator=generator, dtype=torch.float32, device=device)
     return w.mul_(scale).to(dtype)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int, dtype=torch.float32, device=None):
+    """Whisper-style sinusoidal position embeddings [n_pos, d_model],
+    computed in float32 in the reference's order, then cast to ``dtype``."""
+    half = d_model // 2
+    log_base = torch.tensor(-np.log(np.float32(10_000.0)), device=device)
+    freq = torch.exp(log_base * torch.arange(half, dtype=torch.float32, device=device) / (half - 1))
+    args = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1).to(dtype)
 
 
 def rope_freqs(head_dim: int, rope_frac: float, theta: float, device=None):

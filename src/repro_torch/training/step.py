@@ -12,11 +12,13 @@ __all__ = ["make_serve_steps"]
 def make_serve_steps(cfg, api):
     """(prefill_fn, decode_fn) with uniform signatures for the launcher.
 
-    prefill: (params, batch_dict) -> (logits, caches)
+    prefill: (params, batch_dict) -> (logits, caches[, memory])
     decode:  (params, caches, tokens, pos) -> (logits, caches)
     """
 
     def prefill(params, batch):
+        if cfg.is_encdec:
+            return api.prefill(params, batch["tokens"], batch["enc_input"])
         return api.prefill(params, batch["tokens"])
 
     def decode(params, caches, tokens, pos):

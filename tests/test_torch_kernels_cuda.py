@@ -1484,3 +1484,115 @@ def test_recorder_margin_is_the_cpu_bits(cuda, lanes):
     want = recorder.sla_min_margin(torch.as_tensor(x), lay.sla_topo(device="cpu"))
     assert torch.equal(got.cpu(), want)
     assert torch.isfinite(want).all()
+
+
+# ---------------------------------------------------------------------------
+# the stacked tenant fleet's lanes against their one-lane solves
+# ---------------------------------------------------------------------------
+
+
+def _lane(tree, j: int, k: int):
+    """Lane ``j`` of a ``[k, ...]`` NamedTuple tree, as a one-lane tree."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_lane(v, j, k) for v in tree))
+    if isinstance(tree, torch.Tensor) and tree.ndim >= 1 and tree.shape[0] == k:
+        return tree[j : j + 1].contiguous()
+    return tree
+
+
+@pytest.fixture(scope="module")
+def paper_tenant_fleet():
+    """The paper's datacenter cut at its 4 halls with Appendix B's tenants
+    split at the cut (hall 2's 2,534 edges fill its lane's edge block, the
+    others hold 70, 25 and 41 pad edges), stacked on the card with every
+    kernel flag; TelemetrySim seed 0, sample 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA is not available here)")
+    from repro_torch.core.nvpax import NvpaxOptions
+    from repro_torch.core.solver import SolverOptions
+    from repro_torch.fleet import FleetOrchestrator
+    from repro_torch.pdn.telemetry import TelemetrySim, TraceConfig
+    from repro_torch.pdn.tenants import appendix_b_layout
+
+    pdn = build_datacenter()
+    lay = appendix_b_layout(pdn, seed=0)
+    opts = NvpaxOptions(solver=SolverOptions(use_pallas=True, use_pallas_tree=True,
+                                             use_pallas_stats=True))
+    orch = FleetOrchestrator(pdn, level=1, tenants=lay, mode="stacked", options=opts,
+                             device=torch.device("cuda"))
+    sim = TelemetrySim(TraceConfig(n_devices=pdn.n, seed=0))
+    return orch, sim.power(0), sim.active_mask(0)
+
+
+def test_stacked_lane_sums_are_each_lanes_one_lane_sums(cuda, paper_tenant_fleet):
+    """The lane sums, the plain tree sums and the feasibility repair over the
+    4 hall lanes (one with no pad edge), on the card: each lane's the bits
+    of the same call on that lane alone.  torch sums and scans the rows of a
+    ``[K, n]`` tensor on a card in an order that changes with K; a lane's
+    folded row bounds, step sizes and KKT checks then depend on how many
+    lanes share the call."""
+    from repro_torch.core import lanes, phases, treeops
+    from repro_torch.core.problem import AllocProblem
+
+    orch, _, _ = paper_tenant_fleet
+    dom = orch._dom
+    K, N = dom.l.shape
+    assert K == 4 and [orch._E - orch._sla.edges(k)[0].size for k in range(K)][2] == 0
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.uniform(100.0, 700.0, (K, N)), device=cuda)
+    x[:, N // 3 : N // 3 + 300] = 0.0  # a stretch of zeros: a pinned rack folds to 0
+    sums = lanes.lane_sum(x)
+    four = treeops.tree_matvec(x, dom.tree)
+    for j in range(K):
+        assert torch.equal(sums[j : j + 1], lanes.lane_sum(x[j : j + 1])), f"lane {j}"
+        one = treeops.tree_matvec(x[j : j + 1], _lane(dom.tree, j, K))
+        assert torch.equal(four[j : j + 1], one), f"lane {j}"
+    cap = dom.tree.start.new_zeros(dom.tree.start.shape, dtype=x.dtype) + 5_000.0
+    cap[:, 0] = 1.0e6
+    ap = AllocProblem(l=dom.l, u=dom.u, r=x, priority=dom.priority,
+                      active=torch.ones_like(x, dtype=torch.bool),
+                      tree=dom.tree._replace(cap=cap), sla=dom.sla,
+                      weight_scale=dom.weight_scale)
+    xs = torch.clamp(x, dom.l, dom.u)
+    fixed = phases.repair(xs, ap, orch.meta.n_depths)
+    for j in range(K):
+        one = phases.repair(xs[j : j + 1], _lane(ap, j, K), orch.meta.n_depths)
+        assert torch.equal(fixed[j : j + 1], one), f"lane {j}"
+
+
+def test_stacked_tenant_fleet_lanes_are_their_one_lane_solves(cuda, paper_tenant_fleet):
+    """One cold stacked step of the 4-hall tenant fleet with every kernel
+    flag: every hall converged, every hall's grant handed out but for at
+    most 250 W, and every hall's lane the bits and iterations of its
+    one-lane solve on the card.  The four-lane step once left 40.6 kW of
+    hall 2's grant unallocated (the lane with no pad edge), where a one-lane
+    step left 237 W, and halls 0 and 3 took other iterations than alone."""
+    import repro_torch.fleet.orchestrator as orch_mod
+    from repro_torch.core.batched import _solve_batched
+
+    orch, tele, act = paper_tenant_fleet
+    kept = {}
+    real = orch_mod._solve_batched
+
+    def keep(ap, meta, opts, warm, *a, **kw):
+        kept.update(ap=ap, meta=meta, opts=opts)
+        return real(ap, meta, opts, warm, *a, **kw)
+
+    orch.reset_warm()
+    orch_mod._solve_batched = keep
+    try:
+        res = orch.step(tele, active=act)
+    finally:
+        orch_mod._solve_batched = real
+    offs = np.concatenate([[0], np.cumsum(orch.domain_sizes)])
+    left = [float(res.grants[k] - res.allocation[offs[k] : offs[k + 1]].sum())
+            for k in range(orch.k)]
+    assert res.stats["converged"].all() and max(left) <= 250.0, left
+    K = orch.k
+    for j in range(K):
+        _, _, xj, _, st, _ = _solve_batched(_lane(kept["ap"], j, K), kept["meta"],
+                                            kept["opts"], None)
+        np.testing.assert_array_equal(xj[0, : offs[j + 1] - offs[j]].cpu().numpy(),
+                                      res.allocation[offs[j] : offs[j + 1]], err_msg=f"hall {j}")
+        assert [int(st[f"iterations_p{i}"][0]) for i in (1, 2, 3)] == \
+            res.stats["phase_iterations"][j].tolist(), f"hall {j}"
