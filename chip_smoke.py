@@ -5,9 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py                 # exits non-zero on any failure
     python3 chip_smoke.py --profile       # also profiles a warm control step, a cold tenant step,
-                                          # a qwen3-4b prefill and decode step and a
-                                          # stablelm-12b prefill (launches per step and,
-                                          # for the control steps, per PDHG iteration)
+                                          # a qwen3-4b prefill and decode step, a
+                                          # stablelm-12b prefill and a qwen3-4b training
+                                          # step (launches per step and, for the control
+                                          # steps, per PDHG iteration)
     python3 chip_smoke.py --warm-tenants  # also one warm-carried tenant step
     python3 chip_smoke.py --out DIR       # where the details go
     python3 chip_smoke.py --stats-digest  # only phases 1-2 and phase 3's digest of the chunk
@@ -195,6 +196,31 @@ Phases, each of which raises on failure:
    (e) ``examples/torch_quickstart.py`` and
    ``examples/torch_datacenter_simulation.py --steps 5``.
 
+16. the training path, see :func:`training_phase`: (a) the flash kernels
+   asked for the rows' log-sum-exp (``return_lse=True``) at qwen3-4b's
+   training shape, head dims 160 and 32, float32, whisper's non-causal
+   1,500 frames, a cross shape and rows that see no key: lse against the
+   plain version in float32 (1e-5 of max(1, |lse|); those rows at the
+   masked -1e30), out the same bits as without lse; the kernel with and
+   without lse timed at dh 128 and in float32 beside the plain version
+   and the efficient-attention operator that also returns the lse; (b)
+   ``models.flash_vjp``'s gradients on the card against autograd through
+   the plain blocked scan (float32 2e-5, bf16 2^-5 in relative Frobenius
+   norm); (c) every family's reduced config, loss, gradients and three
+   AdamW steps on the card against the port's CPU run (2e-5); (d) qwen3-4b
+   at its published widths (36 layers, float32 parameters and moments, bf16
+   compute, remat, microbatch 4): five ``make_train_step`` steps on 4 x
+   2,048 tokens of ``SyntheticLMData``, each finite and launching
+   ``flash_attention_wgmma_lse`` 36 x 4 x 2 = 288 times (forward and
+   recompute) and no other flash kernel, the median step, tokens per second
+   and peak memory (``--profile``: one step's busy share and top device
+   operations); (e) ``examples/torch_train_power_managed.py --steps 60``
+   (its loss down by more than half the reference example's 0.202) and the
+   reference's ``test_loss_decreases`` through the port's train step
+   (down by more than 0.5).
+   The kernels line takes ``flash_attention_wgmma_lse`` (16d's launches)
+   and ``flash_attention_f32_lse`` (16c's).
+
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
 measurement) go to ``DIR/chip_smoke.json``, by default under
@@ -226,6 +252,7 @@ import torch  # noqa: E402
 import repro_torch.kernels as kernels  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
+from repro_torch.convert import encdec_params_to_numpy, lm_params_to_numpy  # noqa: E402
 from repro_torch.core.batched import (  # noqa: E402
     batch_meta,
     calibrate_phase_cost,
@@ -255,7 +282,13 @@ from repro_torch.models.common import rms_norm, sinusoidal_positions  # noqa: E4
 from repro_torch.obs import recorder as obs_recorder  # noqa: E402
 from repro_torch.obs.export import flight_rows, write_jsonl  # noqa: E402
 from repro_torch.power import ControllerConfig, DatacenterSim, PowerController  # noqa: E402
-from repro_torch.training.step import make_serve_steps  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.models import flash_vjp  # noqa: E402
+from repro_torch.training.step import (  # noqa: E402
+    init_train_state,
+    make_serve_steps,
+    make_train_step,
+)
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3, 34 TFLOP/s FP64 and
 # 67 TFLOP/s FP32 outside the tensor cores, 989.4 TFLOP/s dense bf16 in
@@ -1570,6 +1603,10 @@ def main(argv: list[str]) -> int:
                                       else {arch: {"prefill": 0, "decode": 0}
                                             for arch in family_launches})
     entries.extend(flash_entries)
+
+    # -- 16. the training path ---------------------------------------------------------
+    lse_entries, report["training"] = training_phase(cuda, smi, args.profile)
+    entries.extend(lse_entries)
 
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
@@ -4800,6 +4837,419 @@ def families_phase(cuda, smi) -> tuple[dict, dict]:
     log(f"[15] phase 15 in {report['seconds']:.1f} s on {smi}")
     return launches, report
 
+
+# ---------------------------------------------------------------------------
+# Phase 16: the training path.
+
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2_048  # 16d: tokens per step, microbatches of the config's
+TRAIN_STEPS = 5
+# 16d's depth: None runs the config's every layer, an int cuts it by whole
+# layers (the widths never change) where the state and the activations do
+# not fit beside each other (PERF.md §4)
+TRAIN_LAYERS = None
+TRAIN_SCHEDULE = {"lr": 3e-4, "warmup": 100, "total_steps": 10_000}
+# 16a: the rows' log-sum-exp against the plain version run in float32 on the
+# same values, |d| <= LSE_TOL * max(1, |lse|); a row that sees no key holds
+# the masked -1e30 itself.  (tag, B, Sq, Sk, H, KV, dh, causal, dtype); the
+# first is qwen3-4b's training shape, timed with and without lse
+LSE_TOL = 1e-5
+LSE_SHAPES = [
+    ("qwen3-4b", 4, 2_048, 2_048, 32, 8, 128, True, torch.bfloat16),
+    ("dh 160", 2, 2_048, 2_048, 32, 8, 160, True, torch.bfloat16),
+    ("dh 32", 2, 2_048, 2_048, 8, 2, 32, True, torch.bfloat16),
+    ("float32", 1, 2_048, 2_048, 32, 8, 128, True, torch.float32),
+    ("whisper encoder", 4, 1_500, 1_500, 6, 6, 64, False, torch.bfloat16),
+    ("cross", 4, 448, 1_500, 6, 6, 64, False, torch.bfloat16),
+    ("rows that see no key", 2, 1_000, 300, 8, 2, 128, True, torch.bfloat16),
+]
+# 16b: flash_vjp's gradients against autograd through the plain blocked scan
+# (float32: 2e-5 of each tensor's largest magnitude; bfloat16: PATH_TOL in
+# relative Frobenius norm, 8e's bar), at one microbatch of 16d's attention
+VJP_SHAPE = (1, 2_048, 32, 8, 128, 1_024)  # B, S, H, KV, dh, attn_chunk
+VJP_TOL = 2e-5
+# 16c: every family's reduced config, card vs the port's CPU run (as
+# tests/test_torch_train.py holds the CPU run to the reference)
+TRAIN_FAMILIES = ("qwen3-4b", "olmoe-1b-7b", "mamba2-1.3b", "jamba-v0.1-52b", "whisper-tiny")
+REDUCED_TRAIN_B, REDUCED_TRAIN_S, REDUCED_TRAIN_FRAMES = 4, 128, 96
+REDUCED_TRAIN_STEPS = 3
+TRAIN_CARD_CPU_TOL = 2e-5
+# 16e: the example twin at 60 steps, its loss falling by more than half of
+# what the reference's example falls in the same run (12.443 -> 12.241 for
+# `examples/train_power_managed.py --steps 60` on the CPU: its 151,936-token
+# embedding learns slowly); then the reference's own bar on learning
+# (tests/test_training.py::test_loss_decreases: reduced qwen3-4b, lr 5e-3, 3
+# warmup steps of 80, 30 steps of 8 x 64 tokens, the loss down by more than
+# 0.5) through the port's train step on the card
+TRAIN_EXAMPLE = "torch_train_power_managed.py"
+TRAIN_EXAMPLE_STEPS = 60
+EXAMPLE_REF_DROP = 12.443 - 12.241
+LOSS_DROP = 0.5
+
+
+def _lse_err(got, want) -> float:
+    """max |got - want| / max(1, |want|), equal values (the -1e30 of a row
+    that sees no key) counting 0."""
+    d = torch.where(got == want, 0.0, (got - want).abs() / want.abs().clamp_min(1.0))
+    return float(d.max())
+
+
+def _lse_shape(cuda, tag, B, Sq, Sk, H, KV, dh, causal, dtype) -> list[dict]:
+    """16a at one shape: every kernel that takes these inputs asked for the
+    lse (the one the wrapper picks, and the mma.sync kernel where that is
+    the Hopper kernel): lse against the plain version in float32, out the
+    bits of the same kernel without lse and within FLASH_TOL of the plain
+    version, one launch counted under the ``_lse`` name."""
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + dh)
+    q, k, v = (torch.randn(B, s, n, dh, generator=gen, device=cuda).to(dtype)
+               for s, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+    plain = attention_ref(q, k, v, causal=causal)
+    _, want = attention_ref(q.float(), k.float(), v.float(), causal=causal, return_lse=True)
+    name = str(dtype).split(".")[-1]
+    picked = fk.variant(q, k, v)
+    runs = [(picked, fk.flash_attention)]
+    if picked == "wgmma":
+        runs.append(("mma", fk._flash_attention_mma))
+    rows = []
+    for kind, fn in runs:
+        bare = fn(q, k, v, causal=causal)
+        kernels.reset_launch_counts()
+        out, lse = fn(q, k, v, causal=causal, return_lse=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        row = {"tag": tag, "kernel": f"flash_attention_{kind}_lse",
+               "shape": [B, Sq, Sk, H, KV, dh], "causal": causal, "dtype": name,
+               "lse_err": _lse_err(lse, want), "lse_max_abs": float(
+                   torch.where(lse == want, 0.0, (lse - want).abs()).max()),
+               "out_same_bits": bool(torch.equal(out, bare)), "out_rel": _row_err(out, plain)}
+        if causal and Sq > Sk:
+            row["blind_rows_masked"] = bool((lse[..., : Sq - Sk] == -1e30).all())
+        log(f"[16a] {tag}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} "
+            f"{'causal' if causal else 'non-causal'} {name}, {kind}: lse |d| / max(1, |lse|) "
+            f"{row['lse_err']:.3e} (limit {LSE_TOL:.0e}), out the same bits as without lse: "
+            f"{row['out_same_bits']}, out vs plain {row['out_rel']:.3e} (limit "
+            f"{FLASH_TOL[name]:.3e})"
+            + (f", rows that see no key at -1e30: {row['blind_rows_masked']}"
+               if "blind_rows_masked" in row else ""))
+        if (counts[f"flash_attention_{kind}_lse"] != 1 or counts[f"flash_attention_{kind}"]
+                or not row["out_same_bits"] or not row["lse_err"] <= LSE_TOL
+                or not row["out_rel"] <= FLASH_TOL[name] or not row.get("blind_rows_masked", True)):
+            raise AssertionError(f"[16a] the kernel's lse or out disagrees: {row}, launches {counts}")
+        rows.append(row)
+    return rows
+
+
+def _lse_timing(cuda, smi, tag, B, Sq, Sk, H, KV, dh, causal, dtype) -> dict:
+    """The kernel at one shape with and without lse, the plain version with
+    lse, and the efficient-attention operator that also returns the rows'
+    log-sum-exp (k and v repeated to the query heads beforehand: it takes
+    no GQA), each the later of two timings; the bound adds lse's bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(B, s, n, dh, generator=gen, device=cuda).to(dtype)
+               for s, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+    name = str(dtype).split(".")[-1]
+    flops = 4 * B * H * dh * Sq * (Sq + 1) / 2 if causal else 4 * B * H * dh * Sq * Sk
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * Sq
+    t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES_S
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    rep = H // KV
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(rep, 2),
+                                              v.repeat_interleave(rep, 2)))
+    calls = {
+        "plain": lambda: attention_ref(q, k, v, causal=causal, return_lse=True),
+        "kernel": lambda: fk.flash_attention(q, k, v, causal=causal),
+        "kernel_lse": lambda: fk.flash_attention(q, k, v, causal=causal, return_lse=True),
+        "library": lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, None, True, 0.0, causal, scale=dh**-0.5),
+    }
+    _, lse = calls["kernel_lse"]()
+    lib_lse = calls["library"]()[1][..., :Sq]
+    lib_err = _lse_err(lib_lse.float(), lse)
+    times = {}
+    for key in ("plain", "kernel", "kernel_lse", "library", "kernel_lse", "kernel", "plain"):
+        times[key] = time_calls(calls[key])
+    out = {"tag": tag, "shape": [B, Sq, Sk, H, KV, dh], "dtype": name, "causal": causal,
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+           "ms": {key: t[0] for key, t in times.items()},
+           "paced_ms": {key: t[1] for key, t in times.items()},
+           "library_lse_vs_kernel": lib_err, "card": smi}
+    ms = out["ms"]
+    log(f"[16a] times at {tag} (B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} dh={dh} {name}) on {smi}: "
+        f"kernel {ms['kernel']:.4f} ms, with lse {ms['kernel_lse']:.4f} ms "
+        f"(x{ms['kernel_lse'] / ms['kernel']:.4f}), plain with lse {ms['plain']:.4f} ms, "
+        f"efficient attention with lse {ms['library']:.4f} ms (its lse vs the kernel's "
+        f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def _vjp_check(cuda, dtype) -> dict:
+    """16b: flash_vjp on the card (the kernel with lse, the hand-written
+    backward) against autograd through the port's plain blocked scan on the
+    card, at one microbatch of qwen3-4b's attention; both timed forward and
+    backward, the host clock ending in a sync."""
+    B, S, H, KV, dh, chunk = VJP_SHAPE
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v = (torch.randn(B, S, n, dh, generator=gen, device=cuda).to(dtype).requires_grad_(True)
+               for n in (H, KV, KV))
+    g = torch.randn(B, S, H, dh, generator=gen, device=cuda).to(dtype)
+    kind = "f32" if dtype == torch.float32 else "wgmma"
+
+    def grads(fn):
+        for t in (q, k, v):
+            t.grad = None
+        out = fn()
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in (q, k, v)]
+
+    def mo():
+        return flash_vjp.blocked_attention_mo(q, k, v, True, dh**-0.5, chunk, chunk)
+
+    def plain():
+        return attention._blocked_attention(q, k, v, True, chunk)
+
+    kernels.reset_launch_counts()
+    got = grads(mo)
+    launches = kernels.launch_counts()[f"flash_attention_{kind}_lse"]
+    want = grads(plain)
+    name = str(dtype).split(".")[-1]
+    errs = {}
+    for tag, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        errs[tag] = (float((a - b).abs().max() / b.abs().max()) if dtype == torch.float32
+                     else float((a - b).norm() / b.norm()))
+    tol = VJP_TOL if dtype == torch.float32 else PATH_TOL
+    walls = {}
+    for key, fn in (("flash_vjp", mo), ("plain_autograd", plain), ("flash_vjp", mo),
+                    ("plain_autograd", plain)):
+        walls[key] = _timed(lambda: grads(fn))[1] * 1e3
+    log(f"[16b] flash_vjp backward vs autograd through the plain blocked scan, B={B} S={S} "
+        f"H={H} KV={KV} dh={dh} chunk={chunk} causal {name}: "
+        + ", ".join(f"{t} {e:.3e}" for t, e in errs.items())
+        + f" ({'max |d| / max |ref|' if dtype == torch.float32 else 'relative Frobenius'}, "
+        f"limit {tol:.1e}); {launches} flash_attention_{kind}_lse launch; forward + backward "
+        f"{walls['flash_vjp']:.1f} ms against {walls['plain_autograd']:.1f} ms")
+    if launches != 1 or not all(e <= tol for e in errs.values()):
+        raise AssertionError(f"[16b] flash_vjp's gradients disagree: {errs}, launches {launches}")
+    return {"dtype": name, "errors": errs, "tol": tol, "launches": launches, "walls_ms": walls}
+
+
+def _tree_err(a: dict, b: dict) -> tuple[float, str]:
+    """The largest max |d| / max |b| over the leaves of two nested dicts of
+    numpy arrays, and its leaf's name."""
+    worst = (0.0, "")
+    if isinstance(b, dict):
+        for key in b:
+            e, where = _tree_err(a[key], b[key])
+            worst = max(worst, (e, f"{key}/{where}" if where else str(key)))
+        return worst
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)), ""
+
+
+def _reduced_train(arch: str, cuda) -> tuple[dict, int]:
+    """16c: one family's reduced config on the card against the port's CPU
+    run of the same weights (``torch.Generator`` seed 0 on the CPU, copied to
+    the card) and batches: the loss and every gradient, then
+    REDUCED_TRAIN_STEPS steps of ``make_train_step`` (each step's loss and
+    grad norm, then every parameter).  Returns (report, the card's
+    ``flash_attention_f32_lse`` launches)."""
+    cfg = get_arch(arch).reduced()
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, enc_frames=REDUCED_TRAIN_FRAMES)
+    api = build(cfg)
+    to_numpy = encdec_params_to_numpy if cfg.is_encdec else lm_params_to_numpy
+    data = SyntheticLMData(cfg.vocab, seed=0)
+    enc = (cfg.enc_frames, cfg.d_model) if cfg.is_encdec else None
+    batches = [data.batch(i, REDUCED_TRAIN_B, REDUCED_TRAIN_S, enc=enc)
+               for i in range(REDUCED_TRAIN_STEPS)]
+    runs = {}
+    kernels.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        state = init_train_state(cfg, api, torch.Generator().manual_seed(0), "cpu")
+        if dev != "cpu":
+            state.params.to(dev)
+            state = state._replace(opt=type(state.opt)(*(t.to(dev) for t in state.opt)))
+        b0 = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+        loss, metrics = api.loss(state.params, **b0)
+        loss.backward()
+        grads = to_numpy(state.params, cfg, grad=True)
+        state.params.zero_grad(set_to_none=True)
+        step = make_train_step(cfg, api, **TRAIN_SCHEDULE)
+        history = []
+        for batch in batches:
+            state, m = step(state, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+            history.append({k: float(v) for k, v in m.items()})
+        runs["card" if dev != "cpu" else "cpu"] = {
+            "loss": loss.item(), "grads": grads, "history": history,
+            "params": to_numpy(state.params, cfg)}
+    launches = kernels.launch_counts()["flash_attention_f32_lse"]
+    card, cpu = runs["card"], runs["cpu"]
+    loss_gap = abs(card["loss"] - cpu["loss"])
+    grad_err, grad_leaf = _tree_err(card["grads"], cpu["grads"])
+    param_err, param_leaf = _tree_err(card["params"], cpu["params"])
+    step_gap = max(abs(c[key] - w[key]) / max(1.0, abs(w[key]))
+                   for c, w in zip(card["history"], cpu["history"]) for key in w)
+    n_attn = sum(cfg.layer_kind(layer % cfg.unit_size) == "attn" for layer in range(cfg.n_layers))
+    log(f"[16c] {cfg.name} train, card vs CPU: loss {card['loss']:.6f} (|d| {loss_gap:.2e}), "
+        f"gradients {grad_err:.2e} ({grad_leaf}), {REDUCED_TRAIN_STEPS} steps' loss and grad "
+        f"norm {step_gap:.2e}, parameters after them {param_err:.2e} ({param_leaf}); limit "
+        f"{TRAIN_CARD_CPU_TOL:.0e}; {launches} flash_attention_f32_lse launches "
+        f"({n_attn} attention layers)")
+    if not max(loss_gap, grad_err, param_err, step_gap) <= TRAIN_CARD_CPU_TOL:
+        raise AssertionError(f"[16c] {cfg.name}: the card's training disagrees with the CPU's")
+    if n_attn and launches == 0:
+        raise AssertionError(f"[16c] {cfg.name}: the card's training launched no flash kernel")
+    return ({"loss": card["loss"], "loss_gap": loss_gap, "grad_err": grad_err,
+             "grad_leaf": grad_leaf, "param_err": param_err, "param_leaf": param_leaf,
+             "step_gap": step_gap, "history": card["history"], "launches": launches}, launches)
+
+
+def _full_width_train(cuda, smi, profile: bool) -> dict:
+    """16d: qwen3-4b at its published widths, float32 parameters and
+    moments, bf16 compute, remat, the config's microbatches: TRAIN_STEPS
+    steps of ``make_train_step`` on ``SyntheticLMData`` batches of
+    TRAIN_BATCH x TRAIN_SEQ tokens, each finite, each launching the Hopper
+    kernel with lse once per layer, microbatch and pass (the forward and its
+    recompute) and no other flash kernel."""
+    cfg = get_arch(TRAIN_ARCH)
+    if TRAIN_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    api = build(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free0, total = torch.cuda.mem_get_info()
+    state, init_s = _timed(lambda: init_train_state(
+        cfg, api, torch.Generator(device=cuda).manual_seed(0), cuda))
+    n_params = sum(p.numel() for p in state.params.parameters())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[16d] {cfg.name} train state, {cfg.n_layers} layers of {get_arch(TRAIN_ARCH).n_layers}, "
+        f"d_model {cfg.d_model}: {n_params:,} parameters, {state_gb:.2f} GB of float32 "
+        f"parameters and moments, built in {init_s:.2f} s; the card had {free0 / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free on {smi}")
+    data = SyntheticLMData(cfg.vocab, seed=0)
+    step = make_train_step(cfg, api, **TRAIN_SCHEDULE)
+    expected = cfg.n_layers * max(cfg.microbatch, 1) * (2 if cfg.remat else 1)
+    rows = []
+    kernels.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=cuda)
+                 for k, v in data.batch(i, TRAIN_BATCH, TRAIN_SEQ).items()}
+        before = kernels.launch_counts()
+        (state, m), wall = _timed(lambda: step(state, batch))
+        after = kernels.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        row = {"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "wall_ms": wall * 1e3, "flash_launches": launched}
+        log(f"[16d] step {i}: loss {row['loss']:.4f}, grad norm {row['grad_norm']:.4f}, "
+            f"{row['wall_ms']:.1f} ms, flash launches {launched} (expected "
+            f"{expected} flash_attention_wgmma_lse: {cfg.n_layers} layers x {cfg.microbatch} "
+            "microbatches x forward and recompute)")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise AssertionError(f"[16d] step {i} is not finite: {row}")
+        if launched != {"flash_attention_wgmma_lse": expected}:
+            raise AssertionError(f"[16d] step {i} launched {launched}, not {expected} "
+                                 "flash_attention_wgmma_lse")
+        rows.append(row)
+    launches = kernels.launch_counts()["flash_attention_wgmma_lse"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    median = float(np.median([r["wall_ms"] for r in rows[1:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    report = {"arch": cfg.name, "n_layers": cfg.n_layers, "published_layers":
+              get_arch(TRAIN_ARCH).n_layers, "params": n_params, "state_gb": state_gb,
+              "peak_gb": peak, "card_total_gb": total / 1e9, "steps": rows,
+              "median_step_ms": median, "tokens_per_s": tokens / median * 1e3,
+              "launches_per_step": expected, "launches": launches, "card": smi}
+    log(f"[16d] {cfg.name} training at full width on {smi}: median step (steps 2-{TRAIN_STEPS}) "
+        f"{median:.1f} ms, {tokens / median * 1e3:,.0f} tokens/s, peak device memory "
+        f"{peak:.2f} GB of {total / 1e9:.2f}, {expected} flash_attention_wgmma_lse launches a step "
+        f"({launches} in {TRAIN_STEPS} steps)")
+    if profile:
+        batch = {k: torch.as_tensor(v, device=cuda)
+                 for k, v in data.batch(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ).items()}
+        report["profile"] = profiled("16d one training step", lambda: step(state, batch), top=15)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def training_phase(cuda, smi, profile: bool = False) -> tuple[list, dict]:
+    """Phase 16: the training path (see the module's doc).  Returns (the
+    kernels line's entries of the lse launches, report)."""
+    report: dict = {"card": smi}
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["lse"] = [row for shape in LSE_SHAPES for row in _lse_shape(cuda, *shape)]
+    timing = {"bfloat16": _lse_timing(cuda, smi, *LSE_SHAPES[0]),
+              "float32": _lse_timing(cuda, smi, *LSE_SHAPES[3])}
+    report["lse_timing"] = timing
+    report["vjp"] = [_vjp_check(cuda, dtype) for dtype in (torch.float32, torch.bfloat16)]
+    report["reduced"], f32_launches = {}, 0
+    for arch in TRAIN_FAMILIES:
+        report["reduced"][arch], n = _reduced_train(arch, cuda)
+        f32_launches += n
+    report["full_width"] = _full_width_train(cuda, smi, profile)
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run([sys.executable, str(ROOT / "examples" / TRAIN_EXAMPLE), "--steps",
+                          str(TRAIN_EXAMPLE_STEPS)], capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=EXAMPLE_TIMEOUT_S)
+    lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+    found = re.search(r"loss ([0-9.]+) -> ([0-9.]+)", run.stdout)
+    if run.returncode != 0 or found is None:
+        raise AssertionError(f"[16e] {TRAIN_EXAMPLE} exited {run.returncode}: "
+                             f"{(run.stdout + run.stderr)[-3000:]}")
+    for ln in lines:
+        log(f"[16e] {TRAIN_EXAMPLE}: {ln}")
+    first, last = float(found.group(1)), float(found.group(2))
+    report["example"] = {"lines": lines, "loss_first": first, "loss_last": last}
+    log(f"[16e] the example's loss fell by {first - last:.3f} in {TRAIN_EXAMPLE_STEPS} steps "
+        f"(the reference's example: {EXAMPLE_REF_DROP:.3f}; bar {EXAMPLE_REF_DROP / 2:.3f})")
+    if not first - last > EXAMPLE_REF_DROP / 2:
+        raise AssertionError(f"[16e] the example's loss fell by {first - last:.3f}")
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    api = build(cfg)
+    state = init_train_state(cfg, api, torch.Generator(device=cuda).manual_seed(0), cuda)
+    data = SyntheticLMData(cfg.vocab, seed=0)
+    step = make_train_step(cfg, api, lr=5e-3, warmup=3, total_steps=80)
+    losses = []
+    for i in range(30):
+        state, m = step(state, {k: torch.as_tensor(v, device=cuda)
+                                for k, v in data.batch(i, 8, 64).items()})
+        losses.append(float(m["loss"]))
+    report["loss_decreases"] = losses
+    log(f"[16e] {cfg.name}, the reference's test_loss_decreases on the card: loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f} in 30 steps (bar: down by more than {LOSS_DROP})")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] - LOSS_DROP):
+        raise AssertionError(f"[16e] no learning: {losses[0]} -> {losses[-1]}")
+
+    max_err = {}
+    for row in report["lse"]:
+        max_err[row["kernel"]] = max(max_err.get(row["kernel"], 0.0), row["lse_max_abs"])
+    entries = []
+    for kind, t, launches, where in (
+            ("wgmma", timing["bfloat16"], report["full_width"]["launches"],
+             f"16d: {TRAIN_STEPS} full-width {TRAIN_ARCH} training steps"),
+            ("f32", timing["float32"], f32_launches,
+             f"16c: the reduced families' float32 training on the card")):
+        src = "flash_attention_hopper.cu" if kind == "wgmma" else "flash_attention.cu"
+        entries.append({
+            "name": f"flash_attention_{kind}_lse", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+            "launches": launches, "launches_path": where,
+            "max_abs_err": max_err[f"flash_attention_{kind}_lse"],
+            "ms": t["ms"]["kernel_lse"], "plain_ms": t["ms"]["plain"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["ms"]["library"], "ms_without_lse": t["ms"]["kernel"],
+            "paced_ms": t["paced_ms"]["kernel_lse"], "plain_paced_ms": t["paced_ms"]["plain"],
+        })
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[16] phase 16 in {report['seconds']:.1f} s on {smi}")
+    return entries, report
 
 def profiled(tag: str, step, iterations: int | None = None, top: int = 12) -> dict:
     """Device busy time, launches and the ``top`` kernels of ``step()``

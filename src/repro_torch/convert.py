@@ -10,7 +10,9 @@ plus the int32 kernel copies of a tree, made from the given arrays).
 
 With these a test feeds both packages the same step and the same warm
 start, and runs an LM on the reference's weights, without the port
-importing the reference.
+importing the reference.  The inverses (``*_to_numpy``) give a model's
+weights, or their gradients, in the reference's stacked layout, so that a
+test compares them leaf by leaf.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ __all__ = [
     "alloc_problem_from_numpy",
     "batch_meta_from_dict",
     "encdec_params_from_numpy",
+    "encdec_params_to_numpy",
     "fleet_topology_from_numpy",
     "lm_params_from_numpy",
+    "lm_params_to_numpy",
     "recorder_state_from_numpy",
     "solver_state_from_numpy",
     "warm_carry_from_numpy",
@@ -187,3 +191,43 @@ def encdec_params_from_numpy(params: Mapping[str, Any], cfg, device=None) -> Par
     out["enc"] = _layers(params["enc"], cfg.enc_layers, device)
     out["dec"] = _layers(params["dec"], cfg.n_layers, device)
     return Params(out)
+
+
+def _numpy_tree(params: Params, grad: bool) -> dict:
+    """The weights as nested dicts of numpy arrays (lists for the per-layer
+    stacks), or with ``grad`` their gradients (zeros where a weight has
+    none)."""
+    def leaf(p):
+        t = p if not grad else p.grad if p.grad is not None else torch.zeros_like(p)
+        return t.detach().cpu().numpy()
+
+    return params.tree(leaf)
+
+
+def _stacked(trees: list) -> dict:
+    """Per-layer trees as one tree of ``[layers, ...]`` leaves."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {name: _stacked([t[name] for t in trees]) for name in first}
+    return np.stack(trees)
+
+
+def lm_params_to_numpy(params: Params, cfg, *, grad: bool = False) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the reference's
+    ``init_lm`` tree, each unit position ``unit/b{pos}`` stacked ``[n_units,
+    ...]`` from layers ``pos, pos + unit_size, ...``; with ``grad``, the
+    weights' gradients in that layout."""
+    tree = _numpy_tree(params, grad)
+    layers = tree.pop("layers")
+    U = cfg.unit_size
+    tree["unit"] = {f"b{pos}": _stacked(layers[pos::U]) for pos in range(U)}
+    return tree
+
+
+def encdec_params_to_numpy(params: Params, cfg, *, grad: bool = False) -> dict:
+    """The inverse of :func:`encdec_params_from_numpy`: the encoder and
+    decoder stacks ``enc`` ``[enc_layers, ...]`` and ``dec`` ``[n_layers,
+    ...]``; with ``grad``, the weights' gradients in that layout."""
+    tree = _numpy_tree(params, grad)
+    tree["enc"], tree["dec"] = _stacked(tree["enc"]), _stacked(tree["dec"])
+    return tree

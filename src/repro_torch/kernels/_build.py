@@ -181,7 +181,7 @@ _SIGNATURES = {
     "sla_matvec": (_LISTS, _SOLVER),
     "chunk_stats": ([_INT, ChunkStatsArgs, _F64, _INT, _I64, _PTR], _SOLVER),
     "flash_attention": (
-        [_INT] + [_PTR] * 4 + [_I64] * 6 + [ctypes.POINTER(_I64), _F32, _INT, _PTR],
+        [_INT] + [_PTR] * 5 + [_I64] * 6 + [ctypes.POINTER(_I64), _F32, _INT, _PTR],
         _ATTENTION,
     ),
 }

@@ -13,6 +13,12 @@
 // float32 value goes into l); out = acc / max(l, 1e-30), rounded to q's type.
 // A causal row that sees no key (Sq > Sk) weighs every key alike and returns
 // the mean of V, as the reference does.
+// Optionally each kernel also writes the rows' log-sum-exp, lse [B, H, Sq]
+// in float32 (store_lse in flash_attention.cuh): m + log(max(l, 1e-30)), the
+// residual of the reference's blocked forward under its hand-written VJP
+// (src/repro/models/flash_vjp.py, _fwd_impl), from which a backward
+// recomputes each probability tile.  One thread per row stores it after the
+// output; out is the same with or without it.
 //
 // GQA: query head h reads key/value head h / (H / KV) in place through the
 // strides the wrapper passes (batch, sequence, head; the head dimension is
@@ -260,6 +266,10 @@ __global__ void __launch_bounds__(kThreads) fa_bf16_kernel(const FaArgs a) {
     if (r1 < a.Sq)
       *reinterpret_cast<uint32_t*>(op + r1 * a.so_s + col) = pack_bf16(o[nd][2] / d1, o[nd][3] / d1);
   }
+  if (t == 0) {  // the four threads of a row group hold the same m and l
+    store_lse(a, tl, r0, m0, l0);
+    store_lse(a, tl, r1, m1, l1);
+  }
 }
 
 // ---------------------------------------------------------------- float32
@@ -459,6 +469,7 @@ __global__ void __launch_bounds__(kThreadsF32, 1) fa_f32_kernel(const FaArgs a) 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = row0 + i;
+    if (tx == 0) store_lse(a, tl, row, m[i], l[i]);  // the half warp holds one m and l
     if (row >= a.Sq) continue;
     const float d = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -505,11 +516,11 @@ struct LaunchF32 {
 
 template <template <int> class Launch>
 int flash_attention_impl(int device, const void* q, const void* k, const void* v, void* o,
-                         int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t dh,
-                         const int64_t* strides, float scale, int causal, int rows,
+                         float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                         int64_t dh, const int64_t* strides, float scale, int causal, int rows,
                          cudaStream_t stream) {
   FaArgs a;
-  if (!make_args(a, q, k, v, o, B, Sq, Sk, H, KV, strides, scale, causal, rows))
+  if (!make_args(a, q, k, v, o, lse, B, Sq, Sk, H, KV, strides, scale, causal, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -520,17 +531,20 @@ int flash_attention_impl(int device, const void* q, const void* k, const void* v
 
 extern "C" {
 
+// lse: a float32 [B, H, Sq] array for the rows' log-sum-exp, or null
 int flash_attention_mma(int device, const void* q, const void* k, const void* v, void* o,
-                        int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t dh,
-                        const int64_t* strides, float scale, int causal, cudaStream_t stream) {
-  return flash_attention_impl<LaunchBf16>(device, q, k, v, o, B, Sq, Sk, H, KV, dh, strides,
+                        float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                        int64_t dh, const int64_t* strides, float scale, int causal,
+                        cudaStream_t stream) {
+  return flash_attention_impl<LaunchBf16>(device, q, k, v, o, lse, B, Sq, Sk, H, KV, dh, strides,
                                           scale, causal, kBq, stream);
 }
 
 int flash_attention_f32(int device, const void* q, const void* k, const void* v, void* o,
-                        int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t dh,
-                        const int64_t* strides, float scale, int causal, cudaStream_t stream) {
-  return flash_attention_impl<LaunchF32>(device, q, k, v, o, B, Sq, Sk, H, KV, dh, strides,
+                        float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                        int64_t dh, const int64_t* strides, float scale, int causal,
+                        cudaStream_t stream) {
+  return flash_attention_impl<LaunchF32>(device, q, k, v, o, lse, B, Sq, Sk, H, KV, dh, strides,
                                          scale, causal, kRowsF32, stream);
 }
 

@@ -20,6 +20,7 @@ struct FaArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] row log-sum-exp, or null: not written
   int64_t sq_b, sq_s, sq_h;  // strides in elements: batch, sequence, head
   int64_t sk_b, sk_s, sk_h;
   int64_t sv_b, sv_s, sv_h;
@@ -66,6 +67,19 @@ __device__ __forceinline__ float masked(float x, int64_t row, int64_t key, const
   return x;
 }
 
+// The row's log-sum-exp of its scaled, masked logits, m + log(max(l, 1e-30))
+// in natural-log units, as the reference's blocked forward defines it
+// (src/repro/models/flash_vjp.py, _fwd_impl): m is the running max of the
+// logits (a row that sees no key holds -1e30, the masked value; keys past Sk
+// never raise it) and l the running sum of exp(logit - m).  Written to
+// lse[b, h, row] when the caller passed the array and the row exists; out
+// does not depend on it.
+__device__ __forceinline__ void store_lse(const FaArgs& a, const Tile& tl, int64_t row, float m,
+                                          float l) {
+  if (a.lse != nullptr && row < a.Sq)
+    a.lse[(static_cast<int64_t>(tl.b) * a.H + tl.h) * a.Sq + row] = m + logf(fmaxf(l, 1e-30f));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
@@ -73,9 +87,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // The arguments of one call, checked: false if the shapes are empty or
 // inconsistent, or the grid of ceil(Sq / rows) * B * H CTAs overflows int.
-inline bool make_args(FaArgs& a, const void* q, const void* k, const void* v, void* o, int64_t B,
-                      int64_t Sq, int64_t Sk, int64_t H, int64_t KV, const int64_t* strides,
-                      float scale, int causal, int rows) {
+inline bool make_args(FaArgs& a, const void* q, const void* k, const void* v, void* o, float* lse,
+                      int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                      const int64_t* strides, float scale, int causal, int rows) {
   if (B <= 0 || Sq <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sk < 0) return false;
   const int64_t n_q_tiles = (Sq + rows - 1) / rows;
   if (B * H > INT_MAX || n_q_tiles * B * H > INT_MAX) return false;
@@ -83,6 +97,7 @@ inline bool make_args(FaArgs& a, const void* q, const void* k, const void* v, vo
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.sq_b = strides[0], a.sq_s = strides[1], a.sq_h = strides[2];
   a.sk_b = strides[3], a.sk_s = strides[4], a.sk_h = strides[5];
   a.sv_b = strides[6], a.sv_s = strides[7], a.sv_h = strides[8];

@@ -47,7 +47,9 @@
 //     causal limit (they would add exact zeros) but still waits and arrives,
 //     which keeps the ring's phases in step.
 //   - the epilogue divides by max(l, 1e-30) and stores bf16 pairs row by row
-//     (rows past Sq are not written).
+//     (rows past Sq are not written); when asked, one thread of each row's
+//     quad also stores the row's log-sum-exp m + log(l) (store_lse), what a
+//     backward needs to recompute the probabilities.
 //
 // Head dims 32 and 160.  A 160-column row is 320 bytes, not a whole number
 // of 128-byte swizzle spans, and padding the tile to 192 columns does not fit
@@ -554,6 +556,10 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
         *reinterpret_cast<uint32_t*>(op + r1 * a.so_s + col) =
             pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
     }
+    if (t4 == 0) {  // the four threads of a row group hold the same m and l
+      store_lse(a, tl, r0, m0, l0);
+      store_lse(a, tl, r1, m1, l1);
+    }
   }
 }
 
@@ -627,13 +633,16 @@ extern "C" {
 
 // The Hopper kernel: bfloat16, dh 32, 64, 128 or 160, Sk >= 1, 16-byte aligned
 // pointers and strides whose tensor maps the driver accepts (the wrapper
-// checks all of it first).  Returns a cudaError, or minus a CUresult if a
-// tensor map could not be encoded.
+// checks all of it first); lse as flash_attention.cu's entries take it.
+// Returns a cudaError, or minus a CUresult if a tensor map could not be
+// encoded.
 int flash_attention_wgmma(int device, const void* q, const void* k, const void* v, void* o,
-                          int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t dh,
-                          const int64_t* strides, float scale, int causal, cudaStream_t stream) {
+                          float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                          int64_t dh, const int64_t* strides, float scale, int causal,
+                          cudaStream_t stream) {
   FaArgs a;
-  if (Sk < 1 || !make_args(a, q, k, v, o, B, Sq, Sk, H, KV, strides, scale, causal, kRows))
+  if (Sk < 1 ||
+      !make_args(a, q, k, v, o, lse, B, Sq, Sk, H, KV, strides, scale, causal, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -15,10 +15,16 @@ any launch:
   sequence, no keys);
 - ``"f32"``: the float32 kernel (register-tiled SIMT, no tensor cores).
 
-The wrapper checks its inputs, allocates the output with ``torch.empty``,
+With ``return_lse=True`` the same kernel also writes each row's
+log-sum-exp ``lse`` ``[B, H, Sq]`` in float32 (the residual a backward
+recomputes the probabilities from, as the reference's
+``models/flash_vjp.py`` defines it); ``out`` is the same either way.
+
+The wrapper checks its inputs, allocates the outputs with ``torch.empty``,
 launches on the current stream, raises on a non-zero error code (a failed
 launch is never retried on another variant), and counts the launches of each
-variant in :data:`LAUNCHES`.
+variant in :data:`LAUNCHES`, those that write ``lse`` under the variant's
+name with ``_lse`` appended.
 
 Inputs are read in place through their strides (batch, sequence, head; the
 head dimension must be contiguous), so GQA reads K/V head ``h // (H / KV)``
@@ -39,7 +45,10 @@ from repro_torch.kernels import _build
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "WGMMA_HEAD_DIMS", "flash_attention", "variant"]
 
-LAUNCHES = {"flash_attention_wgmma": 0, "flash_attention_mma": 0, "flash_attention_f32": 0}
+LAUNCHES = {
+    f"flash_attention_{kind}{suffix}": 0
+    for suffix in ("", "_lse") for kind in ("wgmma", "mma", "f32")
+}
 
 # the head dims ``dispatch_head_dim`` in csrc/flash_attention.cu builds kernels for
 HEAD_DIMS = (32, 64, 128, 160)
@@ -100,7 +109,7 @@ def _checked(name: str, t: torch.Tensor, like: torch.Tensor, copy: bool) -> torc
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, k, v, causal: bool, kind: str | None) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, kind: str | None, return_lse: bool = False):
     if q.device.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
@@ -124,8 +133,9 @@ def _launch(q, k, v, causal: bool, kind: str | None) -> torch.Tensor:
         q, k, v = (_checked(name, t, q, copy=True) for name, t in (("q", q), ("k", k), ("v", v)))
         in_strides = [t.stride()[:3] for t in (q, k, v)]
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_int64 * 12)(*in_strides[0], *in_strides[1], *in_strides[2],
                                     *out.stride()[:3])
     fn = getattr(_build.library(), f"flash_attention_{kind}")
@@ -135,6 +145,7 @@ def _launch(q, k, v, causal: bool, kind: str | None) -> torch.Tensor:
         k.data_ptr(),
         v.data_ptr(),
         out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B,
         Sq,
         Sk,
@@ -152,21 +163,22 @@ def _launch(q, k, v, causal: bool, kind: str | None) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_{kind}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[f"flash_attention_{kind}"] += 1
-    return out
+    LAUNCHES[f"flash_attention_{kind}" + ("_lse" if return_lse else "")] += 1
+    return (out, lse) if return_lse else out
 
 
-def flash_attention(q, k, v, *, causal=True):
+def flash_attention(q, k, v, *, causal=True, return_lse=False):
     """q: [B,Sq,H,dh]; k,v: [B,Sk,KV,dh] (H % KV == 0) -> [B,Sq,H,dh] in
     q's dtype (bfloat16 or float32), through the kernel :func:`variant`
-    picks."""
-    return _launch(q, k, v, causal, None)
+    picks; with ``return_lse``, ``(out, lse)``, lse ``[B, H, Sq]`` in
+    float32."""
+    return _launch(q, k, v, causal, None, return_lse)
 
 
-def _flash_attention_mma(q, k, v, *, causal=True):
+def _flash_attention_mma(q, k, v, *, causal=True, return_lse=False):
     """The mma.sync bfloat16 kernel whatever the head dim and strides, so
     that it can be held against the plain version and timed beside the
     Hopper kernel at the same shapes."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the mma.sync kernel takes bfloat16, got {q.dtype}")
-    return _launch(q, k, v, causal, "mma")
+    return _launch(q, k, v, causal, "mma", return_lse)

@@ -3,15 +3,13 @@ of attention or SSD mixers with dense or MoE feed-forwards (dense, MoE,
 Mamba-2 and hybrid families), and the encoder-decoder (whisper).
 
 ``build(cfg)`` returns a :class:`ModelApi` with the reference's init /
-loss / prefill / decode entry points, dispatching on the arch family.  The
-training loss comes with the training slice (ROADMAP Queue 1 item 14): its
-entry raises ``NotImplementedError``."""
+loss / prefill / decode entry points, dispatching on the arch family."""
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import attention, blocks, common, encdec, lm, mlp, moe, ssm
+from repro_torch.models import attention, blocks, common, encdec, flash_vjp, lm, mlp, moe, ssm
 
 __all__ = [
     "ModelApi",
@@ -20,6 +18,7 @@ __all__ = [
     "build",
     "common",
     "encdec",
+    "flash_vjp",
     "lm",
     "mlp",
     "moe",
@@ -29,7 +28,9 @@ __all__ = [
 
 class ModelApi(NamedTuple):
     init: Callable  # (generator, device=None) -> params (a common.Params tree)
-    loss: Callable  # not ported yet: raises NotImplementedError
+    # (params, tokens, targets[, enc_input]) -> (loss, metrics), differentiable
+    # in the params that require a gradient
+    loss: Callable
     # (params, tokens[, enc_input]) -> (last-position logits, caches[, memory])
     prefill: Callable
     # (params, caches, tokens, pos) -> (logits, caches); the encoder-decoder's
@@ -39,15 +40,12 @@ class ModelApi(NamedTuple):
 
 
 def build(cfg) -> ModelApi:
-    def loss(*args, **kwargs):
-        raise NotImplementedError(
-            f"{cfg.name}: the training loss is not ported yet ({blocks.QUEUE_ITEM})"
-        )
-
     if cfg.is_encdec:
         return ModelApi(
             init=lambda generator, device=None: encdec.init_encdec(generator, cfg, device),
-            loss=loss,
+            loss=lambda params, tokens, targets, enc_input: encdec.encdec_loss(
+                params, cfg, tokens, targets, enc_input
+            ),
             prefill=lambda params, tokens, enc_input: encdec.encdec_prefill(
                 params, cfg, tokens, enc_input
             ),
@@ -60,7 +58,7 @@ def build(cfg) -> ModelApi:
         )
     return ModelApi(
         init=lambda generator, device=None: lm.init_lm(generator, cfg, device),
-        loss=loss,
+        loss=lambda params, tokens, targets: lm.lm_loss(params, cfg, tokens, targets),
         prefill=lambda params, tokens: lm.lm_prefill(params, cfg, tokens),
         decode_step=lambda params, caches, tokens, pos: lm.lm_decode_step(
             params, cfg, caches, tokens, pos

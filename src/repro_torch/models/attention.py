@@ -5,10 +5,15 @@ long sequences and a KV-cache decode path (the port's
 Sequences longer than ``cfg.attn_chunk`` take the blocked branch, as in the
 reference: with ``cfg.flash_vjp`` (the default) the flash-attention kernel
 (``kernels.flash_attention``; its plain version on the CPU), without it the
-plain torch blocked scan :func:`_blocked_attention`.  Shorter ones take
-:func:`_plain_attention`.  Each branch is causal or not (an encoder's
-self-attention is not), and with ``memory`` (an encoder-decoder's
-cross-attention) K and V come from the memory and no mask applies.  The
+plain torch blocked scan :func:`_blocked_attention`.  Where autograd records
+a gradient of q, k or v, the ``flash_vjp`` branch runs
+:func:`repro_torch.models.flash_vjp.blocked_attention_mo` (the kernel with
+the row log-sum-exp, and a backward that recomputes the probabilities from
+it); otherwise the kernel alone.  Shorter ones take :func:`_plain_attention`.
+The plain paths are differentiable through autograd.  Each branch is causal
+or not (an encoder's self-attention is not), and with ``memory`` (an
+encoder-decoder's cross-attention) K and V come from the memory and no mask
+applies.  The
 reference's sharding constraints have no counterpart on one card.
 """
 
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import flash_vjp
 from repro_torch.models.common import apply_rope, init_dense, rms_norm, rope_freqs
 
 __all__ = ["KVCache", "init_attn", "attn_train", "attn_decode", "init_kv_cache"]
@@ -141,8 +147,14 @@ def attn_train(p, cfg, x, positions, *, causal=True, rope=True, memory=None):
         mem_pos = torch.zeros(memory.shape[:2], dtype=torch.int64, device=memory.device)
         _, k, v = _project_qkv(p, cfg, memory, mem_pos, rope=False)
         causal = False
-    if max(S, k.shape[1]) > cfg.attn_chunk:
-        if cfg.flash_vjp:
+    Sk = k.shape[1]
+    if max(S, Sk) > cfg.attn_chunk:
+        if cfg.flash_vjp and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            o = flash_vjp.blocked_attention_mo(q, k, v, causal, cfg.head_dim**-0.5,
+                                               _pick_chunk(S, cfg.attn_chunk),
+                                               _pick_chunk(Sk, cfg.attn_chunk))
+        elif cfg.flash_vjp:
             o = flash_attention(q, k, v, causal=causal)
         else:
             o = _blocked_attention(q, k, v, causal, cfg.attn_chunk)

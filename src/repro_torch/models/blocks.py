@@ -6,14 +6,22 @@ pattern, and the encoder-decoder's cross-attention (the port's
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.common import rms_norm
 
-__all__ = ["QUEUE_ITEM", "init_block", "block_train", "block_decode"]
+__all__ = ["init_block", "block_train", "block_decode", "remat"]
 
-# where the training slice (losses, flash_vjp's backward) waits
-QUEUE_ITEM = "ROADMAP Queue 1 item 14"
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``; with ``cfg.remat``, where autograd records, its
+    activations are not kept but recomputed in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    sites do."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def init_block(generator, cfg, pos: int, *, cross: bool = False, device=None) -> dict:

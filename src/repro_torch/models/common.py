@@ -42,6 +42,20 @@ class Params(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def tree(self, fn) -> dict:
+        """The weights' names and layout as nested dicts (a list of them for
+        a per-layer stack), each weight replaced by ``fn(weight)``."""
+        out = {name: fn(p) for name, p in self._parameters.items()}
+        for name, child in self._modules.items():
+            out[name] = ([c.tree(fn) for c in child] if isinstance(child, nn.ModuleList)
+                         else child.tree(fn))
+        return out
+
+    def map(self, fn) -> "Params":
+        """A tree of the same names and layout whose weights are
+        ``fn(weight)`` (e.g. an optimizer's moments)."""
+        return Params(self.tree(lambda p: fn(p.detach())))
+
 
 def rms_norm(x, g, eps=1e-5):
     """Computed in float32, returned in ``x``'s dtype."""

@@ -7,7 +7,8 @@ positions are added to the encoder's frames and the decoder's tokens;
 attention uses no rotary; the encoder's self-attention is not causal.  The
 reference stacks each stack's layers ``[layers, ...]`` for a ``lax.scan``;
 the port keeps one entry of ``params["enc"]`` / ``params["dec"]`` per layer.
-``encdec_loss`` comes with the training slice (ROADMAP Queue 1 item 14).
+Under ``cfg.remat`` the encoder's and the training decoder's layers
+rematerialise one by one, at the reference's ``jax.checkpoint`` sites.
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ import torch
 from repro_torch.compat import resolve_device
 from repro_torch.models import attention, blocks
 from repro_torch.models.common import Params, rms_norm, sinusoidal_positions
+from repro_torch.models.lm import chunked_xent
 
 __all__ = [
     "encdec_decode_step",
+    "encdec_loss",
     "encdec_prefill",
     "encode",
     "init_decode_cache",
@@ -64,19 +67,32 @@ def encode(params, cfg, enc_input):
     B, F, D = enc_input.shape
     x = enc_input.to(cd) + sinusoidal_positions(F, D, cd, enc_input.device)[None]
     positions = torch.arange(F, device=enc_input.device).expand(B, F)
+
+    def apply_layer(layer, x):
+        return blocks.block_train(layer, cfg, 0, x, positions, causal=False, rope=False)[0]
+
     for layer in params["enc"]:
-        x = blocks.block_train(layer, cfg, 0, x, positions, causal=False, rope=False)[0]
+        x = blocks.remat(cfg, apply_layer, layer, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _decode_stack(params, cfg, x, positions, memory):
+def _decode_stack(params, cfg, x, positions, memory, want_cache=True):
     """The decoder over a whole sequence: (final-normed hidden states, one
-    KVCache of its self-attention per layer)."""
+    KVCache of its self-attention per layer, or none without
+    ``want_cache``, when each layer rematerialises under ``cfg.remat``)."""
     caches = []
+
+    def apply_layer(layer, x):
+        return blocks.block_train(layer, cfg, 0, x, positions, causal=True, rope=False,
+                                  memory=memory)[0]
+
     for layer in params["dec"]:
-        x, _, cache = blocks.block_train(layer, cfg, 0, x, positions, causal=True, rope=False,
-                                         memory=memory)
-        caches.append(cache)
+        if want_cache:
+            x, _, cache = blocks.block_train(layer, cfg, 0, x, positions, causal=True,
+                                             rope=False, memory=memory)
+            caches.append(cache)
+        else:
+            x = blocks.remat(cfg, apply_layer, layer, x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
 
@@ -84,6 +100,19 @@ def _head(params, cfg):
     if cfg.tie_embeddings:
         return params["tok_embed"].T.to(cfg.compute_dtype)
     return params["lm_head"].to(cfg.compute_dtype)
+
+
+def encdec_loss(params, cfg, tokens, targets, enc_input):
+    """Teacher-forced seq2seq cross-entropy, chunks of ``cfg.loss_chunk``
+    tokens: (loss, metrics ``{"xent"}``)."""
+    memory = encode(params, cfg, enc_input)
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens,
+               sinusoidal_positions(S, cfg.d_model, cfg.compute_dtype, tokens.device)[None])
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    h, _ = _decode_stack(params, cfg, x, positions, memory, want_cache=False)
+    loss = chunked_xent(h, _head(params, cfg), targets, cfg.loss_chunk) / (B * S)
+    return loss, {"xent": loss.detach()}
 
 
 def init_decode_cache(cfg, batch, seq, device=None) -> list[attention.KVCache]:

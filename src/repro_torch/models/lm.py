@@ -1,13 +1,14 @@
-"""Decoder-only language model: prefill and decode entry points (the port's
+"""Decoder-only language model: the training forward and its chunked
+cross-entropy, prefill and decode entry points (the port's
 ``repro/models/lm.py``).
 
 The reference stacks each unit position's params ``[n_units, ...]`` for a
 ``lax.scan``; the port keeps one entry of ``params["layers"]`` per layer
 (layer ``u * unit_size + pos`` is unit ``u``'s block ``pos``) and loops.
-A layer's cache is a KVCache (attention) or an SSMCache (SSD), by
-``cfg.layer_kind``, so hybrid units (jamba) prefill and decode as dense
-ones do.  ``lm_forward`` and ``lm_loss`` come with the training slice
-(ROADMAP Queue 1 item 14).
+The training forward rematerialises unit by unit under ``cfg.remat``, as
+the reference's scan body does.  A layer's cache is a KVCache (attention)
+or an SSMCache (SSD), by ``cfg.layer_kind``, so hybrid units (jamba)
+prefill and decode as dense ones do.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from repro_torch.compat import resolve_device
 from repro_torch.models import attention, blocks, ssm
 from repro_torch.models.common import Params, rms_norm
 
-__all__ = ["init_lm", "lm_prefill", "lm_decode_step", "init_decode_cache"]
+__all__ = ["init_lm", "lm_forward", "lm_loss", "lm_prefill", "lm_decode_step",
+           "init_decode_cache"]
 
 
 def init_lm(generator, cfg, device=None) -> Params:
@@ -54,6 +56,60 @@ def _head(params, cfg):
 
 def _embed(params, cfg, tokens):
     return params["tok_embed"][tokens].to(cfg.compute_dtype)
+
+
+def _unit_body(cfg, layers, x, positions):
+    """One unit's blocks applied to x: (x, their MoE aux losses summed)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pos, block in enumerate(layers):
+        x, a, _ = blocks.block_train(block, cfg, pos, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def lm_forward(params, cfg, tokens):
+    """tokens [B, S] -> (final hidden states [B, S, D], the MoE aux loss
+    summed over the layers and divided by ``n_layers``)."""
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    U = cfg.unit_size
+    for u in range(cfg.n_units):
+        x, a = blocks.remat(cfg, _unit_body, cfg, params["layers"][u * U : (u + 1) * U], x,
+                            positions)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux / max(cfg.n_layers, 1)
+
+
+def chunked_xent(h, W, targets, chunk: int):
+    """Summed next-token cross-entropy of hidden states h [B, S, D] under the
+    head W [D, V] against targets [B, S], ``chunk`` tokens of each row at a
+    time so that the [tokens, vocab] logits never exist for the whole
+    sequence: the logits in the compute dtype, then float32, logsumexp minus
+    the gold logit."""
+    B, S, _ = h.shape
+    C = min(chunk, S)
+    if S % C:
+        raise ValueError(f"seq {S} is not divisible by loss_chunk {C}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, C):
+        logits = (h[:, c0 : c0 + C] @ W).float()  # [B, C, V]
+        gold = logits.gather(-1, targets[:, c0 : c0 + C, None].long())[..., 0]
+        total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
+    return total
+
+
+def lm_loss(params, cfg, tokens, targets):
+    """Mean next-token cross-entropy (chunks of ``cfg.loss_chunk`` tokens),
+    plus 0.01 x the MoE aux loss for a config with experts: (loss, metrics
+    ``{"xent", "moe_aux"}``)."""
+    h, aux = lm_forward(params, cfg, tokens)
+    B, S = tokens.shape
+    loss = chunked_xent(h, _head(params, cfg), targets, cfg.loss_chunk) / (B * S)
+    moe_w = 0.01 if cfg.n_experts else 0.0
+    return loss + moe_w * aux, {"xent": loss.detach(), "moe_aux": aux.detach()}
 
 
 def init_decode_cache(cfg, batch, seq, device=None) -> list:

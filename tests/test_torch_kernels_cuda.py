@@ -1039,6 +1039,76 @@ def test_prefill_runs_the_flash_kernel_and_matches_the_cpu(cuda):
     torch.testing.assert_close(logits, plain_logits, rtol=0, atol=2e-5)
 
 
+# -- the row log-sum-exp and the flash_vjp backward (the training slice) ------
+
+# lse: against the plain version run in float32 on the same values, |d| <=
+# 1e-5 * max(1, |lse|) (the kernels' exponentials and sums in float32, in
+# other orders); rows that see no key hold exactly the masked -1e30
+LSE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dh,causal,dtype", FLASH_CASES)
+def test_flash_attention_lse_matches_plain(cuda, B, Sq, Sk, H, KV, dh, causal, dtype):
+    """Every kernel asked for the row log-sum-exp: lse against the plain
+    version's, out the same bits as without it, one launch counted under
+    the variant's ``_lse`` name."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _flash_inputs(np.random.default_rng(Sq + Sk + dh), B, Sq, Sk, H, KV, dh, dtype, cuda)
+    _, want = attention_ref(q.float(), k.float(), v.float(), causal=causal, return_lse=True)
+    kind = fk.variant(q, k, v)
+    runs = [(kind, fk.flash_attention)]
+    if kind == "wgmma":
+        runs.append(("mma", fk._flash_attention_mma))
+    for name, fn in runs:
+        plain_out = fn(q, k, v, causal=causal)
+        reset_launch_counts()
+        out, lse = fn(q, k, v, causal=causal, return_lse=True)
+        counts = launch_counts()
+        assert counts[f"flash_attention_{name}_lse"] == 1 and counts[f"flash_attention_{name}"] == 0
+        assert torch.equal(out, plain_out)
+        assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+        err = torch.where(lse == want, 0.0, (lse - want).abs() / want.abs().clamp_min(1.0))
+        assert float(err.max()) <= LSE_TOL, (name, float(err.max()))
+        if causal and Sq > Sk:
+            assert bool((lse[..., : Sq - Sk] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_vjp_backward_matches_autograd_through_the_plain_scan(cuda, dtype):
+    """models/flash_vjp on the card (the kernel with the lse, the
+    hand-written backward) against autograd through the port's plain
+    blocked scan on the card: float32 within 2e-5 of each tensor's largest
+    magnitude, bfloat16 within 2^-5 in relative Frobenius norm (the two
+    round P and the products to bfloat16 at other places)."""
+    from repro_torch.models import attention, flash_vjp
+
+    B, S, H, KV, dh, chunk = 1, 1024, 8, 2, 128, 256
+    q, k, v = (t.requires_grad_(True) for t in _flash_inputs(
+        np.random.default_rng(26), B, S, S, H, KV, dh, dtype, cuda))
+    g = torch.as_tensor(np.random.default_rng(27).normal(size=(B, S, H, dh)),
+                        dtype=torch.float32).to(cuda, dtype)
+    reset_launch_counts()
+    out = flash_vjp.blocked_attention_mo(q, k, v, True, dh**-0.5, chunk, chunk)
+    out.backward(g)
+    kind = "f32" if dtype == torch.float32 else "wgmma"
+    assert launch_counts()[f"flash_attention_{kind}_lse"] == 1
+    got = [out.detach()] + [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    ref_out = attention._blocked_attention(q, k, v, True, chunk)
+    ref_out.backward(g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, [ref_out.detach(), q.grad, k.grad, v.grad]):
+        a, b = a.float(), b.float()
+        if dtype == torch.float32:
+            err = float((a - b).abs().max() / b.abs().max())
+            assert err <= 2e-5, (name, err)
+        else:
+            err = float((a - b).norm() / b.norm())
+            assert err <= 2.0**-5, (name, err)
+
+
 # -- the lane axis (the K-scenario path) ------------------------------------
 
 

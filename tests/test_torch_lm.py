@@ -240,15 +240,24 @@ def test_launcher_returns_the_reference_tokens(capsys, monkeypatch):
     "arch", ["whisper-tiny", "olmoe-1b-7b", "mamba2-1.3b", "jamba-v0.1-52b", "grok-1-314b"]
 )
 def test_unported_families_raise(arch):
-    """Every family builds and serves now (tests/test_torch_moe.py,
-    test_torch_ssm.py, test_torch_encdec.py); what is not ported yet is the
-    training loss, which raises, citing its queue item."""
+    """Every family builds, serves and now trains: the training loss, which
+    raised until the training slice (tests/test_torch_train.py holds it to
+    the reference), gives a finite float32 loss and a gradient of every
+    weight on the family's own seeded weights."""
     cfg = configs.get_arch(arch).reduced()
     api = models.build(cfg)
     params = api.init(torch.Generator().manual_seed(0), "cpu")
     assert len(params["dec" if cfg.is_encdec else "layers"]) == cfg.n_layers
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        api.loss(params)
+    params.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    toks, targets = (torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16))) for _ in range(2))
+    extra = ([torch.as_tensor(rng.normal(size=(2, 8, cfg.d_model)).astype(np.float32))]
+             if cfg.is_encdec else [])
+    loss, metrics = api.loss(params, toks, targets, *extra)
+    loss.backward()
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert float(metrics["xent"]) > 0
+    assert all(p.grad is not None for p in params.parameters())
 
 
 def test_the_default_device_is_the_card():

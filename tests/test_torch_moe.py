@@ -136,5 +136,77 @@ def test_build_accepts_moe_models(name):
     cfg = configs.get_arch(name)
     api = models.build(cfg)
     assert cfg.layer_moe(0)
-    with pytest.raises(NotImplementedError, match="training"):
-        api.loss(None)
+    # the training loss is ported (it raised until the training slice): a
+    # finite loss with the MoE aux loss among its metrics
+    small = cfg.reduced()
+    params = models.build(small).init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    with torch.no_grad():
+        loss, metrics = models.build(small).loss(params, toks, toks)
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "moe_aux"}
+    assert callable(api.loss)
+
+
+def _layer_drops(pkg_blocks, pkg_attn, pkg_moe, pkg_norm, cfg, layers, x, positions):
+    """Run ``x`` through ``layers`` block by block in one package and count,
+    at each MoE layer, the (token, choice) pairs its capacity dispatch
+    drops: a list of (dropped, pairs) per layer."""
+    out = []
+    for p in layers:
+        h = pkg_norm(x, p["ln1"], cfg.norm_eps)
+        x1 = x + pkg_attn.attn_train(p["attn"], cfg, h, positions)[0]
+        h2 = pkg_norm(x1, p["ln2"], cfg.norm_eps)
+        kept, pairs = 0, 0
+        for c0 in range(0, h2.shape[1], cfg.moe_chunk):
+            disp = pkg_moe._route(p["moe"], cfg, h2[:, c0 : c0 + cfg.moe_chunk])[1]
+            kept += int(np.asarray(disp).sum())
+            pairs += h2.shape[0] * min(cfg.moe_chunk, h2.shape[1] - c0) * cfg.top_k
+        out.append((pairs - kept, pairs))
+        x = pkg_blocks.block_train(p, cfg, 0, x, positions)[0]
+    return out
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one CPU thread for a test that takes the same time alone
+    either way, while other test files run beside it on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_olmoe_drop_share_matches_the_reference(one_torch_thread):
+    """olmoe-1b-7b at a middle width (d_model 512, 4 layers, all 64 experts
+    top-8, capacity 1.25, chunks of 512) on one set of the reference's
+    weights: the share of (token, choice) pairs each layer's capacity
+    dispatch drops is the reference's, to 0.1% of the pairs (a near tie
+    between a token's 8th and 9th gate may route one choice elsewhere)."""
+    from repro.models import attention as jattention
+    from repro.models import blocks as jblocks
+    from repro.models import common as jcommon
+    from repro_torch.models import attention, blocks, common
+
+    mid = dict(n_layers=4, d_model=512, n_heads=4, n_kv=4, d_head=128, vocab=4096,
+               moe_chunk=512, param_dtype=jnp.float32, compute_dtype=jnp.float32)
+    cfg_j = dataclasses.replace(jconfigs.get_arch("olmoe-1b-7b"), **mid)
+    cfg = dataclasses.replace(configs.get_arch("olmoe-1b-7b"),
+                              **{**mid, "param_dtype": torch.float32,
+                                 "compute_dtype": torch.float32})
+    assert (cfg.n_experts, cfg.top_k, cfg.capacity_factor, cfg.d_ff) == (64, 8, 1.25, 1024)
+    params_j, _ = jmodels.build(cfg_j).init(jax.random.key(0))
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, params_j), cfg, "cpu")
+    B, S = 1, 1024
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (B, S))
+    layers_j = [jax.tree.map(lambda a, i=i: a[i], params_j["unit"]["b0"])
+                for i in range(cfg.n_layers)]
+    x_j = params_j["tok_embed"][jnp.asarray(toks)]
+    pos_j = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    with torch.no_grad():
+        got = _layer_drops(blocks, attention, moe, common.rms_norm, cfg, params["layers"],
+                           params["tok_embed"][torch.as_tensor(toks)],
+                           torch.arange(S).expand(B, S))
+    want = _layer_drops(jblocks, jattention, jmoe, jcommon.rms_norm, cfg_j, layers_j, x_j, pos_j)
+    for layer, ((d, n), (d_j, n_j)) in enumerate(zip(got, want)):
+        print(f"layer {layer}: port drops {d / n:.4%}, reference {d_j / n_j:.4%} of {n} pairs")
+        assert n == n_j and abs(d - d_j) <= 1e-3 * n, (layer, d, d_j, n)
