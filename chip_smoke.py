@@ -156,7 +156,7 @@ Phases, each of which raises on failure:
    busy share beside the monolithic engine's; (c) the reference's subtree
    parity case at paper size (1e-6 W); (d) churn with one rebuild within
    the padding (``rebuild_count()`` moves only there); (e) ``DatacenterSim``
-   in fleet mode for 20 intervals, with prefetch (the same S values), and
+   in fleet mode for 12 intervals, with prefetch (the same S values), and
    the cross-tenant scenario, also through every kernel flag against the
    CPU run at the quality level; (f) one cold stacked step of the paper's
    datacenter with Appendix B's tenants split at the cut (its launches are
@@ -220,6 +220,31 @@ Phases, each of which raises on failure:
    (down by more than 0.5).
    The kernels line takes ``flash_attention_wgmma_lse`` (16d's launches)
    and ``flash_attention_f32_lse`` (16c's).
+17. the training launcher, see :func:`launcher_phase`: (a) whisper-tiny's
+   full-width train state after one step saved from the card and restored
+   onto it (``training.checkpoint``: every leaf the same bits, the keys,
+   shapes and dtypes of the port's CPU save), the walls and bytes; (b) the
+   restart drill as users run it, each run a fresh process through
+   ``launch.train``'s main path: ``--arch whisper-tiny --batch 4 --seq 448
+   --steps 6 --ckpt-every 2`` uninterrupted, with ``--fail-at 4`` in a fresh
+   directory (exit code 42), then ``--resume`` (steps 4-5 within 1e-5
+   relative of the uninterrupted run's, and whether they are its bits);
+   a ``--compress-grads`` run of 4 steps (finite), and the reduced config's
+   against the port's CPU run (2e-5: whisper-tiny computes in bf16); (c)
+   ``launch.train.main`` in process at qwen3-4b's full width, ``--batch 4
+   --seq 2048 --steps 4 --lr 3e-4 --power-managed``: each loss finite, 288
+   ``flash_attention_wgmma_lse`` launches a step and no other flash kernel,
+   the median step, tokens/s, peak memory, the controller's step wall and
+   its slowdowns; (d) ``compressed_psum`` of a ``[151,936, 2,560]`` float32
+   gradient at one NCCL rank (the bits of the int8 round trip) and on four
+   gloo ranks of the one card (this script again with ``--launch-rank``;
+   every rank the bits of the CPU oracle), each beside a plain float32
+   all-reduce; (e) the GPipe forward (``training.pipeline``) of qwen3-4b's
+   36 layers on those four ranks, 9 a rank, 4 microbatches of 1 x 2,048
+   hidden states: every rank the bits of the sequential stack on the card.
+   The kernels line's ``flash_attention_wgmma_lse`` takes
+   ``launches_launcher`` (17b, 17c) and ``flash_attention_wgmma``
+   ``launches_pipeline`` (17e).
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -231,11 +256,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import gc
 import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -248,6 +275,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 import repro_torch.kernels as kernels  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
@@ -277,13 +305,17 @@ from repro_torch.pdn.telemetry import TelemetrySim, TraceConfig  # noqa: E402
 from repro_torch.pdn.tenants import appendix_b_layout, assign_cross_domain_tenants  # noqa: E402
 from repro_torch.pdn.tree import build_datacenter  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import attention, build, encdec, moe  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import attention, blocks, build, encdec, moe  # noqa: E402
 from repro_torch.models.common import rms_norm, sinusoidal_positions  # noqa: E402
 from repro_torch.obs import recorder as obs_recorder  # noqa: E402
 from repro_torch.obs.export import flight_rows, write_jsonl  # noqa: E402
 from repro_torch.power import ControllerConfig, DatacenterSim, PowerController  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.models import flash_vjp  # noqa: E402
+from repro_torch.training import checkpoint  # noqa: E402
+from repro_torch.training.compression import compressed_psum, quantize_dequantize  # noqa: E402
+from repro_torch.training.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.training.step import (  # noqa: E402
     init_train_state,
     make_serve_steps,
@@ -844,6 +876,7 @@ def main(argv: list[str]) -> int:
     )
     parser.add_argument("--out", default=str(ROOT / "artifacts" / "chip_smoke"))
     parser.add_argument("--shard-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--launch-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -852,10 +885,19 @@ def main(argv: list[str]) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     if args.shard_rank is not None:  # one of phase 14b's ranks
         return shard_rank_main(args.shard_rank, out_dir)
-    report: dict = {}
+    if args.launch_rank is not None:  # one of phase 17d/e's ranks
+        return launch_rank_main(args.launch_rank, out_dir)
+    report: dict = {"phase_started_s": {}}
     cuda = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        """Log and keep the script's wall clock as a phase starts."""
+        report["phase_started_s"][phase] = elapsed = time.perf_counter() - t_start
+        log(f"[time] {elapsed:.1f} s at the start of phase {phase}")
 
     # -- 1. the card ------------------------------------------------------
+    mark("1")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -869,6 +911,7 @@ def main(argv: list[str]) -> int:
     report["device"] = {"name": name, "count": count, "nvidia_smi": smi}
 
     # -- 2. build ---------------------------------------------------------
+    mark("2")
     info = _build.build()
     _build.library()
     (out_dir / "build.log").write_text(info.log)
@@ -889,6 +932,7 @@ def main(argv: list[str]) -> int:
         return 0
 
     # -- 3. kernels vs plain ----------------------------------------------
+    mark("3")
     pdn = build_datacenter()
     n_main, m_main = pdn.n, pdn.m
     tile = _build.library().tree_scan_tile()
@@ -1262,6 +1306,7 @@ def main(argv: list[str]) -> int:
     }
 
     # -- 4/5. control steps on the card vs the port's CPU run ---------------
+    mark("4")
     kernel_opts = SolverOptions(use_pallas=True, use_pallas_tree=True)
 
     log(f"[4] main path: n={n_main}, m={m_main}, {STEPS} telemetry steps, "
@@ -1287,6 +1332,7 @@ def main(argv: list[str]) -> int:
         + ", ".join(f"{w * 1e3:.1f} ms" for _, w in plain))
 
     pdn_lp = build_datacenter(n_halls=2, racks_per_hall=6)
+    mark("5")
     log(f"[5] LP path: n={pdn_lp.n}, m={pdn_lp.m}, {LP_STEPS} steps of drifting "
         "U(100, 650) W requests, use_waterfill=False")
     lp_rows, lp_launches = run_steps(
@@ -1299,6 +1345,7 @@ def main(argv: list[str]) -> int:
     report["lp_path"] = {"n": pdn_lp.n, "m": pdn_lp.m, "steps": lp_rows, "launches": lp_launches}
 
     # -- 6. timing ----------------------------------------------------------
+    mark("6")
     f64 = torch.float64
     idx = tk.tree_index(pdn.node_start, pdn.node_end, n_main, cuda)
     start64, end64 = idx.start.long(), idx.end.long()
@@ -1548,6 +1595,7 @@ def main(argv: list[str]) -> int:
     }
 
     # -- 7. the serving path on the tenant fleet -----------------------------
+    mark("7")
     engine_opts = kernel_opts._replace(use_pallas_stats=True)  # every kernel of the path
     engine_launches, engine_report = tenant_engine_phase(
         pdn, layout, engine_opts, cuda, args.warm_tenants
@@ -1558,9 +1606,11 @@ def main(argv: list[str]) -> int:
         entry["launches_optimize_path"] = main_launches[entry["name"]]
 
     # -- 8. the data plane's serving path -------------------------------------
+    mark("8")
     flash_entries, report["serving_path"] = serving_phase(cuda, smi, args.profile)
 
     # -- 9. certify-first incremental stepping --------------------------------
+    mark("9")
     certify_launches, report["incremental"] = incremental_phase(
         pdn, layout, engine_opts, cuda, engine_report["samples"]
     )
@@ -1569,14 +1619,17 @@ def main(argv: list[str]) -> int:
             entry["launches_certify"] = certify_launches.get(entry["name"], 0)
 
     # -- 10. the paper's trace experiment ---------------------------------------
+    mark("10")
     report["simulation"] = simulation_phase(pdn, engine_opts, cuda, smi)
 
     # -- 11. the K-scenario path ------------------------------------------------
+    mark("11")
     lane_launches, report["batched"] = batched_phase(pdn, layout, engine_opts, cuda, smi)
     for entry in entries:
         entry["lane_launches"] = lane_launches.get(entry["name"], 0)
 
     # -- 12. the multi-domain fleet ---------------------------------------------
+    mark("12")
     fleet_launches, tenant_fleet_launches, report["fleet"] = fleet_phase(
         pdn, layout, engine_opts, cuda, smi)
     for entry in entries:
@@ -1584,12 +1637,14 @@ def main(argv: list[str]) -> int:
         entry["launches_tenant_fleet"] = tenant_fleet_launches.get(entry["name"], 0)
 
     # -- 13. the flight recorder --------------------------------------------------
+    mark("13")
     recorder_launches, report["recorder"] = recorder_phase(pdn, layout, engine_opts, cuda, smi,
                                                            out_dir)
     for entry in entries:
         entry["launches_recorder"] = recorder_launches.get(entry["name"], 0)
 
     # -- 14. the sharded fleet dispatch ---------------------------------------------
+    mark("14")
     sharded_launches, sharded_launches_4, report["sharded"] = sharded_phase(
         pdn, layout, engine_opts, cuda, smi, out_dir)
     for entry in entries:
@@ -1597,6 +1652,7 @@ def main(argv: list[str]) -> int:
         entry["launches_sharded_4_ranks"] = sharded_launches_4.get(entry["name"], 0)
 
     # -- 15. the MoE, Mamba-2, hybrid and Whisper families ---------------------------
+    mark("15")
     family_launches, report["families"] = families_phase(cuda, smi)
     for entry in flash_entries:
         entry["launches_families"] = (family_launches if entry["name"] == "flash_attention_wgmma"
@@ -1605,13 +1661,24 @@ def main(argv: list[str]) -> int:
     entries.extend(flash_entries)
 
     # -- 16. the training path ---------------------------------------------------------
+    mark("16")
     lse_entries, report["training"] = training_phase(cuda, smi, args.profile)
     entries.extend(lse_entries)
+
+    # -- 17. the training launcher -----------------------------------------------------
+    mark("17")
+    launcher_launches, pipeline_launches, report["launcher"] = launcher_phase(cuda, smi, out_dir)
+    for entry in entries:
+        if entry["name"] == "flash_attention_wgmma_lse":
+            entry["launches_launcher"] = launcher_launches
+        if entry["name"] == "flash_attention_wgmma":
+            entry["launches_pipeline"] = pipeline_launches
 
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
         report["profile_tenant"] = profile_tenant_step(pdn, layout, engine_opts)
 
+    mark("end")
     report["trace_retries"] = TRACE_RETRIES
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[card] {smi}")
@@ -2413,7 +2480,7 @@ def batched_phase(pdn, layout, engine_opts, cuda, smi):
 
 
 FLEET_STEPS = 5
-FLEET_SIM_STEPS = 20
+FLEET_SIM_STEPS = 12
 FLEET_PARITY_TOL = 1e-9  # watts: stacked vs loop and card vs CPU, equal iterations
 FLEET_MONO_TOL = 1e-6  # watts: fleet vs the monolithic engine (the reference's bar)
 FLEET_RACKS = 20  # phase 12's rebuilt hall, inside the 24-rack padding
@@ -3051,9 +3118,9 @@ REC_HOLD = 2
 REC_CPU_ROWS = 3  # 13a: rows held against the port's CPU run of the same steps
 REC_KKT_TOL = 1e-3 * INC_EPS  # 13a: kkt_res card vs CPU, three orders under the solve's eps
 REC_WARMUP_REPS = 2  # 13b: untimed repeats before the timed ones
-REC_WARM_REPS = 20  # 13b: interleaved repeats of the 5 warm steps
+REC_WARM_REPS = 8  # 13b: interleaved repeats of the 5 warm steps
 REC_HELD_STEPS = 10  # 13b: held steps per repeat
-REC_HELD_REPS = 10
+REC_HELD_REPS = 5
 REC_COST_CALLS = 50  # 13b: timed appends per estimate of the recorder's own cost
 OVERHEAD_BAR = 1.05  # 13b: a recorded warm step over an unrecorded one
 REC_H2D = 1  # 13c: host-to-device copies a recorded step adds (the staged gauges)
@@ -3626,35 +3693,32 @@ def shard_rank_main(rank: int, out_dir: Path) -> int:
     return 0
 
 
-def _run_ranks(rank_dir: Path) -> list[tuple[dict, dict]]:
-    """Phase 14b's ranks, spawned at once; each must exit 0 within
-    ``SHARD_JOIN_S`` (all are killed otherwise)."""
-    rank_dir.mkdir(parents=True, exist_ok=True)
-    for old in rank_dir.iterdir():
-        old.unlink()
+def _spawn_ranks(flag: str, n: int, rank_dir: Path, join_s: float, tag: str) -> None:
+    """``n`` ranks of this script (``flag r --out rank_dir``), spawned at
+    once into a fresh ``rank_dir``; each must exit 0 within ``join_s`` (all
+    are killed otherwise)."""
+    if rank_dir.exists():
+        shutil.rmtree(rank_dir)
+    rank_dir.mkdir(parents=True)
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank", str(r), "--out",
-         str(rank_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(SHARD_RANKS)]
-    deadline = time.monotonic() + SHARD_JOIN_S
-    outs, failed = [], []
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r), "--out", str(rank_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    deadline = time.monotonic() + join_s
+    failed = []
     try:
         for r, p in enumerate(procs):
             out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
-            outs.append(out)
             if p.returncode != 0:
                 failed.append(f"rank {r} exited {p.returncode}: {out[-3000:]}")
     except subprocess.TimeoutExpired:
-        failed.append(f"a rank did not finish in {SHARD_JOIN_S} s (a hung collective?)")
+        failed.append(f"a rank did not finish in {join_s} s (a hung collective?)")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     if failed:
-        raise AssertionError("[14b] " + "\n".join(failed))
-    return [(dict(np.load(rank_dir / f"rank{r}.npz")),
-             json.loads((rank_dir / f"rank{r}.json").read_text())) for r in range(SHARD_RANKS)]
+        raise AssertionError(f"[{tag}] " + "\n".join(failed))
 
 
 def _flights_match(tag, got: list, want: list, rows: int) -> float:
@@ -3829,7 +3893,10 @@ def sharded_phase(pdn, layout, engine_opts, cuda, smi, out_dir) -> tuple[dict, d
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = _run_ranks(Path(out_dir) / "shard_ranks")
+    rank_dir = Path(out_dir) / "shard_ranks"
+    _spawn_ranks("--shard-rank", SHARD_RANKS, rank_dir, SHARD_JOIN_S, "14b")
+    ranks = [(dict(np.load(rank_dir / f"rank{r}.npz")),
+              json.loads((rank_dir / f"rank{r}.json").read_text())) for r in range(SHARD_RANKS)]
     ranks_wall = time.perf_counter() - t0
     rank_gaps, walls_r, launches_4, tenant_launches_4 = [], [], {}, {}
     for r, (arr, info) in enumerate(ranks):
@@ -5251,6 +5318,474 @@ def training_phase(cuda, smi, profile: bool = False) -> tuple[list, dict]:
     log(f"[16] phase 16 in {report['seconds']:.1f} s on {smi}")
     return entries, report
 
+# ---------------------------------------------------------------------------
+# Phase 17: the training launcher.
+
+# 17a: whisper-tiny's full-width train state after one step (moments non-zero)
+CKPT_ARCH = "whisper-tiny"
+# 17b: the restart drill as users run it, each run a fresh process through
+# the launcher's main path (DRILL_SCRIPT prints the losses unrounded)
+DRILL_SEQ = 448  # whisper's text context
+DRILL_ARGV = ["--arch", "whisper-tiny", "--batch", "4", "--seq", str(DRILL_SEQ), "--log-every",
+              "1"]
+DRILL_STEPS, DRILL_CKPT_EVERY, DRILL_FAIL_AT = 6, 2, 4
+DRILL_COMPRESS_STEPS = 4
+DRILL_TOL = 1e-5  # relative: the resumed steps against the uninterrupted run
+DRILL_TIMEOUT_S = 300
+DRILL_SCRIPT = """
+import json, sys
+from repro_torch import kernels
+from repro_torch.launch import train
+run = None
+try:
+    run = train.run(train.parse_args(sys.argv[1:]))
+finally:
+    print("DRILL " + json.dumps({
+        "losses": None if run is None else run.losses,
+        "step_ms": None if run is None else run.step_ms,
+        "launches": {k: v for k, v in kernels.launch_counts().items() if v}}), flush=True)
+"""
+# 17c: the launcher at full width, in process
+LAUNCH_ARGV = ["--arch", "qwen3-4b", "--batch", "4", "--seq", "2048", "--steps", "4", "--lr",
+               "3e-4", "--power-managed", "--log-every", "1"]
+# 17d: compressed_psum of qwen3-4b's embedding gradient; 17e: the GPipe
+# forward, 9 of qwen3-4b's 36 layers a rank, M microbatches of 1 x 2,048
+LAUNCH_RANKS = 4
+LAUNCH_GROUP_S = 300  # the gloo group's timeout
+LAUNCH_JOIN_S = 600  # seconds before a rank that has not finished fails the phase
+PSUM_SHAPE = (151_936, 2_560)
+PSUM_SEED = 1_700
+PSUM_REPS = 1  # 17d's timed all-reduces of each kind on the four ranks (the first)
+PIPE_M, PIPE_SEQ, PIPE_SEED = 4, 2_048, 1_710
+
+
+def _digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes (on the host)."""
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8).numpy().data).hexdigest()
+
+
+def _lse_per_step(cfg, seq: int) -> int:
+    """``flash_attention_wgmma_lse`` launches of one train step on ``seq``
+    tokens: every attention whose query or key length passes ``attn_chunk``
+    (whisper's encoder over its frames and its cross-attention; a decoder
+    over the sequence), per microbatch, twice under remat (forward and
+    recompute)."""
+    def blocked(sq, sk):
+        return max(sq, sk) > cfg.attn_chunk
+
+    if cfg.is_encdec:
+        n = cfg.enc_layers * blocked(cfg.enc_frames, cfg.enc_frames) + cfg.n_layers * (
+            blocked(seq, seq) + blocked(seq, cfg.enc_frames))
+    else:
+        n = cfg.n_layers * blocked(seq, seq)
+    return n * max(cfg.microbatch, 1) * (2 if cfg.remat else 1)
+
+
+def _other_flash(flash: dict, name: str, expected: int) -> bool:
+    """Whether ``flash`` (launches by kernel) is anything but ``expected``
+    launches of ``name``."""
+    return flash.get(name, 0) != expected or any(v for k, v in flash.items() if k != name)
+
+
+def _pipe_blocked(cfg) -> int:
+    """1 where 17e's attention takes the blocked branch (the kernel)."""
+    return int(PIPE_SEQ > cfg.attn_chunk)
+
+
+def _psum_grad(rank: int, cuda) -> torch.Tensor:
+    """Rank ``rank``'s gradient of 17d: N(0, 1) x (rank + 1), so that the
+    shared scale is the last rank's."""
+    gen = torch.Generator(device=cuda).manual_seed(PSUM_SEED + rank)
+    return torch.randn(PSUM_SHAPE, generator=gen, device=cuda).mul_(rank + 1)
+
+
+def _pipe_inputs(cfg, layers, cuda):
+    """17e's layers (each from a generator seeded with its index, on the
+    card) and microbatches of hidden states ``[M, 1, S, d_model]``."""
+    params = [blocks.init_block(torch.Generator(device=cuda).manual_seed(PIPE_SEED + i), cfg, 0,
+                                device=cuda) for i in layers]
+    gen = torch.Generator(device=cuda).manual_seed(PIPE_SEED)
+    batch = torch.randn(PIPE_M, 1, PIPE_SEQ, cfg.d_model, generator=gen, device=cuda)
+    return params, batch.to(cfg.compute_dtype)
+
+
+def _pipe_stage(cfg, layers, x):
+    """``pipeline_forward``'s stage_fn: the given layers over ``x``."""
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[0], -1)
+    for p in layers:
+        x = blocks.block_train(p, cfg, 0, x, positions)[0]
+    return x
+
+
+def _staged_all_reduce(t: torch.Tensor) -> None:
+    """A float32 all-reduce of ``t`` through host memory, as gloo takes it."""
+    host = t.cpu()
+    dist.all_reduce(host)
+    t.copy_(host)
+
+
+def launch_rank_main(rank: int, out_dir: Path) -> int:
+    """One of 17d/17e's gloo ranks on the card (spawned by
+    :func:`launcher_phase` as ``chip_smoke.py --launch-rank r --out DIR``):
+    ``compressed_psum`` of its gradient and a plain float32 all-reduce,
+    timed; then its stage of the GPipe forward.  Writes ``rank{r}.json``."""
+    cuda = torch.device("cuda")
+    _build.library()
+    dist.init_process_group("gloo", store=dist.FileStore(str(out_dir / "store"), LAUNCH_RANKS),
+                            rank=rank, world_size=LAUNCH_RANKS,
+                            timeout=datetime.timedelta(seconds=LAUNCH_GROUP_S))
+    rep: dict = {"rank": rank}
+    g = _psum_grad(rank, cuda)
+    walls = {"compressed": [], "plain": []}
+    out = None
+    for _ in range(PSUM_REPS):
+        dist.barrier()
+        out, wall = _timed(lambda: compressed_psum(g))
+        walls["compressed"].append(wall * 1e3)
+    rep["psum_digest"] = _digest(out)
+    del out
+    buf = g.clone()
+    for _ in range(PSUM_REPS):
+        buf.copy_(g)
+        dist.barrier()
+        _, wall = _timed(lambda: _staged_all_reduce(buf))
+        walls["plain"].append(wall * 1e3)
+    rep["psum_ms"] = walls
+    del g, buf
+    torch.cuda.empty_cache()
+
+    cfg = get_arch(TRAIN_ARCH)
+    per = cfg.n_layers // LAUNCH_RANKS
+    layers, batch = _pipe_inputs(cfg, range(rank * per, (rank + 1) * per), cuda)
+    forward = pipeline_forward(None, lambda sp, x: _pipe_stage(cfg, sp, x), PIPE_M)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        dist.barrier()
+        outs, wall = _timed(lambda: forward(layers, batch))
+    rep["pipe_ms"] = wall * 1e3
+    rep["pipe_digest"] = _digest(outs)
+    rep["pipe_finite"] = bool(torch.isfinite(outs).all())
+    rep["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rep))
+    dist.destroy_process_group()
+    return 0
+
+
+def _ckpt_on_card(cuda, ckpt_dir: Path) -> dict:
+    """17a: whisper-tiny's full-width train state after one step on the
+    card, saved and restored onto the card (every leaf the same bits),
+    under the keys, shapes and dtypes of the port's CPU save of the same
+    config."""
+    cfg = get_arch(CKPT_ARCH)
+    api = build(cfg)
+    state = init_train_state(cfg, api, torch.Generator(device=cuda).manual_seed(0), cuda)
+    batch = SyntheticLMData(cfg.vocab, seed=0).batch(0, 4, DRILL_SEQ,
+                                                     enc=(cfg.enc_frames, cfg.d_model))
+    state, _ = make_train_step(cfg, api)(state, {k: torch.as_tensor(v, device=cuda)
+                                                 for k, v in batch.items()})
+    _, save_s = _timed(lambda: checkpoint.save(str(ckpt_dir / "card"), 1, state, cfg=cfg))
+    like = init_train_state(cfg, api, torch.Generator(device=cuda).manual_seed(1), cuda)
+    got, restore_s = _timed(lambda: checkpoint.restore(str(ckpt_dir / "card"), 1, like, cfg=cfg))
+    pairs = [(a, b) for x, y in ((got.params, state.params), (got.opt.m, state.opt.m),
+                                 (got.opt.v, state.opt.v))
+             for a, b in zip(x.parameters(), y.parameters(), strict=True)]
+    same = got.step == state.step and all(
+        a.device == b.device and a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    nbytes = (ckpt_dir / "card" / "step_00000001" / "leaves.npz").stat().st_size
+    cpu_state = init_train_state(cfg, api, torch.Generator().manual_seed(0), "cpu")
+    checkpoint.save(str(ckpt_dir / "cpu"), 1, cpu_state, cfg=cfg)
+    card_m, cpu_m = (json.loads((ckpt_dir / d / "step_00000001" / "manifest.json").read_text())
+                     for d in ("card", "cpu"))
+    same_keys = card_m["leaves"] == cpu_m["leaves"]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    rep = {"arch": cfg.name, "params": n_params, "leaves": len(card_m["leaves"]), "bytes": nbytes,
+           "save_s": save_s, "restore_s": restore_s, "same_bits": same,
+           "same_keys_as_cpu_save": same_keys}
+    log(f"[17a] {cfg.name} train state ({n_params:,} parameters, {len(card_m['leaves'])} leaves, "
+        f"{nbytes / 1e6:.1f} MB on disk): save from the card {save_s:.3f} s, restore onto the "
+        f"card {restore_s:.3f} s; every leaf the same bits: {same}; keys, shapes and dtypes "
+        f"those of the CPU save: {same_keys}")
+    if not (same and same_keys):
+        raise AssertionError(f"[17a] the checkpoint round trip on the card failed: {rep}")
+    return rep
+
+
+def _drill_run(tag: str, argv: list[str]) -> dict:
+    """One launcher run in a fresh process: exit code, stdout, the losses
+    (None for a run that exited early), step walls, its kernel launches."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", DRILL_SCRIPT, *argv], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=DRILL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    found = [ln for ln in p.stdout.splitlines() if ln.startswith("DRILL ")]
+    if not found:
+        raise AssertionError(f"[17b] {tag} exited {p.returncode} without its record: "
+                             f"{(p.stdout + p.stderr)[-3000:]}")
+    rec = json.loads(found[-1][len("DRILL "):])
+    lines = [ln for ln in p.stdout.splitlines() if ln.strip() and not ln.startswith("DRILL ")]
+    for ln in lines:
+        log(f"[17b] {tag}: {ln}")
+    return {"tag": tag, "argv": argv, "rc": p.returncode, "wall_s": wall, "lines": lines,
+            "stderr_tail": p.stderr[-2000:], **rec}
+
+
+def _restart_drill(cuda, ckpt_dir: Path) -> tuple[dict, int]:
+    """17b: the drill's three runs, then a ``--compress-grads`` run at full
+    width in this process (finite) and one of the reduced config card vs
+    CPU.  Returns (report, the runs' ``flash_attention_wgmma_lse``
+    launches)."""
+    cfg = get_arch(CKPT_ARCH)
+    base = DRILL_ARGV + ["--steps", str(DRILL_STEPS), "--ckpt-every", str(DRILL_CKPT_EVERY)]
+    runs = [
+        _drill_run("uninterrupted", base + ["--ckpt-dir", str(ckpt_dir / "whole")]),
+        _drill_run("crash", base + ["--ckpt-dir", str(ckpt_dir / "drill"), "--fail-at",
+                                    str(DRILL_FAIL_AT)]),
+        _drill_run("resumed", base + ["--ckpt-dir", str(ckpt_dir / "drill"), "--resume"]),
+    ]
+    whole, crash, resumed = runs
+    per_step = _lse_per_step(cfg, DRILL_SEQ)
+    problems = []
+    if whole["rc"] != 0 or not np.isfinite(whole["losses"]).all():
+        problems.append(f"the uninterrupted run exited {whole['rc']}: {whole['stderr_tail']}")
+    if crash["rc"] != 42 or f"simulating crash at step {DRILL_FAIL_AT}" not in crash["lines"]:
+        problems.append(f"the crash run exited {crash['rc']}, not 42: {crash['stderr_tail']}")
+    if resumed["rc"] != 0 or resumed["lines"][:1] != [f"resumed from step {DRILL_FAIL_AT}"]:
+        problems.append(f"the resumed run exited {resumed['rc']}: {resumed['stderr_tail']}")
+    if problems:
+        raise AssertionError("[17b] " + "\n".join(problems))
+    want = np.asarray(whole["losses"][DRILL_FAIL_AT:])
+    got = np.asarray(resumed["losses"])
+    gap = float((np.abs(got - want) / np.abs(want)).max())
+    same_bits = resumed["losses"] == whole["losses"][DRILL_FAIL_AT:]
+    steps = {"uninterrupted": DRILL_STEPS, "crash": DRILL_FAIL_AT,
+             "resumed": DRILL_STEPS - DRILL_FAIL_AT}
+    launches = 0
+    for run in runs:
+        expected = per_step * steps[run["tag"]]
+        flash = {k: v for k, v in run["launches"].items() if k.startswith("flash_attention")}
+        log(f"[17b] {run['tag']}: {run['wall_s']:.1f} s in all, steps "
+            + ", ".join(f"{ms:.1f}" for ms in run["step_ms"] or []) + f" ms; flash launches "
+            f"{flash} (expected {expected} flash_attention_wgmma_lse)")
+        if _other_flash(flash, "flash_attention_wgmma_lse", expected):
+            raise AssertionError(f"[17b] {run['tag']} launched {flash}, not {expected} "
+                                 "flash_attention_wgmma_lse")
+        launches += flash["flash_attention_wgmma_lse"]
+    log(f"[17b] {cfg.name} restart drill: the resumed steps {DRILL_FAIL_AT}-{DRILL_STEPS - 1} "
+        f"{resumed['losses']} against the uninterrupted run's "
+        f"{whole['losses'][DRILL_FAIL_AT:]}: gap {gap:.3e} relative "
+        f"(limit {DRILL_TOL:.0e}); the same bits: {same_bits}")
+    if not gap <= DRILL_TOL:
+        raise AssertionError(f"[17b] the resumed run parts from the uninterrupted one: {gap:.3e}")
+    # the compressed run in this process (its start-up is the drill's)
+    kernels.reset_launch_counts()
+    comp = train_launcher.run(train_launcher.parse_args(
+        DRILL_ARGV + ["--steps", str(DRILL_COMPRESS_STEPS), "--compress-grads"])).losses
+    flash = {k: v for k, v in kernels.launch_counts().items()
+             if k.startswith("flash_attention") and v}
+    launches += flash.get("flash_attention_wgmma_lse", 0)
+    log(f"[17b] --compress-grads at full width: losses {comp} (uncompressed "
+        f"{whole['losses'][:DRILL_COMPRESS_STEPS]}; step 0 the same bits: "
+        f"{comp[0] == whole['losses'][0]}); flash launches {flash}")
+    if not np.isfinite(comp).all() or _other_flash(flash, "flash_attention_wgmma_lse",
+                                                    per_step * DRILL_COMPRESS_STEPS):
+        raise AssertionError(f"[17b] the compressed run: losses {comp}, launches {flash}")
+    # whisper-tiny computes in bf16: card and CPU are held at float32 compute
+    # (the reduced config), as 16c holds the train step, on the same weights
+    # (a CPU generator's draws copied to the device: a card's generator
+    # draws others)
+    small = DRILL_ARGV + ["--reduced", "--steps", str(DRILL_COMPRESS_STEPS), "--compress-grads"]
+    real_build = train_launcher.build
+
+    def cpu_weights(c):
+        api = real_build(c)
+        return api._replace(init=lambda generator, device=None: api.init(
+            torch.Generator().manual_seed(0), "cpu").to(device))
+
+    train_launcher.build = cpu_weights
+    try:
+        reduced = {dev: train_launcher.run(train_launcher.parse_args(
+            small + ["--device", dev])).losses for dev in ("cpu", str(cuda))}
+    finally:
+        train_launcher.build = real_build
+    red_gap = float((np.abs(np.subtract(reduced[str(cuda)], reduced["cpu"]))
+                     / np.abs(reduced["cpu"])).max())
+    log(f"[17b] --compress-grads --reduced, card vs CPU over {DRILL_COMPRESS_STEPS} steps: "
+        f"{red_gap:.3e} relative (limit {TRAIN_CARD_CPU_TOL:.0e})")
+    if not red_gap <= TRAIN_CARD_CPU_TOL:
+        raise AssertionError(f"[17b] the compressed run on the card parts from the CPU's: {red_gap}")
+    return ({"runs": runs, "resume_gap": gap, "resume_same_bits": same_bits,
+             "lse_per_step": per_step, "compressed": comp, "reduced_compressed": reduced,
+             "reduced_compressed_gap": red_gap}, launches)
+
+
+def _launch_full_width(cuda, smi) -> tuple[dict, int]:
+    """17c: ``launch.train`` at qwen3-4b's full width in process, with the
+    nvPAX controller beside it: each loss finite, 288
+    ``flash_attention_wgmma_lse`` launches a step and no other flash kernel,
+    the median step, tokens/s, peak memory and the controller's wall."""
+    cfg = get_arch(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = train_launcher.run(train_launcher.parse_args(LAUNCH_ARGV))
+    flash = {k: v for k, v in kernels.launch_counts().items()
+             if k.startswith("flash_attention") and v}
+    steps = len(run.losses)
+    per_step = _lse_per_step(cfg, TRAIN_SEQ)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    median = float(np.median(run.step_ms[1:]))
+    tokens = 4 * TRAIN_SEQ
+    rep = {"argv": LAUNCH_ARGV, "losses": run.losses, "grad_norms": run.grad_norms,
+           "step_ms": run.step_ms, "median_step_ms": median, "tokens_per_s": tokens / median * 1e3,
+           "peak_gb": peak, "control_ms": run.control_ms, "slowdowns": run.slowdowns,
+           "flash_launches": flash, "lse_per_step": per_step, "card": smi}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[17c] launch.train {' '.join(LAUNCH_ARGV)} on {smi}: losses {rep['losses']}, steps "
+        + ", ".join(f"{ms:.1f}" for ms in rep["step_ms"]) + f" ms (median of steps 2-{steps} "
+        f"{median:.1f} ms, {tokens / median * 1e3:,.0f} tokens/s), peak {peak:.2f} GB; controller "
+        + ", ".join(f"{ms:.1f}" for ms in rep["control_ms"]) + " ms a step, slowdowns "
+        + ", ".join(f"x{s:.4f}" for s in rep["slowdowns"])
+        + f"; flash launches {flash} (expected {per_step} flash_attention_wgmma_lse a step)")
+    if not np.isfinite(rep["losses"]).all() or len(rep["losses"]) != 4:
+        raise AssertionError(f"[17c] the launcher's losses: {rep['losses']}")
+    if _other_flash(flash, "flash_attention_wgmma_lse", per_step * steps):
+        raise AssertionError(f"[17c] launched {flash}, not {per_step} "
+                             "flash_attention_wgmma_lse a step")
+    return rep, flash["flash_attention_wgmma_lse"]
+
+
+def _psum_one_rank(cuda, smi) -> dict:
+    """17d at one NCCL rank: ``compressed_psum`` is the int8 round trip of a
+    zero error bit for bit; its wall beside a plain float32 all-reduce."""
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=LAUNCH_GROUP_S))
+    try:
+        g = _psum_grad(0, cuda)
+        want, _ = quantize_dequantize(g, torch.zeros_like(g))
+        got = compressed_psum(g)
+        same = bool(torch.equal(got, want))
+        del want, got
+        walls = {"compressed": [], "plain": []}
+        buf = g.clone()
+        for i in range(PSUM_REPS + 1):
+            _, wall = _timed(lambda: compressed_psum(g))
+            buf.copy_(g)
+            _, plain = _timed(lambda: dist.all_reduce(buf))
+            if i:
+                walls["compressed"].append(wall * 1e3)
+                walls["plain"].append(plain * 1e3)
+        del g, buf
+    finally:
+        dist.destroy_process_group()
+    log(f"[17d] compressed_psum of a {PSUM_SHAPE} float32 gradient at one NCCL rank on {smi}: "
+        f"the bits of quantize_dequantize with a zero error: {same}; "
+        f"{', '.join(f'{w:.2f}' for w in walls['compressed'])} ms against a float32 all_reduce's "
+        f"{', '.join(f'{w:.2f}' for w in walls['plain'])} ms (int32 payload: as many bytes)")
+    if not same:
+        raise AssertionError("[17d] compressed_psum at one rank is not the int8 round trip")
+    return {"same_bits": same, "ms": walls}
+
+
+def _psum_oracle(cuda) -> str:
+    """The four ranks' ``compressed_psum`` computed on the CPU from the same
+    gradients: the largest rank's scale, an int32 sum, then scale / 4."""
+    grads = [_psum_grad(r, cuda).cpu() for r in range(LAUNCH_RANKS)]
+    scale = max((torch.clamp_min(g.abs().max(), 1e-12) / 127.0 for g in grads),
+                key=lambda s: float(s))
+    total = torch.zeros(PSUM_SHAPE, dtype=torch.int32)
+    for g in grads:
+        total += torch.clamp(torch.round(g / scale), -127, 127).to(torch.int32)
+    del grads
+    n = torch.tensor(float(LAUNCH_RANKS), dtype=torch.float32)
+    return _digest(total.float() * scale / n)
+
+
+def launcher_phase(cuda, smi, out_dir: Path) -> tuple[dict, dict, dict]:
+    """Phase 17: the training launcher (see the module's doc).  Returns (the
+    ``flash_attention_wgmma_lse`` launches of 17b and 17c, the
+    ``flash_attention_wgmma`` launches of 17e, report)."""
+    report: dict = {"card": smi}
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = out_dir / "phase17_ckpt"
+    if ckpt_dir.exists():
+        shutil.rmtree(ckpt_dir)
+    try:
+        report["checkpoint"] = _ckpt_on_card(cuda, ckpt_dir / "17a")
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["drill"], drill_launches = _restart_drill(cuda, ckpt_dir / "17b")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    report["launch"], launch_launches = _launch_full_width(cuda, smi)
+
+    report["psum_one_rank"] = _psum_one_rank(cuda, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rank_dir = out_dir / "phase17_ranks"
+    _spawn_ranks("--launch-rank", LAUNCH_RANKS, rank_dir, LAUNCH_JOIN_S, "17d/e")
+    ranks = [json.loads((rank_dir / f"rank{r}.json").read_text()) for r in range(LAUNCH_RANKS)]
+    oracle = _psum_oracle(cuda)
+    psum_same = all(r["psum_digest"] == oracle for r in ranks)
+    report["psum_four_ranks"] = {"same_bits_as_cpu": psum_same, "oracle_digest": oracle,
+                                 "ranks": [{k: r[k] for k in ("psum_digest", "psum_ms")}
+                                           for r in ranks]}
+    log(f"[17d] compressed_psum on four gloo ranks of the one card: every rank the bits of the "
+        f"CPU oracle: {psum_same}; rank 0 {', '.join(f'{w:.1f}' for w in ranks[0]['psum_ms']['compressed'])} "
+        f"ms against a float32 all_reduce's {', '.join(f'{w:.1f}' for w in ranks[0]['psum_ms']['plain'])} "
+        f"ms (both staged through host memory)")
+    if not psum_same:
+        raise AssertionError(f"[17d] a rank's compressed_psum is not the CPU oracle's bits: "
+                             f"{[r['psum_digest'] for r in ranks]} vs {oracle}")
+
+    cfg = get_arch(TRAIN_ARCH)
+    layers, batch = _pipe_inputs(cfg, range(cfg.n_layers), cuda)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        seq, seq_s = _timed(lambda: torch.stack([_pipe_stage(cfg, layers, batch[m])
+                                                  for m in range(PIPE_M)]))
+    seq_launches = kernels.launch_counts()
+    seq_digest = _digest(seq)
+    del layers, batch, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    rank_launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            if k.startswith("flash_attention"):
+                rank_launches[k] = rank_launches.get(k, 0) + v
+    pipe_same = all(r["pipe_digest"] == seq_digest and r["pipe_finite"] for r in ranks)
+    report["pipeline"] = {"same_bits_as_sequential": pipe_same, "sequential_ms": seq_s * 1e3,
+                          "pipeline_ms": [r["pipe_ms"] for r in ranks],
+                          "rank_launches": rank_launches,
+                          "sequential_launches": seq_launches["flash_attention_wgmma"]}
+    log(f"[17e] GPipe forward of {cfg.name}'s {cfg.n_layers} layers on {LAUNCH_RANKS} gloo ranks "
+        f"of the one card ({cfg.n_layers // LAUNCH_RANKS} a rank, {PIPE_M} microbatches of 1 x "
+        f"{PIPE_SEQ}): every rank the bits of the sequential stack: {pipe_same}; "
+        f"{ranks[0]['pipe_ms']:.1f} ms (rank 0) against {seq_s * 1e3:.1f} ms sequential in one "
+        f"process; launches {rank_launches} over the ranks, "
+        f"{seq_launches['flash_attention_wgmma']} flash_attention_wgmma sequential")
+    expected = cfg.n_layers * PIPE_M * _pipe_blocked(cfg)
+    if not pipe_same:
+        raise AssertionError("[17e] the pipeline's output is not the sequential stack's bits")
+    seq_flash = {k: v for k, v in seq_launches.items() if k.startswith("flash_attention") and v}
+    if (_other_flash(rank_launches, "flash_attention_wgmma", expected)
+            or _other_flash(seq_flash, "flash_attention_wgmma", expected)):
+        raise AssertionError(f"[17e] launched {rank_launches} over the ranks and {seq_flash} "
+                             f"sequential, not {expected} flash_attention_wgmma each")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[17] phase 17 in {report['seconds']:.1f} s on {smi}")
+    return ({"17b": drill_launches, "17c": launch_launches},
+            {"17e_ranks": rank_launches["flash_attention_wgmma"],
+             "17e_sequential": seq_flash["flash_attention_wgmma"]}, report)
+
+
 def profiled(tag: str, step, iterations: int | None = None, top: int = 12) -> dict:
     """Device busy time, launches and the ``top`` kernels of ``step()``
     (which ends in a sync), from torch.profiler; launches per PDHG iteration
@@ -5260,7 +5795,9 @@ def profiled(tag: str, step, iterations: int | None = None, top: int = 12) -> di
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the card's records alone: this reads no host-side event, and a trace of
+    # every host op of a cold tenant step took two minutes to process
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = step()
         torch.cuda.synchronize()

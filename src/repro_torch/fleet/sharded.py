@@ -57,6 +57,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.compat import group_backend, staged_on_host
 from repro_torch.core.batched import _record_batch, _solve_batched
 from repro_torch.core.lanes import lane_sum
 from repro_torch.core.solver.options import KKT_HIST_BUCKETS
@@ -121,7 +122,7 @@ class ShardLayout(NamedTuple):
     @property
     def staged(self) -> bool:
         """Collectives go through host memory (gloo on a CUDA device)."""
-        return self.backend == "gloo" and self.device.type == "cuda"
+        return staged_on_host(self.device, self.backend)
 
     def lane(self, k: int) -> int | None:
         """Domain ``k``'s lane on this rank, ``None`` if another holds it."""
@@ -142,29 +143,16 @@ def _private_group(device: torch.device):
     return dist.ProcessGroupGloo(store, 0, 1, GROUP_TIMEOUT), "gloo"
 
 
-def _backend(group, device: torch.device) -> str:
-    """The backend that carries ``device``'s tensors in ``group``."""
-    try:
-        name = str(dist.get_backend(group))
-    except (RuntimeError, ValueError, KeyError):  # a backend outside the registry
-        name = group.name()
-    for part in name.lower().split(","):  # "cpu:gloo,cuda:nccl"
-        dev, _, be = part.rpartition(":")
-        if not dev or dev == device.type:
-            return be
-    raise ValueError(f"group backend {name!r} carries no {device.type} tensors")
-
-
 def shard_layout(k: int, group, device: torch.device) -> ShardLayout:
     """This rank's place among ``shard_count(k, group size)`` shards."""
     if group is None:
         if dist.is_available() and dist.is_initialized():
             group = dist.group.WORLD
-            backend = _backend(group, device)
+            backend = group_backend(group, device)
         else:
             group, backend = _private_group(device)
     else:
-        backend = _backend(group, device)
+        backend = group_backend(group, device)
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"sharded dispatch runs on nccl or gloo, got {backend!r}")
     if backend == "nccl" and device.type != "cuda":

@@ -1666,3 +1666,75 @@ def test_stacked_tenant_fleet_lanes_are_their_one_lane_solves(cuda, paper_tenant
                                       res.allocation[offs[j] : offs[j + 1]], err_msg=f"hall {j}")
         assert [int(st[f"iterations_p{i}"][0]) for i in (1, 2, 3)] == \
             res.stats["phase_iterations"][j].tolist(), f"hall {j}"
+
+
+# ---------------------------------------------------------------------------
+# the training launcher's modules on the card: checkpoint, compression
+# ---------------------------------------------------------------------------
+
+
+def test_checkpoint_roundtrip_on_the_card(cuda, tmp_path):
+    """A reduced qwen3-4b train state on the card after one step, saved and
+    restored onto the card (every leaf the same bits) and onto the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build
+    from repro_torch.training import checkpoint
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    cfg = get_arch("qwen3-4b").reduced()
+    api = build(cfg)
+    state = init_train_state(cfg, api, torch.Generator(device=cuda).manual_seed(0), cuda)
+    batch = SyntheticLMData(cfg.vocab, seed=0).batch(0, 2, 128)
+    state, _ = make_train_step(cfg, api)(state, {k: torch.as_tensor(v, device=cuda)
+                                                 for k, v in batch.items()})
+    checkpoint.save(str(tmp_path), 1, state, cfg=cfg)
+    like = init_train_state(cfg, api, torch.Generator(device=cuda).manual_seed(1), cuda)
+    for device in (None, "cpu"):
+        got = checkpoint.restore(str(tmp_path), 1, like, cfg=cfg, device=device)
+        assert got.step == 1
+        for a, b in ((got.params, state.params), (got.opt.m, state.opt.m),
+                     (got.opt.v, state.opt.v)):
+            for p, q in zip(a.parameters(), b.parameters(), strict=True):
+                assert p.device.type == ("cuda" if device is None else "cpu")
+                assert p.dtype == q.dtype and torch.equal(p.cpu(), q.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_dequantize_is_the_cpus_bits(cuda, dtype):
+    """float32 division and round-half-to-even are correctly rounded on both
+    devices: the card's int8 round trip is the CPU's bit for bit."""
+    from repro_torch.training.compression import quantize_dequantize
+
+    rng = np.random.default_rng(4)
+    for n in (1, 1000, 1_000_003):
+        g = torch.as_tensor(rng.normal(size=n).astype(np.float32)).to(dtype)
+        err = torch.as_tensor((rng.normal(size=n) * 1e-2).astype(np.float32))
+        want = quantize_dequantize(g, err)
+        got = quantize_dequantize(g.to(cuda), err.to(cuda))
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), n
+
+
+def test_compressed_psum_at_one_nccl_rank(cuda):
+    """One NCCL rank: the mean over one rank is the int8 round trip of a
+    zero error, bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.training.compression import compressed_psum, quantize_dequantize
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        rng = np.random.default_rng(6)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.as_tensor(rng.normal(size=(513, 7)).astype(np.float32)).to(cuda, dtype)
+            want, _ = quantize_dequantize(g, torch.zeros(g.shape, device=cuda))
+            got = compressed_psum(g)
+            assert got.dtype == dtype and torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

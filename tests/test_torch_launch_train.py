@@ -1,0 +1,230 @@
+"""The port's training launcher (``repro_torch.launch.train``) on the CPU,
+reduced qwen3-4b at the launcher's defaults (batch 8 x 128 tokens, lr 3e-3,
+10 warmup steps), against the JAX reference's parts.
+
+The reference's own launcher does not run under the installed JAX 0.9.0:
+``jax.make_mesh`` makes Explicit axes and the model's sharding constraints
+then raise (ROADMAP Queue 3).  So the port's launcher is held against the
+reference's parts called as its ``main`` calls them, outside the mesh:
+``init_train_state`` at key 0, ``jax.jit(make_train_step(...))``,
+``SyntheticLMData.batch``, ``checkpoint.save``, ``make_compressor`` and
+``PowerController``.  Under ``jax.jit`` the reference launcher's
+compression hook runs once, at trace time, so its error feedback stays at
+zero after step 0; the port carries the error as the compressor's contract
+says, and is held to the reference's ``apply`` with the error threaded
+through the jitted step (its loss gap to the frozen error is recorded in
+ROADMAP Queue 3).
+
+Bar: the losses within 2e-5 relative.  Measured first, as the lr of 3e-3
+is 10x the train step tests': a 1-ulp change of the embedding (every
+element) moves the reference's own six losses by at most 7.2e-8, and with
+threaded compression 5.8e-7 (every weight by one ulp in a random
+direction: 9.4e-7 over four draws); the port sits 1.4e-7 and 7.9e-7 from
+them.  The larger of the two, 2e-5, holds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro import models as jmodels  # noqa: E402
+from repro.data.pipeline import SyntheticLMData as JSyntheticLMData  # noqa: E402
+from repro.pdn.tree import build_from_level_sizes as j_build_from_level_sizes  # noqa: E402
+from repro.power.controller import PowerController as JPowerController  # noqa: E402
+from repro.power.power_model import DvfsModel as JDvfsModel  # noqa: E402
+from repro.power.power_model import arch_power_profile as j_arch_power_profile  # noqa: E402
+from repro.training import checkpoint as jckpt  # noqa: E402
+from repro.training import step as jstep  # noqa: E402
+from repro.training.compression import make_compressor as j_make_compressor  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.convert import lm_params_from_numpy  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+
+TOL = 2e-5  # relative, on each step's loss
+SLOWDOWN_TOL = 1e-9  # relative, on each step's DVFS multiplier
+STEPS = 6
+ARGV = ["--reduced", "--steps", str(STEPS), "--log-every", "1", "--device", "cpu"]
+BATCH, SEQ, LR, WARMUP = 8, 128, 3e-3, 10  # the launchers' defaults
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one CPU thread, as tests/test_torch_train.py runs: other
+    test files run beside this one on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's parts as its launcher's ``main`` runs them (outside
+    the mesh), reduced qwen3-4b, STEPS steps: the losses, with the
+    checkpoint of step 2 saved; the losses with compression, the error
+    threaded from step to step and frozen at zero as the jitted launcher
+    has it; and the ``--power-managed`` slowdowns."""
+    cfg = jconfigs.get_arch("qwen3-4b").reduced()
+    api = jmodels.build(cfg)
+    data = JSyntheticLMData(cfg.vocab, seed=0)
+    batches = [{k: jnp.asarray(v) for k, v in data.batch(i, BATCH, SEQ).items()}
+               for i in range(STEPS)]
+    sched = dict(lr=LR, warmup=WARMUP, total_steps=STEPS)
+    ckpt_dir = str(tmp_path_factory.mktemp("ref_ckpt"))
+    init_err, apply = j_make_compressor()
+
+    def fresh():
+        return jstep.init_train_state(cfg, api, jax.random.key(0))[0]
+
+    out = {"ckpt_dir": ckpt_dir, "params": jax.tree.map(np.asarray, fresh().params)}
+    state, losses = fresh(), []
+    step_fn = jax.jit(jstep.make_train_step(cfg, api, **sched))
+    for i, batch in enumerate(batches):
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        if i + 1 == 2:
+            jckpt.save(ckpt_dir, 2, state)
+    out["losses"] = np.array(losses)
+
+    def threaded(state, batch, err):
+        box = {}
+
+        def hook(grads):
+            g_hat, box["err"] = apply(grads, err)
+            return g_hat
+
+        new, m = jstep.make_train_step(cfg, api, grad_postprocess=hook, **sched)(state, batch)
+        return new, m, box["err"]
+
+    step_fn = jax.jit(threaded)
+    state, losses = fresh(), []
+    err = init_err(state.params)
+    for batch in batches:
+        state, m, err = step_fn(state, batch, err)
+        losses.append(float(m["loss"]))
+    out["compressed"] = np.array(losses)
+
+    comp = {}
+
+    def grad_hook(grads):  # the reference launcher's hook, as jax.jit runs it
+        g_hat, comp["err"] = apply(grads, comp["err"])
+        return g_hat
+
+    state, losses = fresh(), []
+    comp["err"] = init_err(state.params)
+    step_fn = jax.jit(jstep.make_train_step(cfg, api, grad_postprocess=grad_hook, **sched))
+    for batch in batches:
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    out["frozen"] = np.array(losses)
+
+    controller = JPowerController(j_build_from_level_sizes([2, 2], gpus_per_server=8))
+    mean_w, burst_w, burst_p = j_arch_power_profile(cfg.family)
+    rng, dvfs, slowdowns = np.random.default_rng(1), JDvfsModel(), []
+    for _ in range(STEPS):
+        draw = mean_w + burst_w * (rng.random(controller.pdn.n) < burst_p)
+        res = controller.step(draw)
+        slowdowns.append(float(dvfs.step_time_multiplier(res.allocation).max()))
+    out["slowdowns"] = np.array(slowdowns)
+    return out
+
+
+@pytest.fixture
+def reference_weights(reference, monkeypatch):
+    """The launcher builds the reference's weights (key 0), carried across
+    by ``convert``, in place of its own."""
+    cfg = configs.get_arch("qwen3-4b").reduced()
+    build = train.build
+    monkeypatch.setattr(train, "build", lambda c: build(c)._replace(
+        init=lambda generator, device=None: lm_params_from_numpy(reference["params"], cfg, "cpu")))
+
+
+def _rel(got, want) -> np.ndarray:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want) / np.abs(want)
+
+
+def test_losses_and_slowdowns_match_the_reference(reference, reference_weights, capsys):
+    """(a) and (e): the port's launcher from the reference's weights, its
+    losses within TOL of the reference's parts, its ``--power-managed``
+    slowdowns within 1e-9 of the reference's controller on the same draws;
+    the reference's log lines."""
+    r = train.run(train.parse_args(ARGV + ["--power-managed"]))
+    assert r.start_step == 0 and len(r.losses) == STEPS
+    assert _rel(r.losses, reference["losses"]).max() <= TOL, (r.losses, reference["losses"])
+    assert _rel(r.slowdowns, reference["slowdowns"]).max() <= SLOWDOWN_TOL
+    assert len(r.step_ms) == len(r.control_ms) == STEPS
+    lines = capsys.readouterr().out.splitlines()
+    for i, (loss, slow) in enumerate(zip(r.losses, reference["slowdowns"])):
+        assert lines[i].startswith(f"step {i:5d}  loss {loss:.4f}  gnorm ")
+        assert lines[i].endswith(f"  power-slowdown x{slow:.3f}")
+    assert lines[STEPS].startswith(f"done: {STEPS} steps in ")
+    assert lines[STEPS].endswith(f"loss {r.losses[0]:.4f} -> {r.losses[-1]:.4f}")
+
+
+def test_restart_drill_repeats_the_uninterrupted_run(tmp_path, capsys):
+    """(b): a run checkpointed every 2 steps; the same run crashing at step
+    4 (exit code 42) in a fresh directory; then ``--resume``, whose steps 4
+    and 5 give the uninterrupted run's losses bit for bit."""
+    drill = ARGV + ["--ckpt-every", "2"]
+    whole = train.main(drill + ["--ckpt-dir", str(tmp_path / "whole")])
+    d = str(tmp_path / "drill")
+    with pytest.raises(SystemExit) as crash:
+        train.main(drill + ["--ckpt-dir", d, "--fail-at", "4"])
+    assert crash.value.code == 42
+    assert "simulating crash at step 4" in capsys.readouterr().out
+    resumed = train.run(train.parse_args(drill + ["--ckpt-dir", d, "--resume"]))
+    out = capsys.readouterr().out
+    assert out.splitlines()[0] == "resumed from step 4"
+    assert "done: 2 steps in " in out
+    assert resumed.start_step == 4 and resumed.state.step == STEPS
+    assert resumed.losses == whole[4:]
+
+
+def test_resume_from_a_reference_checkpoint(reference, capsys):
+    """(c): the port's launcher resumes from the checkpoint the reference
+    wrote at step 2; its steps 2 and 3 against the reference's own
+    continuation (within the warmup the schedule does not see
+    ``--steps``)."""
+    losses = train.main(["--reduced", "--steps", "4", "--device", "cpu", "--resume",
+                         "--ckpt-dir", reference["ckpt_dir"], "--ckpt-every", "100"])
+    assert capsys.readouterr().out.splitlines()[0] == "resumed from step 2"
+    assert len(losses) == 2
+    assert _rel(losses, reference["losses"][2:4]).max() <= TOL
+
+
+def test_compressed_gradients_carry_the_error(reference, reference_weights):
+    """(d): ``--compress-grads`` against the reference's parts with the
+    error threaded, within TOL; the carried error is non-zero, and the
+    reference launcher's frozen error parts from the threaded losses by more
+    than TOL, so the test tells the two apart."""
+    r = train.run(train.parse_args(ARGV + ["--compress-grads"]))
+    assert _rel(r.losses, reference["compressed"]).max() <= TOL, (r.losses,
+                                                                  reference["compressed"])
+    assert max(float(e.abs().max()) for e in r.grad_err) > 0
+    assert _rel(reference["frozen"], reference["compressed"]).max() > TOL
+    # step 0 quantizes with a zero error under both
+    assert reference["frozen"][0] == reference["compressed"][0]
+
+
+def test_refusals(monkeypatch):
+    """(f): ``--mesh`` past 1x1 raises before any state is built; without a
+    card the default device raises, naming ``device='cpu'``."""
+    def no_state(*args, **kw):
+        raise AssertionError("state built")
+
+    monkeypatch.setattr(train, "init_train_state", no_state)
+    with pytest.raises(NotImplementedError, match="--mesh 2x1"):
+        train.main(["--reduced", "--mesh", "2x1", "--device", "cpu"])
+    monkeypatch.undo()
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
