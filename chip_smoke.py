@@ -156,7 +156,7 @@ Phases, each of which raises on failure:
    busy share beside the monolithic engine's; (c) the reference's subtree
    parity case at paper size (1e-6 W); (d) churn with one rebuild within
    the padding (``rebuild_count()`` moves only there); (e) ``DatacenterSim``
-   in fleet mode for 12 intervals, with prefetch (the same S values), and
+   in fleet mode for 8 intervals, with prefetch (the same S values), and
    the cross-tenant scenario, also through every kernel flag against the
    CPU run at the quality level; (f) one cold stacked step of the paper's
    datacenter with Appendix B's tenants split at the cut (its launches are
@@ -232,7 +232,7 @@ Phases, each of which raises on failure:
    a ``--compress-grads`` run of 4 steps (finite), and the reduced config's
    against the port's CPU run (2e-5: whisper-tiny computes in bf16); (c)
    ``launch.train.main`` in process at qwen3-4b's full width, ``--batch 4
-   --seq 2048 --steps 4 --lr 3e-4 --power-managed``: each loss finite, 288
+   --seq 2048 --steps 3 --lr 3e-4 --power-managed``: each loss finite, 288
    ``flash_attention_wgmma_lse`` launches a step and no other flash kernel,
    the median step, tokens/s, peak memory, the controller's step wall and
    its slowdowns; (d) ``compressed_psum`` of a ``[151,936, 2,560]`` float32
@@ -245,6 +245,23 @@ Phases, each of which raises on failure:
    The kernels line's ``flash_attention_wgmma_lse`` takes
    ``launches_launcher`` (17b, 17c) and ``flash_attention_wgmma``
    ``launches_pipeline`` (17e).
+18. the launcher on a mesh, see :func:`mesh_phase`: (a) 17b's whisper-tiny
+   run (``--batch 4 --seq 448``, 4 steps) at ``--mesh 2x2`` on four gloo
+   ranks of the one card (``launch.train.run`` from this process, which
+   spawns the other three ranks itself, as a user's command does),
+   the weights and AdamW moments DTensors on the model's logical spec tree
+   (``repro_torch.sharding``), every collective DTensor issues staged through
+   host memory (``sharding.hoststaged``); each loss within 1.7e-4 relative
+   of 17b's uninterrupted 1x1 run (ten times that run's spread under a
+   1-ulp change of its embedding), every rank launching
+   ``flash_attention_wgmma_lse`` on its own shard as often as the 1x1 run
+   does and no other flash kernel; every rank's shard bytes, the collectives
+   of each step by kind and bytes, the step walls against 1x1's; (b) the
+   elastic drill: the launcher's 2x2 run (its ranks spawned anew) crashing
+   at step 2 after its checkpoint (exit code 42), then ``--mesh 1x1
+   --resume`` in this process, its steps within the same bar of 17b's.  The
+   kernels line's ``flash_attention_wgmma_lse`` takes ``launches_mesh``
+   (18a, in all and per rank).
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -1674,6 +1691,17 @@ def main(argv: list[str]) -> int:
         if entry["name"] == "flash_attention_wgmma":
             entry["launches_pipeline"] = pipeline_launches
 
+    # -- 18. the launcher on a mesh ----------------------------------------------------
+    mark("18")
+    t_phase = time.perf_counter()
+    mesh_launches, report["mesh"] = mesh_phase(cuda, smi, report["launcher"]["drill"]["runs"][0],
+                                               out_dir)
+    report["mesh"]["seconds"] = time.perf_counter() - t_phase
+    log(f"[18] phase 18 in {report['mesh']['seconds']:.1f} s on {smi}")
+    for entry in entries:
+        if entry["name"] == "flash_attention_wgmma_lse":
+            entry["launches_mesh"] = mesh_launches
+
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
         report["profile_tenant"] = profile_tenant_step(pdn, layout, engine_opts)
@@ -2480,7 +2508,7 @@ def batched_phase(pdn, layout, engine_opts, cuda, smi):
 
 
 FLEET_STEPS = 5
-FLEET_SIM_STEPS = 12
+FLEET_SIM_STEPS = 8
 FLEET_PARITY_TOL = 1e-9  # watts: stacked vs loop and card vs CPU, equal iterations
 FLEET_MONO_TOL = 1e-6  # watts: fleet vs the monolithic engine (the reference's bar)
 FLEET_RACKS = 20  # phase 12's rebuilt hall, inside the 24-rack padding
@@ -3118,9 +3146,9 @@ REC_HOLD = 2
 REC_CPU_ROWS = 3  # 13a: rows held against the port's CPU run of the same steps
 REC_KKT_TOL = 1e-3 * INC_EPS  # 13a: kkt_res card vs CPU, three orders under the solve's eps
 REC_WARMUP_REPS = 2  # 13b: untimed repeats before the timed ones
-REC_WARM_REPS = 8  # 13b: interleaved repeats of the 5 warm steps
+REC_WARM_REPS = 6  # 13b: interleaved repeats of the 5 warm steps
 REC_HELD_STEPS = 10  # 13b: held steps per repeat
-REC_HELD_REPS = 5
+REC_HELD_REPS = 4
 REC_COST_CALLS = 50  # 13b: timed appends per estimate of the recorder's own cost
 OVERHEAD_BAR = 1.05  # 13b: a recorded warm step over an unrecorded one
 REC_H2D = 1  # 13c: host-to-device copies a recorded step adds (the staged gauges)
@@ -5346,7 +5374,7 @@ finally:
         "launches": {k: v for k, v in kernels.launch_counts().items() if v}}), flush=True)
 """
 # 17c: the launcher at full width, in process
-LAUNCH_ARGV = ["--arch", "qwen3-4b", "--batch", "4", "--seq", "2048", "--steps", "4", "--lr",
+LAUNCH_ARGV = ["--arch", "qwen3-4b", "--batch", "4", "--seq", "2048", "--steps", "3", "--lr",
                "3e-4", "--power-managed", "--log-every", "1"]
 # 17d: compressed_psum of qwen3-4b's embedding gradient; 17e: the GPipe
 # forward, 9 of qwen3-4b's 36 layers a rank, M microbatches of 1 x 2,048
@@ -5651,7 +5679,8 @@ def _launch_full_width(cuda, smi) -> tuple[dict, int]:
         + ", ".join(f"{ms:.1f}" for ms in rep["control_ms"]) + " ms a step, slowdowns "
         + ", ".join(f"x{s:.4f}" for s in rep["slowdowns"])
         + f"; flash launches {flash} (expected {per_step} flash_attention_wgmma_lse a step)")
-    if not np.isfinite(rep["losses"]).all() or len(rep["losses"]) != 4:
+    if not np.isfinite(rep["losses"]).all() or \
+            len(rep["losses"]) != int(LAUNCH_ARGV[LAUNCH_ARGV.index("--steps") + 1]):
         raise AssertionError(f"[17c] the launcher's losses: {rep['losses']}")
     if _other_flash(flash, "flash_attention_wgmma_lse", per_step * steps):
         raise AssertionError(f"[17c] launched {flash}, not {per_step} "
@@ -5784,6 +5813,125 @@ def launcher_phase(cuda, smi, out_dir: Path) -> tuple[dict, dict, dict]:
     return ({"17b": drill_launches, "17c": launch_launches},
             {"17e_ranks": rank_launches["flash_attention_wgmma"],
              "17e_sequential": seq_flash["flash_attention_wgmma"]}, report)
+
+
+# 18: the launcher at --mesh 2x2 on four gloo ranks of the card (the launcher
+# spawns three ranks beside this process), whisper-tiny as in 17b
+MESH = "2x2"
+MESH_STEPS = 4
+MESH_FAIL_AT = 2  # 18b: the 2x2 run crashes here, a 1x1 run resumes
+# The bar on each loss against 17b's uninterrupted 1x1 run, relative: ten
+# times the 1x1 run's spread under a 1-ulp change of the embedding (1.68e-5,
+# tools/launch_ulp_spread.py on the H100), stated before the first 2x2 run.
+MESH_TOL = 1.7e-4
+
+
+def _mesh_run(argv: list[str]):
+    """``launch.train.run`` of ``argv`` in this process (with no process
+    group, so that a mesh run spawns its other ranks itself): (its TrainRun
+    or None, the exit code of a crash drill, host seconds)."""
+    t0 = time.perf_counter()
+    try:
+        return train_launcher.run(train_launcher.parse_args(argv)), None, \
+            time.perf_counter() - t0
+    except SystemExit as e:
+        return None, e.code, time.perf_counter() - t0
+
+
+def _rel_gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.abs(want)).max())
+
+
+def mesh_phase(cuda, smi, whole: dict, out_dir: Path) -> tuple[dict, dict]:
+    """Phase 18: (a) ``launch.train`` of 17b's whisper-tiny run at ``--mesh
+    2x2`` from this process, the launcher spawning the other three ranks on
+    the one card (every DTensor collective staged through the host): each
+    loss within ``MESH_TOL`` of 17b's uninterrupted 1x1 run ``whole``, every
+    rank launching ``flash_attention_wgmma_lse`` on its own shard as often
+    as the 1x1 run and no other flash kernel; every rank's shard bytes, the
+    collectives a step by kind and bytes, the step walls against 1x1's; (b)
+    the elastic drill: the launcher's 2x2 run crashing at step
+    ``MESH_FAIL_AT`` after its checkpoint (its ranks spawned anew), then
+    ``--mesh 1x1 --resume`` here, its steps within ``MESH_TOL`` of
+    ``whole``.  Returns (18a's launches: in all and per rank, report)."""
+    cfg = get_arch(CKPT_ARCH)
+    per_step = _lse_per_step(cfg, DRILL_SEQ)
+    want = np.asarray(whole["losses"][:MESH_STEPS])
+    base = DRILL_ARGV + ["--steps", str(MESH_STEPS)]
+    ckpt = out_dir / "phase18_ckpt"
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        kernels.reset_launch_counts()
+        run, _, wall = _mesh_run(base + ["--mesh", MESH])
+        rep = run.mesh_report
+        full_bytes = sum(p.numel() * p.element_size()
+                         for tree in (run.state.params, run.state.opt.m, run.state.opt.v)
+                         for p in tree.parameters())
+        losses, step_ms = run.losses, run.step_ms
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, code, crash_s = _mesh_run(base + ["--mesh", MESH, "--ckpt-dir", str(ckpt),
+                                            "--ckpt-every", "2", "--fail-at", str(MESH_FAIL_AT)])
+        kernels.reset_launch_counts()
+        resumed, _, resume_s = _mesh_run(base + ["--ckpt-dir", str(ckpt), "--resume"])
+        resume_flash = {k: v for k, v in kernels.launch_counts().items()
+                        if k.startswith("flash_attention") and v}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rank_flash = [{k: v for k, v in r["launches"].items() if k.startswith("flash_attention")}
+                  for r in rep["ranks"]]
+    gap = _rel_gap(losses, want)
+    shard_bytes = [r["shard_bytes"] for r in rep["ranks"]]
+    steps = rep["collectives"]
+    sent = [sum(c["bytes"] for c in step.values()) for step in steps]
+    median = float(np.median(step_ms[1:]))
+    median_1x1 = float(np.median(whole["step_ms"][1:]))
+    out = {"argv": base + ["--mesh", MESH], "card": smi, "losses": losses,
+           "losses_1x1": want.tolist(), "gap": gap, "tol": MESH_TOL, "step_ms": step_ms,
+           "step_ms_1x1": whole["step_ms"], "median_step_ms": median,
+           "median_step_ms_1x1": median_1x1, "wall_s": wall, "rank_flash": rank_flash,
+           "lse_per_step": per_step, "shard_bytes": shard_bytes, "full_bytes": full_bytes,
+           "collectives": steps, "bytes_sent_per_step": sent, "mesh": rep["mesh"]}
+    log(f"[18a] launch.train {' '.join(out['argv'])} on {smi}, this process and three ranks "
+        f"the launcher spawned on the one card: losses {losses} against 17b's 1x1 "
+        f"{want.tolist()}: gap {gap:.3e} relative (limit {MESH_TOL:.1e}); steps "
+        + ", ".join(f"{ms:.1f}" for ms in step_ms)
+        + f" ms (median of steps 2-{MESH_STEPS} {median:.1f} ms against 1x1's {median_1x1:.1f}); "
+        f"the run {wall:.1f} s with its ranks' start")
+    log(f"[18a] each rank's parameters and moments: "
+        + ", ".join(f"{b / 1e6:.1f}" for b in shard_bytes)
+        + f" MB of the whole state's {full_bytes / 1e6:.1f} MB; flash launches by rank "
+        f"{rank_flash} (expected {per_step * MESH_STEPS} flash_attention_wgmma_lse each)")
+    for i, step in enumerate(steps):
+        log(f"[18a] step {i} collectives (rank 0, staged through the host): "
+            + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e6:.1f} MB"
+                        for k, v in step.items()) + f"; {sent[i] / 1e6:.1f} MB sent in")
+    if not gap <= MESH_TOL or not np.isfinite(losses).all():
+        raise AssertionError(f"[18a] the 2x2 losses part from 1x1's: {gap:.3e} > {MESH_TOL:.1e}")
+    for r, flash in enumerate(rank_flash):
+        if _other_flash(flash, "flash_attention_wgmma_lse", per_step * MESH_STEPS):
+            raise AssertionError(f"[18a] rank {r} launched {flash}, not "
+                                 f"{per_step * MESH_STEPS} flash_attention_wgmma_lse")
+    if not all(b < full_bytes for b in shard_bytes) or not all(sent):
+        raise AssertionError(f"[18a] ranks hold {shard_bytes} of {full_bytes} bytes; sent {sent}")
+
+    rgap = _rel_gap(resumed.losses, want[MESH_FAIL_AT:])
+    out["drill"] = {"exit": code, "crash_s": crash_s, "resume_s": resume_s,
+                    "start_step": resumed.start_step, "losses": resumed.losses, "gap": rgap,
+                    "resume_flash": resume_flash}
+    log(f"[18b] the launcher's 2x2 run crashing at step {MESH_FAIL_AT} exited {code} "
+        f"({crash_s:.1f} s with its ranks' start); --mesh 1x1 --resume from step "
+        f"{resumed.start_step}: losses {resumed.losses} against the uninterrupted run's "
+        f"{want[MESH_FAIL_AT:].tolist()}: gap {rgap:.3e} (limit {MESH_TOL:.1e}), "
+        f"{resume_s:.1f} s, flash launches {resume_flash}")
+    if code != 42 or resumed.start_step != MESH_FAIL_AT or not rgap <= MESH_TOL:
+        raise AssertionError(f"[18b] the elastic drill: {out['drill']}")
+    launches = {"18a": sum(f["flash_attention_wgmma_lse"] for f in rank_flash),
+                "18a_per_rank": [f["flash_attention_wgmma_lse"] for f in rank_flash]}
+    return launches, out
 
 
 def profiled(tag: str, step, iterations: int | None = None, top: int = 12) -> dict:

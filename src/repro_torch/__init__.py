@@ -3,7 +3,7 @@
 The package mirrors :mod:`repro` module for module (``core/``,
 ``core/solver/``, ``kernels/``, ``pdn/``, ``fleet/``, ``obs/``, ``power/``,
 and of the data plane ``configs/``, ``models/``, ``training/``,
-``launch/``) and is
+``sharding/``, ``launch/``) and is
 held against it by the ``tests/test_torch_*.py`` parity tests.  It imports only ``torch``,
 ``numpy`` and the standard library.
 

@@ -6,7 +6,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["float_dtype", "resolve_device", "group_backend", "staged_on_host", "via_host"]
+__all__ = ["float_dtype", "resolve_device", "group_backend", "staged_on_host", "via_host",
+           "world_backend"]
 
 
 def float_dtype(x64: bool = True) -> torch.dtype:
@@ -45,6 +46,15 @@ def staged_on_host(device: torch.device, backend: str) -> bool:
     memory: gloo takes a card's tensor for a collective or a point-to-point
     send only from the host (NCCL takes it as it is)."""
     return backend == "gloo" and device.type == "cuda"
+
+
+def world_backend(device: torch.device, world: int) -> str:
+    """The backend of a new group of ``world`` ranks on ``device``: NCCL
+    where each rank has a card of its own, gloo otherwise (a card's tensors
+    then staged through the host, :func:`staged_on_host`)."""
+    if device.type == "cuda" and dist.is_nccl_available() and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
 
 
 def via_host(t: torch.Tensor, group=None) -> bool:

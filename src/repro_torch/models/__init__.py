@@ -37,6 +37,9 @@ class ModelApi(NamedTuple):
     # also takes memory= (None: one zero frame, as the reference's)
     decode_step: Callable
     init_decode_cache: Callable  # (batch, seq, device=None) -> caches
+    # () -> the weights' logical spec tree, the reference's layout (see
+    # repro_torch.sharding.param_sharding)
+    specs: Callable
 
 
 def build(cfg) -> ModelApi:
@@ -55,6 +58,7 @@ def build(cfg) -> ModelApi:
             init_decode_cache=lambda batch, seq, device=None: encdec.init_decode_cache(
                 cfg, batch, seq, device
             ),
+            specs=lambda: encdec.encdec_specs(cfg),
         )
     return ModelApi(
         init=lambda generator, device=None: lm.init_lm(generator, cfg, device),
@@ -66,4 +70,5 @@ def build(cfg) -> ModelApi:
         init_decode_cache=lambda batch, seq, device=None: lm.init_decode_cache(
             cfg, batch, seq, device
         ),
+        specs=lambda: lm.lm_specs(cfg),
     )

@@ -13,8 +13,9 @@ it); otherwise the kernel alone.  Shorter ones take :func:`_plain_attention`.
 The plain paths are differentiable through autograd.  Each branch is causal
 or not (an encoder's self-attention is not), and with ``memory`` (an
 encoder-decoder's cross-attention) K and V come from the memory and no mask
-applies.  The
-reference's sharding constraints have no counterpart on one card.
+applies.  q, k and v take the reference's sharding constraints (a no-op off
+a mesh); on a mesh, each rank attends its own rows and heads with the same
+branches (:func:`_sharded_attention`).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import flash_vjp
 from repro_torch.models.common import apply_rope, init_dense, rms_norm, rope_freqs
+from repro_torch.sharding import constrain, is_distributed, split_heads
 
-__all__ = ["KVCache", "init_attn", "attn_train", "attn_decode", "init_kv_cache"]
+__all__ = ["KVCache", "attn_specs", "init_attn", "attn_train", "attn_decode", "init_kv_cache"]
 
 NEG_INF = -1e30
 
@@ -47,19 +49,36 @@ def init_attn(generator, cfg, device=None) -> dict:
     return p
 
 
+def attn_specs(cfg) -> dict:
+    """The logical names of :func:`init_attn`'s weights, the reference's."""
+    s = {
+        "wq": ("embed", "heads_merged"),
+        "wk": ("embed", "heads_merged"),
+        "wv": ("embed", "heads_merged"),
+        "wo": ("heads_merged", "embed"),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = ("pos_in_head",)
+        s["k_norm"] = ("pos_in_head",)
+    return s
+
+
 def _project_qkv(p, cfg, x, positions, *, rope=True):
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     cd = cfg.compute_dtype
-    q = (x @ p["wq"].to(cd)).reshape(B, S, H, dh)
-    k = (x @ p["wk"].to(cd)).reshape(B, S, KV, dh)
-    v = (x @ p["wv"].to(cd)).reshape(B, S, KV, dh)
+    q = split_heads(x @ p["wq"].to(cd), H, "q_heads")
+    k = split_heads(x @ p["wk"].to(cd), KV, "kv_heads")
+    v = split_heads(x @ p["wv"].to(cd), KV, "kv_heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if rope:
         inv, rot = rope_freqs(dh, cfg.rope_frac, cfg.rope_theta, device=x.device)
         q, k = apply_rope(q, positions, inv, rot), apply_rope(k, positions, inv, rot)
+    q = constrain(q, "batch", None, "q_heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -133,6 +152,41 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def _attend(cfg, q, k, v, causal):
+    """The attention of plain tensors q [B, S, H, dh], k and v [B, Sk, KV,
+    dh], by the branches of the module's doc."""
+    S, Sk = q.shape[1], k.shape[1]
+    if max(S, Sk) > cfg.attn_chunk:
+        if cfg.flash_vjp and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return flash_vjp.blocked_attention_mo(q, k, v, causal, cfg.head_dim**-0.5,
+                                                  _pick_chunk(S, cfg.attn_chunk),
+                                                  _pick_chunk(Sk, cfg.attn_chunk))
+        if cfg.flash_vjp:
+            return flash_attention(q, k, v, causal=causal)
+        return _blocked_attention(q, k, v, causal, cfg.attn_chunk)
+    return _plain_attention(q, k, v, causal)
+
+
+def _sharded_attention(cfg, q, k, v, causal):
+    """:func:`_attend` of DTensors, on each rank's own shard: rows and heads
+    are independent, so each rank attends its batch rows and heads with no
+    collective (``local_map``; autograd runs through it).  Where q's heads
+    are split over the model axis but k's and v's are not (their count does
+    not divide it), q's heads are gathered first, so that every rank keeps
+    each query head beside its key head."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    if q.placements != k.placements or k.placements != v.placements:
+        q = q.redistribute(mesh, k.placements)
+        v = v.redistribute(mesh, k.placements)
+    layout = list(q.placements)  # a list: local_map reads a tuple as one per output
+    fn = local_map(lambda q_, k_, v_: _attend(cfg, q_, k_, v_, causal),
+                   out_placements=layout, in_placements=(layout,) * 3, device_mesh=mesh)
+    return fn(q, k, v)
+
+
 def attn_train(p, cfg, x, positions, *, causal=True, rope=True, memory=None):
     """Full-sequence attention (training / prefill): (output, KVCache(k, v)).
 
@@ -147,19 +201,10 @@ def attn_train(p, cfg, x, positions, *, causal=True, rope=True, memory=None):
         mem_pos = torch.zeros(memory.shape[:2], dtype=torch.int64, device=memory.device)
         _, k, v = _project_qkv(p, cfg, memory, mem_pos, rope=False)
         causal = False
-    Sk = k.shape[1]
-    if max(S, Sk) > cfg.attn_chunk:
-        if cfg.flash_vjp and torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            o = flash_vjp.blocked_attention_mo(q, k, v, causal, cfg.head_dim**-0.5,
-                                               _pick_chunk(S, cfg.attn_chunk),
-                                               _pick_chunk(Sk, cfg.attn_chunk))
-        elif cfg.flash_vjp:
-            o = flash_attention(q, k, v, causal=causal)
-        else:
-            o = _blocked_attention(q, k, v, causal, cfg.attn_chunk)
+    if is_distributed(q):
+        o = _sharded_attention(cfg, q, k, v, causal)
     else:
-        o = _plain_attention(q, k, v, causal)
+        o = _attend(cfg, q, k, v, causal)
     o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return o @ p["wo"].to(cfg.compute_dtype), KVCache(k, v)
 
@@ -185,6 +230,10 @@ def attn_decode(p, cfg, x, pos, cache: KVCache, *, rope=True):
     q, k_new, v_new = _project_qkv(p, cfg, x, positions, rope=rope)
     cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    k_cache = constrain(cache.k, "batch", "seq_shard", None, None)
+    v_cache = constrain(cache.v, "batch", "seq_shard", None, None)
+    if k_cache is not cache.k or v_cache is not cache.v:
+        cache = KVCache(k_cache, v_cache)
     rep = H // KV
     # grouped GQA: contract against the unrepeated cache
     qg = q.reshape(B, 1, KV, rep, dh)

@@ -11,7 +11,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.common import rms_norm
 
-__all__ = ["init_block", "block_train", "block_decode", "remat"]
+__all__ = ["init_block", "block_specs", "block_train", "block_decode", "remat"]
 
 
 def remat(cfg, fn, *args):
@@ -44,6 +44,32 @@ def init_block(generator, cfg, pos: int, *, cross: bool = False, device=None) ->
         p["mlp"] = mlp.init_mlp(generator, cfg, device)
     # d_ff == 0 (pure-SSM mamba2): a mixer-only block, no feed-forward
     return p
+
+
+def block_specs(cfg, pos: int, *, cross: bool = False) -> dict:
+    """The logical names of :func:`init_block`'s weights, the reference's."""
+    s = {"ln1": ("embed",)}
+    if cfg.layer_kind(pos) == "attn":
+        s["attn"] = attention.attn_specs(cfg)
+    else:
+        s["ssd"] = ssm.ssd_specs(cfg)
+    if cross:
+        s["ln_x"] = ("embed",)
+        s["xattn"] = attention.attn_specs(cfg)
+    if cfg.layer_moe(pos):
+        s["ln2"] = ("embed",)
+        s["moe"] = moe.moe_specs(cfg)
+    elif cfg.d_ff > 0:
+        s["ln2"] = ("embed",)
+        s["mlp"] = mlp.mlp_specs(cfg)
+    return s
+
+
+def stacked_specs(specs: dict) -> dict:
+    """A block's names as the reference stacks them for a ``lax.scan``: each
+    leaf's with a leading "unit"."""
+    return {k: stacked_specs(v) if isinstance(v, dict) else ("unit",) + v
+            for k, v in specs.items()}
 
 
 def _feed_forward(p, cfg, x):

@@ -18,6 +18,7 @@ import torch
 from repro_torch.compat import resolve_device
 from repro_torch.models import attention, blocks
 from repro_torch.models.common import Params, rms_norm, sinusoidal_positions
+from repro_torch.sharding import constrain
 from repro_torch.models.lm import chunked_xent
 
 __all__ = [
@@ -27,6 +28,7 @@ __all__ = [
     "encode",
     "init_decode_cache",
     "init_encdec",
+    "encdec_specs",
 ]
 
 
@@ -56,6 +58,19 @@ def init_encdec(generator, cfg, device=None) -> Params:
     return Params(tree)
 
 
+def encdec_specs(cfg) -> dict:
+    """The logical spec tree of :func:`init_encdec`'s weights, without
+    allocating any: the reference's, the ``enc`` and ``dec`` stacks' names
+    led by "unit", as ``convert.encdec_params_to_numpy`` lays the weights
+    out."""
+    specs = {"tok_embed": ("vocab", "embed"), "enc_norm": ("embed",), "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    specs["enc"] = blocks.stacked_specs(blocks.block_specs(cfg, 0))
+    specs["dec"] = blocks.stacked_specs(blocks.block_specs(cfg, 0, cross=True))
+    return specs
+
+
 def _embed(params, cfg, tokens, pos_emb):
     return params["tok_embed"][tokens].to(cfg.compute_dtype) + pos_emb
 
@@ -66,6 +81,7 @@ def encode(params, cfg, enc_input):
     cd = cfg.compute_dtype
     B, F, D = enc_input.shape
     x = enc_input.to(cd) + sinusoidal_positions(F, D, cd, enc_input.device)[None]
+    x = constrain(x, "batch", "seq", "embed_act")
     positions = torch.arange(F, device=enc_input.device).expand(B, F)
 
     def apply_layer(layer, x):

@@ -18,8 +18,9 @@ import torch
 from repro_torch.compat import resolve_device
 from repro_torch.models import attention, blocks, ssm
 from repro_torch.models.common import Params, rms_norm
+from repro_torch.sharding import constrain
 
-__all__ = ["init_lm", "lm_forward", "lm_loss", "lm_prefill", "lm_decode_step",
+__all__ = ["init_lm", "lm_specs", "lm_forward", "lm_loss", "lm_prefill", "lm_decode_step",
            "init_decode_cache"]
 
 
@@ -48,6 +49,19 @@ def init_lm(generator, cfg, device=None) -> Params:
     return Params(tree)
 
 
+def lm_specs(cfg) -> dict:
+    """The logical spec tree of :func:`init_lm`'s weights, without allocating
+    any: the reference's ``init_lm`` specs, each unit position ``unit/b{pos}``
+    stacked (its names led by "unit"), as ``convert.lm_params_to_numpy`` lays
+    the weights out."""
+    specs = {"tok_embed": ("vocab", "embed"), "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    specs["unit"] = {f"b{pos}": blocks.stacked_specs(blocks.block_specs(cfg, pos))
+                     for pos in range(cfg.unit_size)}
+    return specs
+
+
 def _head(params, cfg):
     if cfg.tie_embeddings:
         return params["tok_embed"].T.to(cfg.compute_dtype)
@@ -71,13 +85,14 @@ def lm_forward(params, cfg, tokens):
     """tokens [B, S] -> (final hidden states [B, S, D], the MoE aux loss
     summed over the layers and divided by ``n_layers``)."""
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = constrain(_embed(params, cfg, tokens), "batch", "seq", "embed_act")
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     U = cfg.unit_size
     for u in range(cfg.n_units):
         x, a = blocks.remat(cfg, _unit_body, cfg, params["layers"][u * U : (u + 1) * U], x,
                             positions)
+        x = constrain(x, "batch", "seq", "embed_act")
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux / max(cfg.n_layers, 1)
@@ -96,7 +111,10 @@ def chunked_xent(h, W, targets, chunk: int):
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, C):
         logits = (h[:, c0 : c0 + C] @ W).float()  # [B, C, V]
-        gold = logits.gather(-1, targets[:, c0 : c0 + C, None].long())[..., 0]
+        logits = constrain(logits, "batch", None, "vocab")
+        gold = logits.gather(-1, targets[:, c0 : c0 + C, None].long())
+        gold = constrain(gold, "batch", None, None)  # summed over the vocab's shards
+        gold = gold[..., 0]
         total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
     return total
 

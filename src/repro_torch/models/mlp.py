@@ -6,8 +6,9 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from repro_torch.models.common import init_dense
+from repro_torch.sharding import constrain
 
-__all__ = ["init_mlp", "mlp_apply"]
+__all__ = ["init_mlp", "mlp_apply", "mlp_specs"]
 
 
 def init_mlp(generator, cfg, device=None) -> dict:
@@ -25,11 +26,20 @@ def init_mlp(generator, cfg, device=None) -> dict:
     }
 
 
+def mlp_specs(cfg) -> dict:
+    """The logical names of :func:`init_mlp`'s weights, the reference's."""
+    if cfg.mlp_kind == "swiglu":
+        return {"wg": ("embed", "ff"), "wu": ("embed", "ff"), "wd": ("ff", "embed")}
+    return {"w1": ("embed", "ff"), "w2": ("ff", "embed")}
+
+
 def mlp_apply(p, cfg, x):
     cd = cfg.compute_dtype
     if cfg.mlp_kind == "swiglu":
         g = x @ p["wg"].to(cd)
         u = x @ p["wu"].to(cd)
-        return (F.silu(g) * u) @ p["wd"].to(cd)
+        h = constrain(F.silu(g) * u, "batch", None, "ff")
+        return h @ p["wd"].to(cd)
     # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ p["w1"].to(cd), approximate="tanh") @ p["w2"].to(cd)
+    h = constrain(F.gelu(x @ p["w1"].to(cd), approximate="tanh"), "batch", None, "ff")
+    return h @ p["w2"].to(cd)

@@ -9,7 +9,9 @@ choice before any token's second), the overflow dropped, and the experts'
 outputs combined through the one-hot ``[B, C, E, cap]`` combine weights.
 The reference computes these contractions with ``jnp.einsum`` outside any
 Pallas kernel; here they are ``torch.einsum`` (bf16 GEMMs on a card).  The
-reference's sharding constraints have no counterpart on one card.
+dispatched tokens, the experts' hidden states and the combined tokens take
+the reference's sharding constraints (a no-op off a mesh); on a mesh, each
+rank runs its own rows and experts (:func:`_sharded_experts`).
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import init_dense
+from repro_torch.sharding import constrain, is_distributed
 
-__all__ = ["init_moe", "moe_apply"]
+__all__ = ["init_moe", "moe_apply", "moe_specs"]
 
 
 def init_moe(generator, cfg, device=None) -> dict:
@@ -37,6 +40,16 @@ def init_moe(generator, cfg, device=None) -> dict:
         "wg": normal((E, D, FF), D**-0.5),
         "wu": normal((E, D, FF), D**-0.5),
         "wd": normal((E, FF, D), FF**-0.5),
+    }
+
+
+def moe_specs(cfg) -> dict:
+    """The logical names of :func:`init_moe`'s weights, the reference's."""
+    return {
+        "router": ("embed", None),
+        "wg": ("experts", "embed", "ff"),
+        "wu": ("experts", "embed", "ff"),
+        "wd": ("experts", "ff", "embed"),
     }
 
 
@@ -73,6 +86,46 @@ def _route(p, cfg, xc):
     return combine, disp, aux
 
 
+def _experts(ein, wg, wu, wd, combine):
+    """The experts' SwiGLU on their dispatched tokens ein [B, E, cap, D],
+    combined back onto the chunk's tokens: [B, C, D]."""
+    h = F.silu(torch.einsum("bekd,edf->bekf", ein, wg))
+    h = h * torch.einsum("bekd,edf->bekf", ein, wu)
+    h = constrain(h, "batch", "experts", None, "ff")
+    yo = torch.einsum("bekf,efd->bekd", h, wd)
+    return torch.einsum("bekd,bcek->bcd", yo, combine)
+
+
+def _sharded_experts(ein, wg, wu, wd, combine):
+    """:func:`_experts` of DTensors, on each rank's own batch rows and
+    experts (``local_map``; autograd runs through it): each rank gathers its
+    experts' whole weights, and the combined tokens are its experts' part of
+    the sum over the experts (``Partial`` on the mesh dims that split
+    them)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ein.device_mesh
+    rows = list(ein.placements)  # batch (dim 0) and experts (dim 1) of ein
+    if any(not isinstance(pl, (Shard, Replicate)) or (isinstance(pl, Shard) and pl.dim > 1)
+           for pl in rows):
+        raise ValueError(f"dispatched tokens placed {rows}: expected batch and experts shards")
+    weights = [Shard(0) if pl == Shard(1) else Replicate() for pl in rows]
+    # a weight whole on a mesh dim that splits the batch rows gets from each
+    # rank the gradient of its own rows: a partial sum
+    weight_grads = [Partial() if pl == Shard(0) else w for pl, w in zip(rows, weights)]
+    lay_combine = [Shard(2) if pl == Shard(1) else pl for pl in rows]
+    out = [Partial() if pl == Shard(1) else pl for pl in rows]
+    wg, wu, wd = (w.redistribute(mesh, weights) for w in (wg, wu, wd))
+    combine = combine.redistribute(mesh, lay_combine)
+    fn = local_map(_experts, out_placements=out,
+                   in_placements=(rows, weights, weights, weights, lay_combine),
+                   in_grad_placements=(rows, weight_grads, weight_grads, weight_grads,
+                                       lay_combine),
+                   device_mesh=mesh)
+    return fn(ein, wg, wu, wd, combine)
+
+
 def moe_apply(p, cfg, x):
     """x: [B, S, D] -> (y, aux loss), chunk by chunk of ``cfg.moe_chunk``
     tokens (the loss the chunks' mean)."""
@@ -87,9 +140,11 @@ def moe_apply(p, cfg, x):
         xc = x[:, c0 : c0 + C]
         combine, disp, aux = _route(p, cfg, xc)
         ein = torch.einsum("bcek,bcd->bekd", disp.to(cd), xc)
-        h = F.silu(torch.einsum("bekd,edf->bekf", ein, wg))
-        h = h * torch.einsum("bekd,edf->bekf", ein, wu)
-        yo = torch.einsum("bekf,efd->bekd", h, wd)
-        ys.append(torch.einsum("bekd,bcek->bcd", yo, combine.to(cd)))
+        ein = constrain(ein, "batch", "experts", None, None)
+        if is_distributed(ein):
+            yc = _sharded_experts(ein, wg, wu, wd, combine.to(cd))
+        else:
+            yc = _experts(ein, wg, wu, wd, combine.to(cd))
+        ys.append(constrain(yc, "batch", None, None))
         auxs.append(aux)
     return torch.cat(ys, dim=1), torch.stack(auxs).mean()

@@ -16,8 +16,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import init_dense, rms_norm
+from repro_torch.sharding import constrain, is_distributed
 
-__all__ = ["SSMCache", "init_ssd", "init_ssm_cache", "ssd_decode", "ssd_train"]
+__all__ = ["SSMCache", "init_ssd", "init_ssm_cache", "ssd_decode", "ssd_specs", "ssd_train"]
 
 
 def _dims(cfg):
@@ -44,6 +45,20 @@ def init_ssd(generator, cfg, device=None) -> dict:
         "dt_bias": torch.log(torch.expm1(torch.full((H,), 0.01, **f32))),
         "norm_g": torch.ones(d_inner, dtype=dt, device=device),
         "out_proj": init_dense(generator, d_inner, D, dt, device, scale=d_inner**-0.5),
+    }
+
+
+def ssd_specs(cfg) -> dict:
+    """The logical names of :func:`init_ssd`'s weights, the reference's."""
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": ("ssm_inner",),
+        "Dp": ("ssm_inner",),
+        "dt_bias": ("ssm_inner",),
+        "norm_g": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
     }
 
 
@@ -117,6 +132,30 @@ def _ssd_scan(cfg, xh, dt, A, Bh, Ch):
     return y.reshape(B, S, H, P), h
 
 
+def _sharded_scan(cfg, xh, dt, A, Bh, Ch):
+    """:func:`_ssd_scan` of DTensors, on each rank's own batch rows and heads
+    (``local_map``; autograd runs through it): the scan mixes neither.  dt,
+    B and C take xh's placements, A its heads'; A, whole on a mesh dim that
+    splits the rows, gets from each rank the gradient of its own rows, a
+    partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xh.device_mesh
+    lay = list(xh.placements)  # rows (dim 0) and heads (dim 2) of xh, dt, B and C
+    if any(pl not in (Replicate(), Shard(0), Shard(2)) for pl in lay):
+        raise ValueError(f"SSD inputs placed {lay}: expected row and head shards")
+    lay_a = [Shard(0) if pl == Shard(2) else Replicate() for pl in lay]
+    grad_a = [Partial() if pl == Shard(0) else a for pl, a in zip(lay, lay_a)]
+    lay_h = [Shard(1) if pl == Shard(2) else pl for pl in lay]  # the state [B, H, N, P]
+    dt, Bh, Ch = (t.redistribute(mesh, lay) for t in (dt, Bh, Ch))
+    A = A.redistribute(mesh, lay_a)
+    fn = local_map(lambda *a: _ssd_scan(cfg, *a), out_placements=(lay, lay_h),
+                   in_placements=(lay, lay, lay_a, lay, lay),
+                   in_grad_placements=(lay, lay, grad_a, lay, lay), device_mesh=mesh)
+    return fn(xh, dt, A, Bh, Ch)
+
+
 class SSMCache(NamedTuple):
     h: torch.Tensor  # [B, H, N, P] float32 state
     conv: torch.Tensor  # [B, K - 1, conv_ch]: the last K - 1 conv inputs
@@ -151,9 +190,11 @@ def ssd_train(p, cfg, x):
     z, xbc_pre, dt_raw = _split_proj(p, cfg, x)
     xbc = _causal_conv(p, cfg, xbc_pre)
     xh, Bh, Ch = _heads(cfg, xbc, (B_, S))
+    xh = constrain(xh, "batch", None, "ssm_inner", None)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, h_final = _ssd_scan(cfg, xh, dt, A, Bh, Ch)
+    scan = _sharded_scan if is_distributed(xh) else _ssd_scan
+    y, h_final = scan(cfg, xh, dt, A, Bh, Ch)
     y = y + p["Dp"][None, None, :, None] * xh.float()
     y = y.reshape(B_, S, d_inner).to(cd)
     y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)

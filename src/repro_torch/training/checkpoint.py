@@ -14,10 +14,15 @@ leaf is written as float32 (exactly) and cast back on restore.
 
 Writes are atomic (a ``.tmp_`` directory under ``ckpt_dir``, then a rename)
 and trimmed to the ``keep`` most recent, so a failure mid-write never
-touches the latest good checkpoint.  ``restore`` puts the leaves on one
-device (the one-card form of the reference's elastic path); the
-reference's ``shardings=``, restore onto a mesh, waits for the launcher's
-``--mesh`` past 1x1 (ROADMAP Queue 1).
+touches the latest good checkpoint.
+
+On a mesh (a state of DTensors, see :mod:`repro_torch.sharding`) every rank
+calls ``save``: each leaf is gathered whole (``full_tensor``), rank 0 writes
+it under the same keys, in the same format, and the ranks meet at a barrier.
+``restore`` puts the full leaves on one device, and with ``shardings=`` (a
+:func:`repro_torch.sharding.param_sharding` tree) distributes each onto its
+placements on the current mesh: the reference's elastic resharding, so a
+checkpoint written at one mesh restores at another.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import (
     encdec_params_from_numpy,
@@ -38,8 +44,9 @@ from repro_torch.convert import (
     lm_params_to_numpy,
 )
 from repro_torch.models.common import Params
+from repro_torch.sharding import distribute_params, gather_params, is_distributed
 from repro_torch.training.optimizer import AdamWState
-from repro_torch.training.state import TrainState
+from repro_torch.training.state import TrainState, gathered
 
 __all__ = ["save", "restore", "latest_step"]
 
@@ -48,7 +55,7 @@ def _params_tree(params: Params, cfg, shell: bool) -> dict:
     """A model's weights in the reference's layout (nested dicts of numpy
     arrays; with ``shell``, empty ones: the keys alone).  Without per-layer
     stacks (a plain tree of weights) ``cfg`` is not needed."""
-    params = params.map(lambda p: p.new_empty(0, dtype=torch.float32) if shell
+    params = params.map(lambda p: torch.empty(0) if shell
                         else p.float() if p.dtype == torch.bfloat16 else p)
     if "layers" in params or "enc" in params:
         if cfg is None:
@@ -92,10 +99,35 @@ def _flatten(state, cfg=None, shell: bool = False) -> dict[str, np.ndarray]:
     raise TypeError(f"cannot checkpoint a {type(state).__name__}")
 
 
+def _gathered(state):
+    """``state`` with every DTensor leaf gathered whole (a collective), and
+    whether it was on a mesh."""
+    if isinstance(state, TrainState) and is_distributed(next(state.params.parameters())):
+        return gathered(state), True
+    if isinstance(state, Params) and is_distributed(next(state.parameters())):
+        return gather_params(state), True
+    return state, False
+
+
 def save(ckpt_dir: str, step: int, state, *, keep: int = 3, cfg=None) -> str:
     """Write ``state`` atomically; returns the checkpoint's path.  ``cfg``
     is the model's config, needed for a model's per-layer stacks (a
-    ``TrainState`` or a model's ``Params``)."""
+    ``TrainState`` or a model's ``Params``).  A state on a mesh: every rank
+    calls it, rank 0 writes."""
+    state, on_mesh = _gathered(state)
+    final = os.path.join(ckpt_dir, f"step_{int(step):08d}")
+    if on_mesh and dist.get_rank() != 0:
+        dist.barrier()
+        return final
+    try:
+        _write(ckpt_dir, step, state, keep, cfg, final)
+    finally:
+        if on_mesh:
+            dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, step, state, keep, cfg, final) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = _flatten(state, cfg)
     manifest = {
@@ -107,7 +139,6 @@ def save(ckpt_dir: str, step: int, state, *, keep: int = 3, cfg=None) -> str:
         np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
-        final = os.path.join(ckpt_dir, f"step_{int(step):08d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -115,7 +146,6 @@ def save(ckpt_dir: str, step: int, state, *, keep: int = 3, cfg=None) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _trim(ckpt_dir, keep)
-    return final
 
 
 def _trim(ckpt_dir: str, keep: int) -> None:
@@ -185,11 +215,23 @@ def restore(ckpt_dir: str, step: int, like, shardings=None, *, cfg=None, device=
     """Rebuild a state structured like ``like`` (a ``TrainState``, a
     ``Params`` or a dict of tensors) from the checkpoint, each leaf cast to
     ``like``'s dtype, on ``device`` (``None``: ``like``'s device).  ``cfg``
-    as for :func:`save`."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto a mesh (shardings=) waits for the training launcher's --mesh past "
-            "1x1 (ROADMAP Queue 1, item (a): sharding/logical, launch/mesh, launch/dryrun)")
+    as for :func:`save`.  ``shardings``: the weights' placements on a mesh
+    (:func:`repro_torch.sharding.param_sharding`'s tree; a ``TrainState``'s
+    moments take their weights'), onto which every rank distributes the
+    full leaves it read; ``None`` keeps them whole."""
+    if shardings is not None and not isinstance(like, (TrainState, Params)):
+        raise TypeError("shardings= places a TrainState's or a Params' weights")
+    out = _restore(ckpt_dir, step, like, cfg, device)
+    if shardings is None:
+        return out
+    if isinstance(out, Params):
+        return distribute_params(out, shardings)
+    for tree in (out.params, out.opt.m, out.opt.v):
+        distribute_params(tree, shardings)
+    return out
+
+
+def _restore(ckpt_dir, step, like, cfg, device):
     path = os.path.join(ckpt_dir, f"step_{int(step):08d}")
     with np.load(os.path.join(path, "leaves.npz")) as z:
         arrays = {k: z[k] for k in z.files}

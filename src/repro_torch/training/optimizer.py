@@ -16,6 +16,7 @@ from typing import Iterable, NamedTuple
 import torch
 
 from repro_torch.models.common import Params
+from repro_torch.sharding import is_distributed
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm"]
 
@@ -27,8 +28,8 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: Params, dtype=torch.float32) -> AdamWState:
     """Zero moments of ``dtype`` beside every weight of ``params``."""
-    def z(p):
-        return torch.zeros(p.shape, dtype=dtype, device=p.device)
+    def z(p):  # a DTensor's moments take its placements
+        return torch.zeros_like(p, dtype=dtype, memory_format=torch.contiguous_format)
 
     return AdamWState(m=params.map(z), v=params.map(z))
 
@@ -38,16 +39,42 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float):
     most ``max_norm``: (the grads, the norm before clipping, a 0-d float32
     tensor)."""
     grads = list(grads)
-    sq = None
-    for g in grads:
-        g32 = g.detach().float().reshape(-1)
-        s = torch.dot(g32, g32)
-        sq = s if sq is None else sq + s
-    gn = torch.sqrt(sq)
+    if grads and is_distributed(grads[0]):
+        gn = _sharded_norm(grads)
+    else:
+        sq = None
+        for g in grads:
+            g32 = g.detach().float().reshape(-1)
+            s = torch.dot(g32, g32)
+            sq = s if sq is None else sq + s
+        gn = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-12), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))
     return grads, gn
+
+
+def _sharded_norm(grads) -> torch.Tensor:
+    """The global norm of DTensor gradients placed by ``Shard`` and
+    ``Replicate`` (as ``make_train_step`` places them), a 0-d float32 tensor
+    on every rank: each rank sums the squares of its own shards, each
+    divided by the number of ranks that hold the same shard, and one sum
+    over the mesh adds them up."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = grads[0].device_mesh
+    local = None
+    for g in grads:
+        if any(not isinstance(pl, Replicate) and not pl.is_shard() for pl in g.placements):
+            raise ValueError(f"a gradient placed {g.placements}: reduce it onto its weight's first")
+        copies = 1
+        for size, pl in zip(g.device_mesh.shape, g.placements):
+            copies *= size if isinstance(pl, Replicate) else 1
+        g32 = g.to_local().detach().float().reshape(-1)
+        s = torch.dot(g32, g32) / copies
+        local = s if local is None else local + s
+    total = DTensor.from_local(local, mesh, [Partial()] * mesh.ndim, run_check=False)
+    return torch.sqrt(total.full_tensor())
 
 
 @torch.no_grad()

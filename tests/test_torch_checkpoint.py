@@ -176,14 +176,14 @@ def test_checkpoints_cross_between_packages(tmp_path, arch):
 
 
 def test_restore_refusals(tmp_path):
-    """``shardings=`` (restore onto a mesh) waits for the launcher's mesh
-    slice; a state's missing leaves raise as the reference's do; a model's
-    stacks need its config."""
+    """``shardings=`` (restore onto a mesh) places a train state's or a
+    model's weights, not a plain dict's; a state's missing leaves raise as
+    the reference's do; a model's stacks need its config."""
     cfg = configs.get_arch("qwen3-4b").reduced()
     state = _port_state(cfg)
     path = str(tmp_path / "ckpt")
     ckpt.save(path, 1, {"x": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="--mesh past 1x1"):
+    with pytest.raises(TypeError, match="shardings= places"):
         ckpt.restore(path, 1, {"x": torch.ones(2)}, shardings={"x": None})
     with pytest.raises(ValueError, match="checkpoint missing leaves"):
         ckpt.restore(path, 1, state, cfg=cfg)

@@ -15,12 +15,15 @@ says, and is held to the reference's ``apply`` with the error threaded
 through the jitted step (its loss gap to the frozen error is recorded in
 ROADMAP Queue 3).
 
-Bar: the losses within 2e-5 relative.  Measured first, as the lr of 3e-3
+Bar: the losses within 1e-5 relative.  Measured first, as the lr of 3e-3
 is 10x the train step tests': a 1-ulp change of the embedding (every
 element) moves the reference's own six losses by at most 7.2e-8, and with
 threaded compression 5.8e-7 (every weight by one ulp in a random
 direction: 9.4e-7 over four draws); the port sits 1.4e-7 and 7.9e-7 from
-them.  The larger of the two, 2e-5, holds.
+them.  The faults the bar must catch sit at 2.77e-5 to 6.52e-5 (a
+per-tensor int8 scale in place of the stacked leaves' shared one put the
+launcher 3e-5 from the reference's parts by step 5), so 1e-5, about ten
+times the noise and under every fault, holds.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
-TOL = 2e-5  # relative, on each step's loss
+TOL = 1e-5  # relative, on each step's loss
 SLOWDOWN_TOL = 1e-9  # relative, on each step's DVFS multiplier
 STEPS = 6
 ARGV = ["--reduced", "--steps", str(STEPS), "--log-every", "1", "--device", "cpu"]
@@ -215,16 +218,68 @@ def test_compressed_gradients_carry_the_error(reference, reference_weights):
 
 
 def test_refusals(monkeypatch):
-    """(f): ``--mesh`` past 1x1 raises before any state is built; without a
-    card the default device raises, naming ``device='cpu'``."""
+    """(f): a ``--mesh`` that is not DATAxMODEL, or whose ranks are not the
+    world's it would join, raises before any state is built (the mesh runs
+    are ``tests/test_torch_launch_mesh.py``'s); without a card the default
+    device raises, naming ``device='cpu'``."""
     def no_state(*args, **kw):
         raise AssertionError("state built")
 
     monkeypatch.setattr(train, "init_train_state", no_state)
-    with pytest.raises(NotImplementedError, match="--mesh 2x1"):
+    with pytest.raises(ValueError, match="expected DATAxMODEL"):
+        train.main(["--reduced", "--mesh", "2", "--device", "cpu"])
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="--mesh 2x1 needs 2 ranks; WORLD_SIZE is 3"):
         train.main(["--reduced", "--mesh", "2x1", "--device", "cpu"])
     monkeypatch.undo()
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--reduced", "--steps", "1"])
+
+
+def test_new_groups_take_nccl_only_with_a_card_a_rank(monkeypatch):
+    """``compat.world_backend``, the launcher's rule for a group it starts:
+    NCCL where each rank has a card of its own, gloo otherwise (the CPU, or
+    more ranks than cards, whose card tensors gloo then carries through the
+    host, ``compat.staged_on_host``)."""
+    from repro_torch.compat import staged_on_host, world_backend
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert [world_backend(cuda, w) for w in (1, 4, 5)] == ["nccl", "nccl", "gloo"]
+    assert world_backend(cpu, 4) == "gloo"
+    assert staged_on_host(cuda, world_backend(cuda, 5)) and not staged_on_host(cpu, "gloo")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert world_backend(cuda, 4) == "gloo"
+
+
+def test_train_step_reduces_bf16_gemms_in_float32():
+    """Inside ``make_train_step``'s step, cuBLAS may not reduce a bf16 GEMM's
+    partial sums in bf16 (``training.step.float32_reductions``); the
+    caller's setting comes back after it."""
+    from repro_torch.models import build
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    flags = torch.backends.cuda.matmul
+    cfg = configs.get_arch("qwen3-4b").reduced()
+    api = build(cfg)
+    state = init_train_state(cfg, api, torch.Generator().manual_seed(0), "cpu")
+    seen = []
+    real_loss = api.loss
+
+    def loss(*args, **kw):
+        seen.append(flags.allow_bf16_reduced_precision_reduction)
+        return real_loss(*args, **kw)
+
+    step = make_train_step(cfg, api._replace(loss=loss), lr=1e-3, warmup=1, total_steps=2)
+    batch = {"tokens": torch.zeros(2, 8, dtype=torch.int64),
+             "targets": torch.ones(2, 8, dtype=torch.int64)}
+    was = flags.allow_bf16_reduced_precision_reduction
+    try:
+        flags.allow_bf16_reduced_precision_reduction = True
+        step(state, batch)
+        assert seen == [False] and flags.allow_bf16_reduced_precision_reduction
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = was
