@@ -156,7 +156,7 @@ Phases, each of which raises on failure:
    busy share beside the monolithic engine's; (c) the reference's subtree
    parity case at paper size (1e-6 W); (d) churn with one rebuild within
    the padding (``rebuild_count()`` moves only there); (e) ``DatacenterSim``
-   in fleet mode for 8 intervals, with prefetch (the same S values), and
+   in fleet mode for 4 intervals, with prefetch (the same S values), and
    the cross-tenant scenario, also through every kernel flag against the
    CPU run at the quality level; (f) one cold stacked step of the paper's
    datacenter with Appendix B's tenants split at the cut (its launches are
@@ -262,6 +262,23 @@ Phases, each of which raises on failure:
    --resume`` in this process, its steps within the same bar of 17b's.  The
    kernels line's ``flash_attention_wgmma_lse`` takes ``launches_mesh``
    (18a, in all and per rank).
+19. the cost analysis held to the card's own programs, see
+   :func:`analysis_phase`: (a) ``repro_torch.analysis.flops.CostCounter``
+   on phase 8c's qwen3-4b prefill (4 x 2,048) and on one more step of
+   16d's training state, on the card's tensors: FLOPs, bytes, FLOPs by op,
+   the flash calls it saw against the kernel's launches (36 a prefill, 288
+   a step), each launch's counted FLOPs against row 10's count at its shape,
+   the model FLOPs, the roofline on one H100 and the share of the compute
+   bound the measured wall reached (``analysis.roofline.
+   model_flops_utilization``); (b) the dry run's argument bytes of 16d's
+   state and batch against what the card allocated for them, and the
+   counted peak of a step's intermediates against the card's
+   ``max_memory_allocated`` over that step; (c) ``python -m
+   repro_torch.launch.dryrun`` in subprocesses that see no card (started
+   with phase 16): whisper-tiny ``decode_32k`` and qwen3-4b ``train_4k`` on
+   the 256-rank pod mesh, each an ``OK`` record, the train cell's argument
+   bytes within the card's memory.  The kernels line's flash entries take
+   ``launches_analysis``.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Details (the build log and every
@@ -295,7 +312,9 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 import repro_torch.kernels as kernels  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.analysis.flops import CostCounter  # noqa: E402
+from repro_torch.analysis.roofline import model_flops_utilization, roofline_terms  # noqa: E402
+from repro_torch.configs import ShapeSpec, get_arch  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.convert import encdec_params_to_numpy, lm_params_to_numpy  # noqa: E402
 from repro_torch.core.batched import (  # noqa: E402
@@ -321,7 +340,7 @@ from repro_torch.pdn.hierarchy_gen import homogeneous_fleet  # noqa: E402
 from repro_torch.pdn.telemetry import TelemetrySim, TraceConfig  # noqa: E402
 from repro_torch.pdn.tenants import appendix_b_layout, assign_cross_domain_tenants  # noqa: E402
 from repro_torch.pdn.tree import build_datacenter  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dryrun, serve  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import attention, blocks, build, encdec, moe  # noqa: E402
 from repro_torch.models.common import rms_norm, sinusoidal_positions  # noqa: E402
@@ -1677,30 +1696,51 @@ def main(argv: list[str]) -> int:
                                             for arch in family_launches})
     entries.extend(flash_entries)
 
+    serving_run = report["serving_path"].pop("analysis_run")
+
     # -- 16. the training path ---------------------------------------------------------
     mark("16")
-    lse_entries, report["training"] = training_phase(cuda, smi, args.profile)
-    entries.extend(lse_entries)
+    cli = _start_dryrun_cli(out_dir)  # phase 19c's dry runs, on the host meanwhile
+    try:
+        lse_entries, report["training"] = training_phase(cuda, smi, args.profile)
+        training_run = report["training"]["full_width"].pop("analysis_run")
+        entries.extend(lse_entries)
 
-    # -- 17. the training launcher -----------------------------------------------------
-    mark("17")
-    launcher_launches, pipeline_launches, report["launcher"] = launcher_phase(cuda, smi, out_dir)
+        # -- 17. the training launcher -----------------------------------------------------
+        mark("17")
+        launcher_launches, pipeline_launches, report["launcher"] = launcher_phase(cuda, smi, out_dir)
+        for entry in entries:
+            if entry["name"] == "flash_attention_wgmma_lse":
+                entry["launches_launcher"] = launcher_launches
+            if entry["name"] == "flash_attention_wgmma":
+                entry["launches_pipeline"] = pipeline_launches
+
+        # -- 18. the launcher on a mesh ----------------------------------------------------
+        mark("18")
+        t_phase = time.perf_counter()
+        mesh_launches, report["mesh"] = mesh_phase(cuda, smi, report["launcher"]["drill"]["runs"][0],
+                                                   out_dir)
+        report["mesh"]["seconds"] = time.perf_counter() - t_phase
+        log(f"[18] phase 18 in {report['mesh']['seconds']:.1f} s on {smi}")
+        for entry in entries:
+            if entry["name"] == "flash_attention_wgmma_lse":
+                entry["launches_mesh"] = mesh_launches
+
+        # -- 19. the cost analysis on the card's programs ----------------------------------
+        mark("19")
+        report["analysis"] = analysis_phase(smi, serving_run, training_run, cli)
+    finally:
+        for *_, proc in cli:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     for entry in entries:
-        if entry["name"] == "flash_attention_wgmma_lse":
-            entry["launches_launcher"] = launcher_launches
         if entry["name"] == "flash_attention_wgmma":
-            entry["launches_pipeline"] = pipeline_launches
-
-    # -- 18. the launcher on a mesh ----------------------------------------------------
-    mark("18")
-    t_phase = time.perf_counter()
-    mesh_launches, report["mesh"] = mesh_phase(cuda, smi, report["launcher"]["drill"]["runs"][0],
-                                               out_dir)
-    report["mesh"]["seconds"] = time.perf_counter() - t_phase
-    log(f"[18] phase 18 in {report['mesh']['seconds']:.1f} s on {smi}")
-    for entry in entries:
+            entry["launches_analysis"] = report["analysis"]["prefill"]["kernel_launches"].get(
+                "flash_attention_wgmma", 0)
         if entry["name"] == "flash_attention_wgmma_lse":
-            entry["launches_mesh"] = mesh_launches
+            entry["launches_analysis"] = report["analysis"]["train"]["kernel_launches"].get(
+                "flash_attention_wgmma_lse", 0)
 
     if args.profile:
         report["profile"] = profile_step(pdn, kernel_opts)
@@ -2508,7 +2548,7 @@ def batched_phase(pdn, layout, engine_opts, cuda, smi):
 
 
 FLEET_STEPS = 5
-FLEET_SIM_STEPS = 8
+FLEET_SIM_STEPS = 4
 FLEET_PARITY_TOL = 1e-9  # watts: stacked vs loop and card vs CPU, equal iterations
 FLEET_MONO_TOL = 1e-6  # watts: fleet vs the monolithic engine (the reference's bar)
 FLEET_RACKS = 20  # phase 12's rebuilt hall, inside the 24-rack padding
@@ -4253,6 +4293,7 @@ def serving_phase(cuda, smi, profile: bool = False):
     # (c) the prefill of the serving prompt, through the kernel and through
     # the plain blocked scan (flash_vjp=False), on the same weights
     report["prefill"], launches = prefill_against_plain("8c", cfg, params, tokens)
+    report["analysis_run"] = _count_prefill(cfg, params, tokens)  # phase 19a, reported there
     if profile:
         batch = {"tokens": tokens}
         report["profile_prefill"] = profiled(f"one prefill B={SERVE_B} S={SERVE_S}",
@@ -5214,8 +5255,10 @@ def _full_width_train(cuda, smi, profile: bool) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     free0, total = torch.cuda.mem_get_info()
+    before = _card_bytes()
     state, init_s = _timed(lambda: init_train_state(
         cfg, api, torch.Generator(device=cuda).manual_seed(0), cuda))
+    init_bytes = [a - b for a, b in zip(_card_bytes(), before)]
     n_params = sum(p.numel() for p in state.params.parameters())
     state_gb = torch.cuda.memory_allocated() / 1e9
     log(f"[16d] {cfg.name} train state, {cfg.n_layers} layers of {get_arch(TRAIN_ARCH).n_layers}, "
@@ -5259,6 +5302,17 @@ def _full_width_train(cuda, smi, profile: bool) -> dict:
         f"{median:.1f} ms, {tokens / median * 1e3:,.0f} tokens/s, peak device memory "
         f"{peak:.2f} GB of {total / 1e9:.2f}, {expected} flash_attention_wgmma_lse launches a step "
         f"({launches} in {TRAIN_STEPS} steps)")
+    # phase 19a/b (reported there): one more step under the op counter, on a
+    # batch whose bytes are measured alone (the last step's freed first)
+    batch = None
+    before = _card_bytes()
+    batch = {k: torch.as_tensor(v, device=cuda)
+             for k, v in data.batch(TRAIN_STEPS + 1, TRAIN_BATCH, TRAIN_SEQ).items()}
+    batch_bytes = [a - b for a, b in zip(_card_bytes(), before)]
+    report["analysis_run"] = _count_train_step(
+        cfg, state, step, batch, tuple(a + b for a, b in zip(init_bytes, batch_bytes)),
+        median / 1e3)
+    del batch
     if profile:
         batch = {k: torch.as_tensor(v, device=cuda)
                  for k, v in data.batch(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ).items()}
@@ -5932,6 +5986,236 @@ def mesh_phase(cuda, smi, whole: dict, out_dir: Path) -> tuple[dict, dict]:
     launches = {"18a": sum(f["flash_attention_wgmma_lse"] for f in rank_flash),
                 "18a_per_rank": [f["flash_attention_wgmma_lse"] for f in rank_flash]}
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the cost analysis (repro_torch.analysis, launch.dryrun) held to
+# the card's own programs, bytes and memory.
+
+# 19b: the bytes the state's and batch's tensors asked the caching
+# allocator for (its requested_bytes) are the dry run's argument bytes
+# exactly; the bytes it allocated lie above them by each block's rounding,
+# at most 1 MiB a tensor (a block of the large pool is not split when the
+# rest would be under 1 MiB: a bar of 512 bytes a tensor missed by 341 MB on
+# qwen3-4b's state); a step's measured peak of intermediates over the counted one,
+# from the allocator's max_memory_allocated(): the counter sees every op's
+# results but not the scratch an op allocates inside itself (cuBLAS's, the
+# loss's), so the bar is loose above
+ARG_ROUND = 1 << 20
+TEMP_RATIO = (0.9, 1.5)
+# 19c: the dry run's CLI in a subprocess that sees no card and cannot import
+# jax or the JAX package (the reference test's cell, and a train cell at
+# full width)
+ANALYSIS_CLI = (("whisper-tiny", "decode_32k"), ("qwen3-4b", "train_4k"))
+ANALYSIS_CLI_TIMEOUT_S = 300
+NO_JAX_MAIN = """
+import importlib.abc, runpy, sys
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"{name} is not importable here")
+        return None
+
+sys.meta_path.insert(0, NoJax())
+sys.argv = ["dryrun"] + sys.argv[1:]
+try:
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+finally:
+    print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")))
+"""
+
+
+def _counted(fn):
+    """(fn()'s result, the op counter's OpCost of the card's program, the
+    flash kernels launched), ending in a device sync."""
+    before = kernels.launch_counts()
+    with CostCounter("cuda") as counter:
+        out = fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return out, counter.cost(), {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}
+
+
+def _count_prefill(cfg, params, tokens) -> dict:
+    """19a's prefill: 8c's prefill of ``tokens`` timed once more, then once
+    under the op counter (phase 8's weights, already warm)."""
+    batch = {"tokens": tokens}
+    prefill, _ = make_serve_steps(cfg, build(cfg))
+    _, wall = _timed(lambda: prefill(params, batch))
+    _, cost, launched = _counted(lambda: prefill(params, batch))
+    B, S = tokens.shape
+    return {"cost": cost, "launched": launched, "wall_s": wall,
+            "shape": ShapeSpec("serve", S, B, "prefill"),
+            "flash_shape": ((B, S, cfg.n_heads, cfg.head_dim), (B, S, cfg.n_kv, cfg.head_dim))}
+
+
+def _card_bytes() -> tuple[int, int]:
+    """(allocated, requested) bytes of the caching allocator now."""
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats().get("requested_bytes.all.current", -1))
+
+
+def _count_train_step(cfg, state, step, batch, init_bytes: tuple, wall_s: float) -> dict:
+    """19a/b's train step: one more step of 16d's state under the op counter,
+    the card's peak of allocated bytes over the step beside the counted peak
+    of live intermediates; the state's argument bytes by the dry run's
+    accounting beside the (allocated, requested) bytes ``init_train_state``
+    and the batch took (``init_bytes``)."""
+    n_tensors = sum(1 for tree in (state.params, state.opt.m, state.opt.v)
+                    for _ in tree.parameters()) + len(batch)
+    args = dryrun.argument_bytes(state.params, state.opt.m, state.opt.v, batch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (_, m), cost, launched = _counted(lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated() - base
+    micro = TRAIN_BATCH // max(cfg.microbatch, 1)
+    return {"cost": cost, "launched": launched, "wall_s": wall_s, "loss": float(m["loss"]),
+            "shape": ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            "flash_shape": ((micro, TRAIN_SEQ, cfg.n_heads, cfg.head_dim),
+                            (micro, TRAIN_SEQ, cfg.n_kv, cfg.head_dim)),
+            "argument_bytes": args, "init_alloc": init_bytes[0], "init_requested": init_bytes[1],
+            "n_tensors": n_tensors, "peak_temp": peak}
+
+
+def _start_dryrun_cli(out_dir: Path) -> list:
+    """19c's CLI runs, started at once (they need the host only, and a card
+    they cannot see): one process a cell."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    dest = out_dir / "dryrun"
+    procs = []
+    for arch, shape in ANALYSIS_CLI:
+        cmd = [sys.executable, "-c", NO_JAX_MAIN, "--arch", arch, "--shape", shape, "--mesh",
+               "pod", "--out", str(dest)]
+        procs.append(((arch, shape), cmd, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def _program_line(tag: str, cfg, counted: dict, smi: str) -> dict:
+    """Print and return one card program's counts, roofline and compute
+    share; hold each flash launch's counted FLOPs to row 10's count."""
+    cost, launched = counted["cost"], counted["launched"]
+    calls = sum(v for k, v in cost.calls.items() if k.startswith("flash_attention"))
+    kernel_launches = sum(v for k, v in launched.items() if k.startswith("flash_attention"))
+    (B, S, H, dh), k_shape = counted["flash_shape"]
+    row10 = 4 * B * H * dh * S * (S + 1) / 2  # phase 8g / 16a's bound count
+    per_launch = cost.by_op.get("flash_attention", 0.0) / max(calls, 1)
+    rt = roofline_terms(cfg, counted["shape"], n_devices=1, hlo_flops=cost.flops,
+                        hlo_bytes=cost.hbm_bytes, collective_bytes=0)
+    share = model_flops_utilization(cfg, counted["shape"], counted["wall_s"])
+    top = dict(sorted(cost.by_op.items(), key=lambda kv: -kv[1])[:6])
+    out = {"flops": cost.flops, "bytes": cost.hbm_bytes, "by_op": cost.by_op,
+           "calls": cost.calls, "kernel_launches": launched, "flash_calls": calls,
+           "flash_flops_per_launch": per_launch, "row10_count": row10,
+           "peak_bytes": cost.peak_bytes, "wall_ms": counted["wall_s"] * 1e3,
+           "roofline": dataclasses.asdict(rt), "model_flops_utilization": share, "card": smi}
+    log(f"[19a] {tag} on {smi}: {cost.flops:.4e} FLOPs, {cost.hbm_bytes:.4e} bytes, by op "
+        + ", ".join(f"{k} {v:.3e}" for k, v in top.items())
+        + f"; flash calls counted {calls}, kernel launches {launched}; "
+        f"{per_launch:.6e} FLOPs a flash launch (row 10's count at this shape {row10:.6e})")
+    log(f"[19a] {tag}: model FLOPs {rt.model_flops:.4e}, useful ratio {rt.useful_ratio:.4f}; "
+        f"roofline on one H100: compute {rt.compute_s * 1e3:.2f} ms, memory "
+        f"{rt.memory_s * 1e3:.2f} ms, collective {rt.collective_s * 1e3:.2f} ms, bound by "
+        f"{rt.bottleneck}; measured wall {counted['wall_s'] * 1e3:.1f} ms: model FLOPs over the "
+        f"wall over the peak {share:.4f} ({share * 100:.2f}% of 989.4 TFLOP/s)")
+    if calls != kernel_launches or per_launch != row10:
+        raise AssertionError(f"[19a] {tag}: {calls} counted flash calls against "
+                             f"{kernel_launches} launches, {per_launch} FLOPs a launch against "
+                             f"row 10's {row10}")
+    return out
+
+
+def analysis_phase(smi, serving: dict, training: dict, cli: list) -> dict:
+    """Phase 19: (a) the op counter on phase 8's prefill and 16d's train step
+    on the card (FLOPs, bytes, flash launches, roofline, the compute share of
+    the measured wall); (b) the dry run's argument bytes of 16d's state and
+    batch against what the card allocated, the counted peak of a step's
+    intermediates against the card's; (c) the dry run's CLI (started with
+    phase 16) on the reference test's cell and a train cell."""
+    t_phase = time.perf_counter()
+    report: dict = {"card": smi}
+    cfg = get_arch(SERVE_ARCH)
+    report["prefill"] = _program_line(f"{cfg.name} prefill {SERVE_B} x {SERVE_S}", cfg, serving,
+                                      smi)
+    tcfg = get_arch(TRAIN_ARCH)
+    report["train"] = _program_line(f"{tcfg.name} train step {TRAIN_BATCH} x {TRAIN_SEQ} "
+                                    f"(microbatch {tcfg.microbatch})", tcfg, training, smi)
+    if report["prefill"]["flash_calls"] != cfg.n_layers:
+        raise AssertionError(f"[19a] the prefill counted {report['prefill']['flash_calls']} "
+                             f"flash calls, not {cfg.n_layers}")
+    expected = tcfg.n_layers * max(tcfg.microbatch, 1) * (2 if tcfg.remat else 1)
+    if report["train"]["flash_calls"] != expected:
+        raise AssertionError(f"[19a] the train step counted {report['train']['flash_calls']} "
+                             f"flash calls, not {expected}")
+
+    # (b) bytes: the dry run's accounting against the card's allocator
+    args, alloc, n = training["argument_bytes"], training["init_alloc"], training["n_tensors"]
+    requested = training["init_requested"]
+    peak, temp = training["peak_temp"], training["cost"].peak_bytes
+    ratio = peak / temp
+    report["bytes"] = {"argument_bytes": args, "allocated": alloc, "requested": requested,
+                       "n_tensors": n, "round": ARG_ROUND, "peak_temp": peak,
+                       "counted_temp": temp, "ratio": ratio, "ratio_bar": TEMP_RATIO}
+    log(f"[19b] {tcfg.name}'s state and batch by the dry run's accounting {args:,} bytes; "
+        f"init_train_state and the batch requested {requested:,} of the caching allocator "
+        f"(bar: equal) and it allocated {alloc:,} ({alloc - args:,} more; bar 0 to 1 MiB x "
+        f"{n} tensors = {ARG_ROUND * n:,})")
+    log(f"[19b] one train step's intermediates: counted peak {temp / 1e9:.3f} GB, the card's "
+        f"max_memory_allocated over the step {peak / 1e9:.3f} GB above the state: "
+        f"{ratio:.4f} x (bar {TEMP_RATIO[0]} to {TEMP_RATIO[1]})")
+    if requested != args or not 0 <= alloc - args <= ARG_ROUND * n:
+        raise AssertionError(f"[19b] requested {requested}, allocated {alloc} against {args} "
+                             "argument bytes")
+    if not TEMP_RATIO[0] <= ratio <= TEMP_RATIO[1]:
+        raise AssertionError(f"[19b] the step's peak {peak} against the counted {temp}")
+
+    # (c) the CLI where JAX is absent and no card is visible
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    report["cli"] = {}
+    for (arch, shape), cmd, t0, proc in cli:
+        try:
+            out, _ = proc.communicate(timeout=ANALYSIS_CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        rec_path = Path(cmd[cmd.index("--out") + 1]) / f"{arch}__{shape}__pod.json"
+        rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
+        tag = f"{arch} {shape} pod"
+        report["cli"][tag] = {"returncode": proc.returncode, "record": rec,
+                              "seconds": time.perf_counter() - t0,
+                              "output": out.splitlines()[-3:]}
+        loaded = [ln for ln in out.splitlines() if ln.startswith("JAX_LOADED")]
+        if (proc.returncode != 0 or rec.get("status") != "OK" or rec.get("n_devices") != 256
+                or loaded != ["JAX_LOADED []"]):
+            raise AssertionError(f"[19c] the dry run of {tag} exited {proc.returncode}: "
+                                 f"{out[-2000:]}")
+        mem, rl = rec["memory"], rec["roofline"]
+        log(f"[19c] python -m repro_torch.launch.dryrun --arch {arch} --shape {shape} --mesh pod "
+            f"(no card visible, jax and the JAX package not importable; jax installed here: "
+            f"{_jax_found()}): {rec['status']}, {rec['n_devices']} ranks, traced in {rec['trace_s']} s; a rank "
+            f"{rec['flops']:.4e} FLOPs, {rec['bytes_accessed']:.4e} bytes, collectives "
+            f"{rec['collectives']['total']['count']} of {rec['collectives']['total']['bytes']:.4e} "
+            f"bytes, argument {mem['argument_bytes']:,} bytes, temp peak {mem['temp_bytes']:,}; "
+            f"roofline compute {rl['compute_s']:.4e} s, memory {rl['memory_s']:.4e} s, "
+            f"collective {rl['collective_s']:.4e} s ({rl['bottleneck']}), useful ratio "
+            f"{rl['useful_ratio']:.4f}")
+        if shape.startswith("train") and not mem["argument_bytes"] <= total_mem:
+            raise AssertionError(f"[19c] {tag}: {mem['argument_bytes']} argument bytes a rank "
+                                 f"past the card's {total_mem}")
+    report["card_total_memory"] = total_mem
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[19] phase 19 in {report['seconds']:.1f} s on {smi}")
+    return report
+
+
+def _jax_found() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("jax") is not None
 
 
 def profiled(tag: str, step, iterations: int | None = None, top: int = 12) -> dict:

@@ -5,16 +5,18 @@ Token streams from a fixed random bigram chain, so that a model has real
 floor.  A batch is a pure function of (seed, step, dp_rank): every
 data-parallel rank draws its own shard with no coordination, and a
 restarted job draws the same batches again.  numpy arrays, the reference's
-bits; the caller moves them to its device.  The reference's
-``make_batch_specs`` (its dry run's ``ShapeDtypeStruct`` stand-ins) has no
-counterpart here.
+bits; the caller moves them to its device.  :func:`make_batch_specs` gives
+the dry run's stand-ins of a batch (``meta`` tensors, the reference's
+``ShapeDtypeStruct``s) and :func:`batch_sharding` their placements on a
+mesh.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["SyntheticLMData"]
+__all__ = ["SyntheticLMData", "batch_sharding", "make_batch_specs"]
 
 
 class SyntheticLMData:
@@ -51,3 +53,31 @@ class SyntheticLMData:
         """Loss floor in nats (uniform over `branch` successors, modulo
         collisions)."""
         return float(np.log(self.succ.shape[1]))
+
+
+def make_batch_specs(cfg, shape, *, batch: int | None = None) -> dict:
+    """A training batch's stand-ins as ``meta`` tensors (shapes and dtypes,
+    no storage): int32 ``tokens`` and ``targets`` [B, S] and, for an
+    encoder-decoder, float32 ``enc_input`` [B, enc_frames, d_model]; B is
+    ``batch`` or the shape's global batch, S its sequence length."""
+    B = batch or shape.global_batch
+    S = shape.seq_len
+    specs = {
+        "tokens": torch.empty((B, S), dtype=torch.int32, device="meta"),
+        "targets": torch.empty((B, S), dtype=torch.int32, device="meta"),
+    }
+    if cfg.is_encdec:
+        specs["enc_input"] = torch.empty((B, cfg.enc_frames, cfg.d_model),
+                                         dtype=torch.float32, device="meta")
+    return specs
+
+
+def batch_sharding(batch: dict, rules) -> dict:
+    """Each batch tensor's :class:`repro_torch.sharding.NamedSharding`: its
+    rows on the "batch" axes and every other dim whole, as the reference's
+    dry run places it (``resolve_spec(("batch", None, ...))``)."""
+    from repro_torch.sharding import NamedSharding, resolve_spec
+
+    return {k: NamedSharding(rules.mesh, resolve_spec(("batch",) + (None,) * (v.ndim - 1),
+                                                      tuple(v.shape), rules))
+            for k, v in batch.items()}

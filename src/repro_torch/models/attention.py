@@ -63,23 +63,33 @@ def attn_specs(cfg) -> dict:
     return s
 
 
-def _project_qkv(p, cfg, x, positions, *, rope=True):
-    B, S, D = x.shape
+def _project_qkv(p, cfg, x, positions, *, rope=True, which="qkv"):
+    """The projections named in ``which`` of ``x``, in q, k, v order (a
+    cross-attention takes q of the decoder's stream and k, v of the
+    memory, and computes no other)."""
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     cd = cfg.compute_dtype
-    q = split_heads(x @ p["wq"].to(cd), H, "q_heads")
-    k = split_heads(x @ p["wk"].to(cd), KV, "kv_heads")
-    v = split_heads(x @ p["wv"].to(cd), KV, "kv_heads")
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if rope:
         inv, rot = rope_freqs(dh, cfg.rope_frac, cfg.rope_theta, device=x.device)
-        q, k = apply_rope(q, positions, inv, rot), apply_rope(k, positions, inv, rot)
-    q = constrain(q, "batch", None, "q_heads", None)
-    k = constrain(k, "batch", None, "kv_heads", None)
-    v = constrain(v, "batch", None, "kv_heads", None)
-    return q, k, v
+    out = []
+    if "q" in which:
+        q = split_heads(x @ p["wq"].to(cd), H, "q_heads")
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        if rope:
+            q = apply_rope(q, positions, inv, rot)
+        out.append(constrain(q, "batch", None, "q_heads", None))
+    if "k" in which:
+        k = split_heads(x @ p["wk"].to(cd), KV, "kv_heads")
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if rope:
+            k = apply_rope(k, positions, inv, rot)
+        out.append(constrain(k, "batch", None, "kv_heads", None))
+    if "v" in which:
+        v = split_heads(x @ p["wv"].to(cd), KV, "kv_heads")
+        out.append(constrain(v, "batch", None, "kv_heads", None))
+    return out
 
 
 def _plain_attention(q, k, v, causal: bool):
@@ -197,15 +207,17 @@ def attn_train(p, cfg, x, positions, *, causal=True, rope=True, memory=None):
     if memory is None:
         q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
     else:
-        q, _, _ = _project_qkv(p, cfg, x, positions, rope=rope)
-        mem_pos = torch.zeros(memory.shape[:2], dtype=torch.int64, device=memory.device)
-        _, k, v = _project_qkv(p, cfg, memory, mem_pos, rope=False)
+        (q,) = _project_qkv(p, cfg, x, positions, rope=rope, which="q")
+        k, v = _project_qkv(p, cfg, memory, None, rope=False, which="kv")
         causal = False
     if is_distributed(q):
         o = _sharded_attention(cfg, q, k, v, causal)
     else:
         o = _attend(cfg, q, k, v, causal)
-    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    # merged heads placed as ``wo``'s rows are: where the heads themselves do
+    # not divide the model axis (whisper's 6 over 16), the merged dim does,
+    # and a gradient split on it could not be viewed back as heads
+    o = constrain(o.reshape(B, S, cfg.n_heads * cfg.head_dim), "batch", None, "heads_merged")
     return o @ p["wo"].to(cfg.compute_dtype), KVCache(k, v)
 
 
@@ -215,6 +227,22 @@ def init_kv_cache(cfg, batch, seq, device=None) -> KVCache:
     return KVCache(
         torch.zeros(shape, dtype=dt, device=device), torch.zeros(shape, dtype=dt, device=device)
     )
+
+
+def _heads_for_groups(q, groups: int):
+    """A DTensor q [B, 1, H, dh] whose head dim is split over mesh ranks that
+    do not divide its ``groups`` kv groups, with that dim gathered, so that
+    it can be viewed as [B, 1, groups, H / groups, dh]."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    split = 1
+    for size, pl in zip(q.device_mesh.shape, q.placements):
+        if isinstance(pl, Shard) and pl.dim == 2:
+            split *= size
+    if groups % split == 0:
+        return q
+    whole = [Replicate() if isinstance(pl, Shard) and pl.dim == 2 else pl for pl in q.placements]
+    return q.redistribute(q.device_mesh, whole)
 
 
 def attn_decode(p, cfg, x, pos, cache: KVCache, *, rope=True):
@@ -235,6 +263,8 @@ def attn_decode(p, cfg, x, pos, cache: KVCache, *, rope=True):
     if k_cache is not cache.k or v_cache is not cache.v:
         cache = KVCache(k_cache, v_cache)
     rep = H // KV
+    if is_distributed(q):
+        q = _heads_for_groups(q, KV)
     # grouped GQA: contract against the unrepeated cache
     qg = q.reshape(B, 1, KV, rep, dh)
     logits = torch.einsum("bqgrd,bsgd->bgrqs", qg, cache.k) * (dh**-0.5)

@@ -28,6 +28,7 @@ K lanes.
 
 from __future__ import annotations
 
+from decimal import Context, Decimal
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -147,30 +148,55 @@ _ONE: dict[str, torch.Tensor] = {}
 
 # the reference's log10 is log(x) times this constant in the value's dtype
 _ONE_OVER_LN10 = 0.4342944819032518
+_LN_CONTEXT = Context(prec=50)
+
+
+def _rounded_log(x: float, np_dtype) -> float:
+    """``log(x)`` correctly rounded to ``np_dtype`` (float32 or float64),
+    whatever the host's vector ``log`` does: the natural log in decimal at
+    50 digits (``Decimal.ln``, itself correctly rounded), then the nearest of
+    the three ``np_dtype`` values around its binary64 rounding, checked to be
+    strictly nearest (so no tie and no double rounding decides it)."""
+    big = Decimal(float(x)).ln(_LN_CONTEXT)
+    f = np_dtype(float(big))
+    cands = (np.nextafter(f, np_dtype(-np.inf)), f, np.nextafter(f, np_dtype(np.inf)))
+    dist = sorted((abs(Decimal(float(c)) - big), i) for i, c in enumerate(cands))
+    assert dist[0][0] < dist[1][0], f"log({x!r}) ties between two {np_dtype.__name__}s"
+    return cands[dist[0][1]]
 
 
 def _host_edges(cfg: RecorderConfig, dtype: torch.dtype) -> torch.Tensor:
     """The smallest value of ``dtype`` at which the reference's bucket
     ``floor(log(x) * (1/ln 10))`` reaches each ``lo_exp + b``, b = 1..B-1,
-    found by bisection over the bit patterns near ``10**(lo_exp + b)`` with
-    that formula evaluated on the CPU (where it gives the reference's
-    buckets bit for bit, ``tests/test_torch_obs.py``)."""
-    bits = torch.int64 if dtype == torch.float64 else torch.int32
-    exps = torch.arange(cfg.lo_exp + 1, cfg.lo_exp + cfg.buckets, dtype=torch.float64)
-    c = torch.tensor(_ONE_OVER_LN10, dtype=dtype)
+    found by bisection over the bit patterns near ``10**(lo_exp + b)``.
 
-    def reached(b):
-        return torch.floor(torch.log(b.view(dtype)) * c) >= exps.to(dtype)
+    Each candidate's ``log`` is the correctly rounded one
+    (:func:`_rounded_log`), which XLA's ``log`` gives at these values, and
+    the product and floor are IEEE operations in the dtype, so the edges do
+    not depend on the host: ``torch.log`` of a float32 tensor came out one
+    ulp high at 9.999999 on one host's vector path and moved the edge of 1e1
+    (``tests/test_torch_obs.py``)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    bits = np.int64 if dtype == torch.float64 else np.int32
+    c = np_dtype(_ONE_OVER_LN10)
 
-    lo = (10.0**exps * (1 - 1e-4)).to(dtype).view(bits).clone()
-    hi = (10.0**exps * (1 + 1e-4)).to(dtype).view(bits).clone()
-    assert not reached(lo).any() and reached(hi).all()
-    while bool((hi - lo > 1).any()):
-        mid = lo + (hi - lo) // 2
-        ok = reached(mid)
-        hi = torch.where(ok, mid, hi)
-        lo = torch.where(ok, lo, mid)
-    return hi.view(dtype)
+    def reached(b, e):
+        x = np.array(b, bits).view(np_dtype)
+        return np.floor(_rounded_log(x, np_dtype) * c) >= e
+
+    edges = []
+    for e in range(cfg.lo_exp + 1, cfg.lo_exp + cfg.buckets):
+        lo = int(np.array(10.0**e * (1 - 1e-4), np_dtype).view(bits))
+        hi = int(np.array(10.0**e * (1 + 1e-4), np_dtype).view(bits))
+        assert not reached(lo, e) and reached(hi, e)
+        while hi - lo > 1:
+            mid = lo + (hi - lo) // 2
+            if reached(mid, e):
+                hi = mid
+            else:
+                lo = mid
+        edges.append(hi)
+    return torch.from_numpy(np.array(edges, bits).view(np_dtype))
 
 
 def _edges(cfg: RecorderConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

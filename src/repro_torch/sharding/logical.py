@@ -224,7 +224,18 @@ def constrain(x: torch.Tensor, *names: str | None) -> torch.Tensor:
     if not is_distributed(x):
         return x
     want = placements(resolve_spec(names, x.shape, rules), rules.mesh)
-    return x if tuple(x.placements) == want else x.redistribute(rules.mesh, want)
+    if tuple(x.placements) == want:
+        return x
+    x = x.redistribute(rules.mesh, want)
+    local = x.to_local()
+    if local.is_contiguous():
+        return x
+    # a shard moved off an uneven dim (whisper's 1,500 frames over 16 ranks)
+    # can come back as a view of its padded rows, which a later view refuses
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local.contiguous(), x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def param_sharding(spec_tree, params, rules: AxisRules):

@@ -19,19 +19,24 @@ itself.
 
 Bars: each step's loss within 1e-5 relative of the 1x1 run's and of the
 reference's (the launcher's bar, ``tests/test_torch_launch_train.py``).
-After the last step every weight and AdamW moment within 2e-5 of the 1x1
+After the last step every weight and AdamW moment within 1.2e-4 of the 1x1
 run's in relative Frobenius norm, and element-wise within 1.5e-3 of the
 leaf's largest magnitude; each weight placed as ``resolve_spec`` places it;
 every rank holding the same gathered state (the replicas of a weight
 agree).  The restored checkpoints give the saved bits.  The weights' bars
-were measured first (``tools/launch_ulp_spread.py --device cpu``, these
-cases' steps): a 1-ulp change of the embedding moves the 1x1 run's own
-weights and moments by up to 1.46e-4 of a leaf's largest magnitude (AdamW's
-m / sqrt(v) turns an element's gradient near zero into a step of up to the
-learning rate, whatever its size), and by at most 5.9e-6 in Frobenius norm;
-so 2e-5 of the largest magnitude element-wise is below the run's own noise,
-and the element-wise bar is ten times that noise, the Frobenius one about
-three times.  A gradient reduced over the wrong ranks moves the norm by a
+come from the 1x1 run's own noise (``tools/launch_ulp_spread.py --device
+cpu --weights`` on these cases' weights and steps, one torch thread): a
+1-ulp change of the embedding moves the 1x1 run's weights and moments by up
+to 5.9e-4 of a leaf's largest magnitude (AdamW's m / sqrt(v) turns an
+element's gradient near zero into a step of up to the learning rate,
+whatever its size) and qwen3-4b's by 1.59e-5 in Frobenius norm with the
+host's default GEMM path, 3.63e-5 with ``MKL_CBWR=COMPATIBLE
+ATEN_CPU_CAPABILITY=default``; the Frobenius bar is 3.3 times the larger
+(the multiple first taken over 5.9e-6, a spread measured from other
+weights).  The 2x2 path itself is exact: run in float64 throughout, qwen3's
+2x2 state lies 3.5e-15 from its 1x1 run's after three steps, so its gap in
+float32 (4.13e-5 and 2.83e-5 on those two paths) is rounding that AdamW
+amplifies.  A gradient reduced over the wrong ranks moves the norm by a
 percent (a MoE weight's gradient taken as whole where it was each rank's
 part gave 6.014 for 6.059).  The group times out after 300 s and
 every process is joined with a timeout, so a hung collective fails the
@@ -69,7 +74,7 @@ from repro_torch.training import checkpoint  # noqa: E402
 RANKS = 4
 JOIN_S = 300
 TOL = 1e-5  # relative, on each step's loss
-PARAM_TOL = 2e-5  # each weight and moment's gap to the 1x1 run's, relative Frobenius norm
+PARAM_TOL = 1.2e-4  # each weight and moment's gap to the 1x1 run's, relative Frobenius norm
 ELEM_TOL = 1.5e-3  # element-wise, of the 1x1 leaf's largest magnitude
 BATCH, SEQ, LR, WARMUP = 4, 128, 3e-3, 10
 ROOT = Path(__file__).resolve().parent.parent

@@ -18,6 +18,11 @@ each with the leaf that sets it.
         --change ulp bf16-ulp microbatch
 
 ``--full`` runs the published config; without it the reduced one.
+``--weights W.npz`` starts both runs from the weights in ``W.npz`` (the
+reference's tree flattened as ``{"a/b/c": array}``, as
+``tests/test_torch_launch_mesh.py`` writes ``weights_<arch>.npz`` for its
+ranks) in place of ``torch.Generator`` seed 0's; the 1x1 runs of that test
+start from those.
 """
 
 from __future__ import annotations
@@ -30,8 +35,27 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
 
+def _npz_params(path: str, cfg):
+    """The weights of ``path`` (a flattened reference tree) as the port's
+    ``Params`` on the CPU."""
+    import numpy as np
+
+    from repro_torch.convert import encdec_params_from_numpy, lm_params_from_numpy
+
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, name = key.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[name] = z[key]
+    from_numpy = encdec_params_from_numpy if cfg.is_encdec else lm_params_from_numpy
+    return from_numpy(tree, cfg, "cpu")
+
+
 def spread(arch: str, steps: int, batch: int, seq: int, device: str, full: bool,
-           change: str = "ulp") -> dict:
+           change: str = "ulp", weights_npz: str | None = None) -> dict:
     import dataclasses
 
     import torch
@@ -45,7 +69,8 @@ def spread(arch: str, steps: int, batch: int, seq: int, device: str, full: bool,
             api = real(cfg)
 
             def init(generator, device_=None):
-                p = api.init(torch.Generator().manual_seed(0), "cpu")
+                p = (_npz_params(weights_npz, cfg) if weights_npz
+                     else api.init(torch.Generator().manual_seed(0), "cpu"))
                 w = p["tok_embed"].data
                 up = torch.full_like(w, float("inf"))
                 if nudge and change == "ulp":
@@ -95,12 +120,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--weights", default=None, help="start from this npz's weights")
     ap.add_argument("--change", nargs="+", default=["ulp"],
                     choices=["ulp", "bf16-ulp", "microbatch"])
     args = ap.parse_args(argv)
     for arch in args.arch:
         for change in args.change:
-            r = spread(arch, args.steps, args.batch, args.seq, args.device, args.full, change)
+            r = spread(arch, args.steps, args.batch, args.seq, args.device, args.full, change,
+                       args.weights)
             print(f"{arch}, {change}: losses {r['loss']:.3e} relative; weights and moments "
                   f"{r['elementwise'][0]:.3e} of the leaf's largest magnitude "
                   f"({r['elementwise'][1]}), {r['frobenius'][0]:.3e} in Frobenius norm "
